@@ -1,19 +1,27 @@
-"""Smoke run of the PyTorch port on one NVIDIA GPU: kernels, then the main path.
+"""Smoke run of the PyTorch port on one NVIDIA GPU: kernels, then the main paths.
 
     python3 chip_smoke.py [--seed 0]
 
 1. Builds the hand-written kernels of ``videollamb_torch/csrc`` with nvcc
-   (sm_90a) and holds each against its plain PyTorch version at the shapes
-   the main path gives it, in bf16, with CUDA-event times of both.
-2. Answers four requests with VideoLLaMB-7B at full width and depth
-   (``ModelConfig()`` defaults, seeded random bf16 weights) through
-   ``videollamb_torch.models.engine.generate``: B=1 with 16, 32 and 64
-   frames at 224x224, then B=2 with ragged prompts. Each request is
-   greedy with 32 new tokens. The kernels' launch counters are zeroed
-   before the requests and must all be non-zero after them.
-3. Holds the kernel path against the plain path on a small input: a
+   (sm_90a, one nvcc per source, all at once) and holds each against its
+   plain PyTorch version at the shapes the main paths give it, with
+   CUDA-event times of both, of one PyTorch library call computing the same
+   function where there is one, and the least time the card could take.
+2. Offline video QA: answers four requests with VideoLLaMB-7B at full width
+   and depth (``ModelConfig()`` defaults, seeded random bf16 weights)
+   through ``videollamb_torch.models.engine.generate``: B=1 with 16, 32 and
+   64 frames at 224x224, then B=2 with ragged prompts, greedy, 32 new
+   tokens. K1-K3's launch counters are zeroed before the requests and must
+   be non-zero after them.
+3. Paged continuous batching, on the same model: a ``PagedServingEngine``
+   with int8 pages and 8 slots serves 12 requests (16-frame videos, mixed
+   prompt lengths, greedy, 32 new tokens, 8 decode steps per host sync),
+   then one with bf16 pages serves 4. K4 and K5 must launch in the first
+   run and K6 in the second.
+4. Holds the kernel paths against the plain paths on a small input: a
    depth-cut model at full width runs on the card (kernels, bf16) and on
-   the host (plain versions, f32) from the same weights.
+   the host (plain versions, f32) from the same weights, through the
+   prefill and through two paged decode steps of each pool type.
 
 Prints the card's name and power limit, one JSON line with the kernels'
 numbers, and as its last line ``{"ok": true, "device": {...}}``. Exits
@@ -32,14 +40,30 @@ import time
 
 import torch
 
-# Tolerances of kernel vs plain version, both bf16 on the card. Both round
-# their outputs to bf16 (relative step 2^-8) and sum in different orders;
-# the flash kernel also rounds its probabilities against a running max.
+# Tolerances of kernel vs plain version on the card. K1-K3 round their
+# outputs to bf16 (relative step 2^-8) and sum in other orders; the flash
+# kernel also rounds its probabilities against a running max.
 KERNEL_ATOL = 1e-2
 KERNEL_RTOL = 2e-2
+# K4 and K6 return f32 (m, l) statistics, equal up to summation order; K4's
+# output may move by one int8 step of its probability requantisation, which
+# a 1-ulp difference in exp can flip; K6 sums bf16 K/V in f32.
+STATS_TOL = 1e-5
+K4_OUT_TOL = 2e-3  # of max |out|
+K6_OUT_TOL = 1e-4  # of max |out|
 # Kernel path (bf16, card) vs plain path (f32, host) on the depth-cut model:
-# relative L2 error of the tower features and of the prefill logits.
+# relative L2 error of the tower features and of the logits.
 PATH_REL_L2 = 5e-2
+
+# H100 SXM peaks (NVIDIA data sheet, dense): device memory and the
+# operation rates of the inputs' types.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12}
+
+# Main-path shapes of the paged decode step at 7B, 8 slots (serve/paged.py
+# defaults): page 64, 40 pages per slot, 321 pages, 512-token K4 blocks.
+PAGE, PPS, POOL_PAGES = 64, 40, 321
+PAGED_LENGTHS = [0, 300, 517, 1024, 1500, 2047, 2500, 1777]
 
 
 def card_line() -> str:
@@ -62,25 +86,57 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def compare(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
+def bound(nbytes: float, ops: float, kind: str):
+    """(least ms the card could take, what bounds it)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[kind]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def compare(name: str, got: torch.Tensor, want: torch.Tensor, atol: float = KERNEL_ATOL,
+            rtol: float = KERNEL_RTOL) -> float:
     got, want = got.float(), want.float()
-    if got.shape != want.shape or not torch.isfinite(got).all():
+    finite = torch.isfinite(want)
+    if got.shape != want.shape or not torch.equal(torch.isfinite(got), finite):
         raise AssertionError(f"{name}: shape {tuple(got.shape)} vs {tuple(want.shape)} "
-                             "or non-finite output")
+                             "or non-finite entries differ")
+    got = torch.where(finite, got, 0.0)
+    want = torch.where(finite, want, 0.0)
     err = (got - want).abs()
-    bound = KERNEL_ATOL + KERNEL_RTOL * want.abs()
     max_abs = float(err.max())
-    rel = float(err.max() / want.abs().max())
-    ok = bool((err <= bound).all())
-    print(f"[kernel] {name}: max_abs_err={max_abs:.3e} max_rel_err={rel:.3e} "
-          f"tol=atol {KERNEL_ATOL} + rtol {KERNEL_RTOL} -> {'ok' if ok else 'FAIL'}")
+    ok = bool((err <= atol + rtol * want.abs()).all())
+    print(f"[kernel] {name}: max_abs_err={max_abs:.3e} tol=atol {atol:.3e} + rtol {rtol} "
+          f"-> {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{name}: kernel disagrees with its plain version")
     return max_abs
 
 
+def _paged_table(lengths, seed: int):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    perm = torch.randperm(POOL_PAGES - 1, generator=g) + 1
+    table = torch.zeros((len(lengths), PPS), dtype=torch.int32)
+    nxt = 0
+    for i, n in enumerate(lengths):
+        used = -(-n // PAGE)
+        table[i, :used] = perm[nxt:nxt + used]
+        nxt += used
+    return table.cuda(), torch.tensor(lengths, dtype=torch.int32, device="cuda")
+
+
 def kernel_phase(g: torch.Generator) -> dict:
+    import torch.nn.functional as F
+
     from videollamb_torch.ops.flash_attention import flash_attention, flash_attention_reference
+    from videollamb_torch.ops.gathered_paged_attention import (
+        _pick_ppb,
+        gathered_paged_attention_int8,
+        gathered_paged_attention_int8_reference,
+    )
+    from videollamb_torch.ops.paged_attention_stats import (
+        attend_paged_with_stats_xla,
+        paged_attention_with_stats,
+    )
+    from videollamb_torch.ops.paged_fresh_write import paged_fresh_write, paged_fresh_write_xla
     from videollamb_torch.ops.spatial_attention import (
         fused_spatial_core_packed, spatial_core_packed_reference)
     from videollamb_torch.ops.temporal_attention import (
@@ -92,23 +148,37 @@ def kernel_phase(g: torch.Generator) -> dict:
     def randn(*shape, scale=1.0):
         return (torch.randn(shape, generator=g, device=dev) * scale).to(bf)
 
+    def heads(x, h):  # (B, N, h * e) -> (B, h, N, e), contiguous
+        b, n, d = x.shape
+        return x.reshape(b, n, h, d // h).transpose(1, 2).contiguous()
+
     # K1: 64 frames x 257 tokens x 16 heads of 64 (the 64-frame request).
     q, k, v = randn(64, 257, 1024, scale=0.125), randn(64, 257, 1024), randn(64, 257, 1024)
     err = compare("spatial (64, 257, 1024)", fused_spatial_core_packed(q, k, v, heads=16),
                   spatial_core_packed_reference(q, k, v, 16))
+    q4, k4, v4 = (heads(x, 16) for x in (q, k, v))
     results["spatial_attention"] = dict(
         max_abs_err=err,
         ms=cuda_ms(lambda: fused_spatial_core_packed(q, k, v, heads=16)),
-        plain_ms=cuda_ms(lambda: spatial_core_packed_reference(q, k, v, 16)))
+        plain_ms=cuda_ms(lambda: spatial_core_packed_reference(q, k, v, 16)),
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=1.0)),
+        bound=bound(4 * q.numel() * 2, 4 * 64 * 16 * 257 * 257 * 64, "bf16"))
 
     # K2: 8 windows x 8 frames x 257 positions, packed [q*s | k | v] of 3 x 1024.
     qkv = torch.cat([randn(8, 8, 257, 1024, scale=0.125), randn(8, 8, 257, 2048)], dim=-1)
     err = compare("temporal (8, 8, 257, 3072)", fused_temporal_core_fm3(qkv, num_heads=16),
                   temporal_core_fm3_reference(qkv, 16))
+    # SDPA over frames: (b * n, heads, t, e).
+    tq, tk, tv = (qkv[..., i * 1024:(i + 1) * 1024].permute(0, 2, 1, 3).reshape(8 * 257, 8, 1024)
+                  for i in range(3))
+    tq, tk, tv = (heads(x, 16) for x in (tq, tk, tv))
     results["temporal_attention"] = dict(
         max_abs_err=err,
         ms=cuda_ms(lambda: fused_temporal_core_fm3(qkv, num_heads=16)),
-        plain_ms=cuda_ms(lambda: temporal_core_fm3_reference(qkv, 16)))
+        plain_ms=cuda_ms(lambda: temporal_core_fm3_reference(qkv, 16)),
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(tq, tk, tv, scale=1.0)),
+        bound=bound(qkv.numel() * 2 + qkv.numel() // 3 * 2, 4 * 8 * 257 * 16 * 8 * 8 * 64,
+                    "bf16"))
 
     # K3: LM prefill (B, 32, 2048, 128), causal, padded key tails.
     errs = []
@@ -119,11 +189,94 @@ def kernel_phase(g: torch.Generator) -> dict:
                             flash_attention(q, k, v, mask, causal=True),
                             flash_attention_reference(q, k, v, mask, causal=True)))
         if b == 1:
-            ms = cuda_ms(lambda: flash_attention(q, k, v, mask, causal=True))
-            plain_ms = cuda_ms(lambda: flash_attention_reference(q, k, v, mask, causal=True))
-    results["flash_attention"] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms)
+            causal = torch.ones((2048, 2048), dtype=torch.bool, device=dev).tril()
+            sdpa_mask = (causal & mask[:, None, :])[:, None]  # (1, 1, 2048, 2048)
+            pairs = sum(min(i + 1, valid[0]) for i in range(2048))
+            results["flash_attention"] = dict(
+                ms=cuda_ms(lambda: flash_attention(q, k, v, mask, causal=True)),
+                plain_ms=cuda_ms(lambda: flash_attention_reference(q, k, v, mask, causal=True)),
+                library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=sdpa_mask)),
+                bound=bound(4 * q.numel() * 2 + 2048, 4 * 32 * 128 * pairs, "bf16"))
+    results["flash_attention"]["max_abs_err"] = max(errs)
+
+    # K4-K6: one decode step's attention and install at 7B, 8 slots, ragged
+    # lengths with a zero-length slot; the int8 pools hold all 32 layers.
+    n_slots, layers, h, dh = len(PAGED_LENGTHS), 32, 32, 128
+    kd, tokens = h * dh, sum(PAGED_LENGTHS)
+    table, lens = _paged_table(PAGED_LENGTHS, seed=5)
+    pools = [torch.randint(-128, 128, (layers, POOL_PAGES, PAGE, kd), generator=g, device=dev,
+                           dtype=torch.int8) for _ in range(2)]
+    scales = [torch.rand((POOL_PAGES, PAGE, h), generator=g, device=dev) * 0.1 + 1e-3
+              for _ in range(2)]
+    q = torch.randn((n_slots, h, dh), generator=g, device=dev) * dh ** -0.5
+    ppb, layer = _pick_ppb(PPS, PAGE), 7
+    args = (q, pools[0][layer], pools[1][layer], table, lens, *scales)
+    got = gathered_paged_attention_int8(*args, pages_per_block=ppb)
+    want = gathered_paged_attention_int8_reference(*args, pages_per_block=ppb)
+    errs = [compare("gathered int8 m", got[1], want[1], STATS_TOL, STATS_TOL),
+            compare("gathered int8 l", got[2], want[2], STATS_TOL, STATS_TOL),
+            compare("gathered int8 out (8, 32, 128), ragged to 2500 tokens", got[0], want[0],
+                    K4_OUT_TOL * float(want[0].abs().max()), 0.0)]
+    results["gathered_paged_attention"] = dict(
+        max_abs_err=max(errs),
+        ms=cuda_ms(lambda: gathered_paged_attention_int8(*args, pages_per_block=ppb)),
+        plain_ms=cuda_ms(lambda: gathered_paged_attention_int8_reference(
+            *args, pages_per_block=ppb)),
+        library_ms=None,
+        bound=bound(tokens * (2 * kd + 2 * h * 4) + 2 * q.numel() * 4 + 2 * n_slots * h * 4
+                    + table.numel() * 4, 4 * tokens * h * dh, "int8"))
+
+    # K5: install 8 slots' rows of all 32 layers; two slots on the trash page.
+    fresh = [torch.randint(-128, 128, (layers, n_slots, kd), generator=g, device=dev,
+                           dtype=torch.int8) for _ in range(2)]
+    write_page = table[torch.arange(n_slots, device=dev), (lens.long() // PAGE).clamp(max=PPS - 1)]
+    write_off = lens % PAGE
+    want = paged_fresh_write_xla(*(p.clone() for p in pools), *fresh, write_page, write_off)
+    got = paged_fresh_write(*pools, *fresh, write_page, write_off)
+    torch.cuda.synchronize()
+    for name, a, w in (("K", got[0], want[0]), ("V", got[1], want[1])):
+        if not torch.equal(a[:, 1:], w[:, 1:]):
+            raise AssertionError(f"fresh write: {name} pool differs outside page 0")
+    print("[kernel] fresh write (32, 321, 64, 4096) x 8 slots: equal outside page 0 -> ok")
+    del want
+    flat = [p.view(layers, POOL_PAGES * PAGE, kd) for p in pools]
+    rows = (torch.arange(layers, device=dev)[:, None], (write_page * PAGE + write_off)[None].long())
+
+    def library_write():
+        for pool, rows_in in zip(flat, fresh):
+            pool.index_put_(rows, rows_in)
+
+    results["paged_fresh_write"] = dict(
+        max_abs_err=0.0,
+        ms=cuda_ms(lambda: paged_fresh_write(*pools, *fresh, write_page, write_off)),
+        plain_ms=cuda_ms(lambda: paged_fresh_write_xla(*pools, *fresh, write_page, write_off)),
+        library_ms=cuda_ms(library_write),
+        bound=bound(4 * layers * n_slots * kd + 2 * n_slots * 4, 0, "int8"))
+    del pools, flat, fresh
+
+    # K6: one layer of the bf16 head-major pool.
+    k6 = [torch.randn((h, POOL_PAGES, PAGE, dh), generator=g, device=dev).to(bf)
+          for _ in range(2)]
+    got = paged_attention_with_stats(q, *k6, lens, table)
+    want = attend_paged_with_stats_xla(q, *k6, table, lens)
+    errs = [compare("paged bf16 m", got[1], want[1], STATS_TOL, STATS_TOL),
+            compare("paged bf16 l", got[2], want[2], STATS_TOL, STATS_TOL),
+            compare("paged bf16 out (8, 32, 128), ragged to 2500 tokens", got[0], want[0],
+                    K6_OUT_TOL * float(want[0].abs().max()), 0.0)]
+    results["paged_attention_stats"] = dict(
+        max_abs_err=max(errs),
+        ms=cuda_ms(lambda: paged_attention_with_stats(q, *k6, lens, table)),
+        plain_ms=cuda_ms(lambda: attend_paged_with_stats_xla(q, *k6, table, lens)),
+        library_ms=None,
+        bound=bound(tokens * h * dh * 2 * 2 + 2 * q.numel() * 4 + 2 * n_slots * h * 4
+                    + table.numel() * 4, 4 * tokens * h * dh, "bf16"))
+    del k6
+    torch.cuda.empty_cache()
     for name, r in results.items():
-        print(f"[kernel] {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms")
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+        print(f"[kernel] {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+              f"library {lib}, bound {r['bound'][0]:.4f} ms ({r['bound'][1]})")
     return results
 
 
@@ -152,19 +305,34 @@ def make_batch(cfg, g: torch.Generator, prompt_lens, frames: int):
     return MultimodalBatch(input_ids=ids, attention_mask=mask.long(), videos=videos)
 
 
-def slice_phase(g: torch.Generator, seed: int) -> dict:
-    from videollamb_torch.config import ModelConfig
-    from videollamb_torch.models.engine import generate
+def counters():
     from videollamb_torch.ops.flash_attention import flash_attention
+    from videollamb_torch.ops.gathered_paged_attention import gathered_paged_attention_int8
+    from videollamb_torch.ops.paged_attention_stats import paged_attention_with_stats
+    from videollamb_torch.ops.paged_fresh_write import paged_fresh_write
     from videollamb_torch.ops.spatial_attention import fused_spatial_core_packed
     from videollamb_torch.ops.temporal_attention import fused_temporal_core_fm3
 
-    cfg = ModelConfig()
-    t0 = time.perf_counter()
-    model = build_model(cfg, seed, "cuda", torch.bfloat16)
-    torch.cuda.synchronize()
-    print(f"[slice] VideoLLaMB-7B bf16 built in {time.perf_counter() - t0:.1f} s, "
-          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    return {"spatial_attention": fused_spatial_core_packed,
+            "temporal_attention": fused_temporal_core_fm3,
+            "flash_attention": flash_attention,
+            "gathered_paged_attention": gathered_paged_attention_int8,
+            "paged_fresh_write": paged_fresh_write,
+            "paged_attention_stats": paged_attention_with_stats}
+
+
+def zero_counters() -> None:
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_counters() -> dict:
+    return {name: fn.launches for name, fn in counters().items()}
+
+
+def slice_phase(model, cfg, g: torch.Generator) -> dict:
+    from videollamb_torch.models.engine import generate
+
     requests = [([40], 16), ([41], 32), ([39], 64), ([40, 27], 32)]
     batches = [make_batch(cfg, g, lens, frames) for lens, frames in requests]
     new = 32
@@ -172,9 +340,7 @@ def slice_phase(g: torch.Generator, seed: int) -> dict:
     generate(model, cfg, batches[0], **kw)  # warm-up: cuBLAS handles, kernel library
     torch.cuda.synchronize()
 
-    counters = (fused_spatial_core_packed, fused_temporal_core_fm3, flash_attention)
-    for fn in counters:
-        fn.launches = 0
+    zero_counters()
     stats = []
     for (lens, frames), batch in zip(requests, batches):
         t0 = time.perf_counter()
@@ -193,25 +359,87 @@ def slice_phase(g: torch.Generator, seed: int) -> dict:
             raise AssertionError(f"request {lens}x{frames}: bad tokens {toks.tolist()}")
         decoded = int(res.lengths.sum()) - b
         rate = decoded / max(total - ttft, 1e-9)
-        stats.append(dict(batch=b, frames=frames, prompt_lens=lens, ttft_s=ttft,
-                          decode_tok_s=rate, total_s=total))
+        stats.append(dict(path="generate", batch=b, frames=frames, prompt_lens=lens,
+                          ttft_s=ttft, decode_tok_s=rate, total_s=total))
         print(f"[slice] B={b} frames={frames} prompt={lens}: TTFT {ttft * 1e3:.1f} ms, "
               f"decode {rate:.1f} tok/s, total {total:.2f} s, first tokens "
               f"{toks[:, :8].tolist()}")
-    launches = {fn.__name__: fn.launches for fn in counters}
+    launches = read_counters()
     print(f"[slice] launches during the requests: {launches}")
-    if min(launches.values()) == 0:
-        raise AssertionError(f"a kernel of the main path was never launched: {launches}")
-    del model
-    torch.cuda.empty_cache()
+    for name in ("spatial_attention", "temporal_attention", "flash_attention"):
+        if launches[name] == 0:
+            raise AssertionError(f"kernel {name} of the offline path was never launched")
     return dict(stats=stats, launches=launches)
+
+
+def serve_run(model, cfg, g, *, quantize_kv: bool, prompt_lens, frames: int, new: int,
+              k: int, label: str) -> dict:
+    from videollamb_torch.serve.paged import PagedServingEngine
+    from videollamb_torch.serve.server import Request
+
+    engine = PagedServingEngine(model, cfg, num_slots=8, quantize_kv=quantize_kv,
+                                eos_token_id=-1)
+    first_token = {}
+    reqs = [Request(uid=i, batch=make_batch(cfg, g, [n], frames), max_new_tokens=new,
+                    on_token=lambda r, tok: first_token.setdefault(r.uid, time.perf_counter()))
+            for i, n in enumerate(prompt_lens)]
+    torch.cuda.synchronize()
+    zero_counters()
+    t0 = time.perf_counter()
+    for r in reqs:
+        engine.submit(r)
+    done = engine.run_until_drained(k=k)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counters()
+    ttft = [first_token[r.uid] - t0 for r in reqs]
+    n_tokens = sum(len(r.tokens) for r in reqs)
+    for r in reqs:
+        if (len(r.tokens) != new or r.error or min(r.tokens) < 0
+                or max(r.tokens) >= cfg.lm.vocab_size):
+            raise AssertionError(f"{label} request {r.uid}: bad result {r.error} {r.tokens}")
+    if len(done) != len(reqs) or engine.allocator.free_pages != engine.total_pages - 1:
+        raise AssertionError(f"{label}: requests or pages not returned")
+    print(f"[serve] {label}: {len(reqs)} requests, {n_tokens} tokens in {wall:.2f} s, "
+          f"{n_tokens / wall:.1f} tok/s aggregate, TTFT ms "
+          f"{[round(t * 1e3, 1) for t in ttft]}, launches {launches}")
+    for r in reqs[:4]:
+        print(f"[serve] {label} request {r.uid} first tokens {r.tokens[:8]}")
+    del engine
+    torch.cuda.empty_cache()
+    return dict(path=f"paged {label}", requests=len(reqs), frames=frames,
+                prompt_lens=list(prompt_lens), new_tokens=new, sync_every=k, wall_s=wall,
+                tok_s=n_tokens / wall, ttft_s=ttft, launches=launches)
+
+
+def serving_phase(model, cfg, g: torch.Generator) -> dict:
+    # Warm-up: the first paged step of each pool type (allocator, kernels).
+    for quantize_kv in (True, False):
+        serve_run(model, cfg, g, quantize_kv=quantize_kv, prompt_lens=[30], frames=16,
+                  new=2, k=2, label="warm-up")
+    int8 = serve_run(model, cfg, g, quantize_kv=True, frames=16, new=32, k=8,
+                     prompt_lens=[24, 90, 40, 61, 33, 77, 52, 45, 28, 86, 70, 36],
+                     label="int8 pages, 8 slots")
+    bf16 = serve_run(model, cfg, g, quantize_kv=False, frames=16, new=32, k=8,
+                     prompt_lens=[40, 75, 29, 58], label="bf16 pages, 8 slots")
+    for name in ("gathered_paged_attention", "paged_fresh_write"):
+        if int8["launches"][name] == 0:
+            raise AssertionError(f"kernel {name} was never launched by the int8 paged run")
+    if bf16["launches"]["paged_attention_stats"] == 0:
+        raise AssertionError("kernel paged_attention_stats was never launched by the bf16 run")
+    if int8["launches"]["paged_attention_stats"] or bf16["launches"]["gathered_paged_attention"]:
+        raise AssertionError("a paged run took the other pool type's kernel")
+    return dict(stats=[int8, bf16],
+                launches={**int8["launches"],
+                          "paged_attention_stats": bf16["launches"]["paged_attention_stats"]})
 
 
 def reference_phase(g: torch.Generator, seed: int) -> None:
     """Kernel path (card, bf16) vs plain path (host, f32) on a depth-cut model."""
     from videollamb_torch.config import ModelConfig
     from videollamb_torch.models.assembly import prepare_multimodal_embeds
-    from videollamb_torch.models.lm.llama import init_kv_cache, llama_prefill
+    from videollamb_torch.models.lm.llama import embed_tokens, init_kv_cache, llama_prefill
+    from videollamb_torch.models.lm.paged import fused_admit, init_paged_cache, paged_decode_step
     from videollamb_torch.models.vision.clip_vit import vision_encode
 
     base = ModelConfig()
@@ -227,7 +455,7 @@ def reference_phase(g: torch.Generator, seed: int) -> None:
 
     feats_gpu = vision_encode(gpu.video_tower, batch.videos, cfg.vision)
     feats_cpu = vision_encode(cpu.video_tower, batch.videos.float().cpu(), cfg.vision)
-    err_feats = rel_l2(feats_gpu, feats_cpu)
+    errs = {"tower features": rel_l2(feats_gpu, feats_cpu)}
     spliced = prepare_multimodal_embeds(gpu, cfg, batch)
     logits = []
     for model, dev, dtype in ((gpu, "cuda", torch.bfloat16), (cpu, "cpu", torch.float32)):
@@ -235,13 +463,53 @@ def reference_phase(g: torch.Generator, seed: int) -> None:
         out, _ = llama_prefill(model.lm, cfg.lm, spliced.embeds.to(dev, dtype),
                                spliced.attention_mask.to(dev), cache)
         logits.append(out)
-    err_logits = rel_l2(*logits)
-    ok = err_feats <= PATH_REL_L2 and err_logits <= PATH_REL_L2
-    print(f"[reference] depth-cut model, kernels bf16 vs plain f32: tower features "
-          f"rel_l2={err_feats:.3e}, prefill logits rel_l2={err_logits:.3e}, "
-          f"tol {PATH_REL_L2} -> {'ok' if ok else 'FAIL'}")
+    errs["prefill logits"] = rel_l2(*logits)
+
+    # Paged admission of the same splice and two decode steps with forced
+    # tokens, per pool type, two slots (the second empty): the card runs K4
+    # and K5 (int8 pages) or K6 (bf16 pages), the host the XLA twins.
+    prompt_len = int(spliced.attention_mask.sum())
+    pages = list(range(1, 1 + -(-(prompt_len + 2) // PAGE)))
+    page_ids = pages + [0] * (PPS - len(pages))
+    forced = [[101, 7], [2024, 9]]
+    for quantize_kv in (True, False):
+        step_logits = []
+        for model, dev, dtype in ((gpu, "cuda", torch.bfloat16), (cpu, "cpu", torch.float32)):
+            cache = init_paged_cache(cfg.lm, 2, 1 + 2 * PPS, PAGE, PPS, dtype,
+                                     quantize=quantize_kv, device=dev)
+            first = torch.zeros((2, cfg.lm.vocab_size), device=dev)
+            fused_admit(model.lm, cfg.lm, spliced.embeds.to(dev, dtype),
+                        spliced.attention_mask.to(dev), prompt_len, cache, first, 0, page_ids)
+            for tok in forced:
+                out = paged_decode_step(model.lm, cfg.lm, embed_tokens(
+                    model.lm, torch.tensor(tok, device=dev)[:, None]), cache)
+            step_logits.append(out[0])
+        errs[f"paged decode logits, {'int8' if quantize_kv else 'bf16'} pages"] = rel_l2(
+            *step_logits)
+        if not torch.isfinite(step_logits[0]).all():
+            raise AssertionError("non-finite paged decode logits on the card")
+    ok = all(e <= PATH_REL_L2 for e in errs.values())
+    print(f"[reference] depth-cut model, kernels bf16 vs plain f32, rel_l2: "
+          f"{ {k: f'{v:.3e}' for k, v in errs.items()} }, tol {PATH_REL_L2} -> "
+          f"{'ok' if ok else 'FAIL'}")
     if not ok or not all(torch.isfinite(x).all() for x in (feats_gpu, logits[0])):
         raise AssertionError("kernel path disagrees with the plain path")
+
+
+SOURCES = {  # name -> (source, TPU kernel it replaces)
+    "spatial_attention": ("videollamb_torch/csrc/spatial_attention.cu",
+                          "videollamb_tpu/ops/spatial_attention.py:122"),
+    "temporal_attention": ("videollamb_torch/csrc/temporal_attention.cu",
+                           "videollamb_tpu/ops/temporal_attention.py:207"),
+    "flash_attention": ("videollamb_torch/csrc/flash_attention.cu",
+                        "videollamb_tpu/ops/flash_attention.py:93"),
+    "gathered_paged_attention": ("videollamb_torch/csrc/gathered_paged_attention.cu",
+                                 "videollamb_tpu/ops/gathered_paged_attention.py:273"),
+    "paged_fresh_write": ("videollamb_torch/csrc/paged_fresh_write.cu",
+                          "videollamb_tpu/ops/paged_fresh_write.py:81"),
+    "paged_attention_stats": ("videollamb_torch/csrc/paged_attention_stats.cu",
+                              "videollamb_tpu/ops/paged_attention_stats.py:36"),
+}
 
 
 def main() -> int:
@@ -255,6 +523,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.set_grad_enabled(False)
 
+    from videollamb_torch.config import ModelConfig
     from videollamb_torch.kernels import build as kb
 
     card = card_line()
@@ -264,28 +533,35 @@ def main() -> int:
     kb.kernels()
     print(f"[build] {lib_path.name} ready in {time.perf_counter() - t0:.1f} s")
     for line in lib_path.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"[build] {line.strip()}")
 
     g = torch.Generator(device="cuda").manual_seed(args.seed)
     kernels = kernel_phase(g)
-    sliced = slice_phase(g, args.seed)
+    cfg = ModelConfig()
+    t0 = time.perf_counter()
+    model = build_model(cfg, args.seed, "cuda", torch.bfloat16)
+    torch.cuda.synchronize()
+    print(f"[model] VideoLLaMB-7B bf16 built in {time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    sliced = slice_phase(model, cfg, g)
+    served = serving_phase(model, cfg, g)
+    del model
+    torch.cuda.empty_cache()
     reference_phase(g, args.seed)
 
-    names = {"spatial_attention": ("fused_spatial_core_packed",
-                                   "videollamb_tpu/ops/spatial_attention.py:122"),
-             "temporal_attention": ("fused_temporal_core_fm3",
-                                    "videollamb_tpu/ops/temporal_attention.py:207"),
-             "flash_attention": ("flash_attention", "videollamb_tpu/ops/flash_attention.py:93")}
+    launches = {**{k: sliced["launches"][k] for k in
+                   ("spatial_attention", "temporal_attention", "flash_attention")},
+                **{k: served["launches"][k] for k in
+                   ("gathered_paged_attention", "paged_fresh_write", "paged_attention_stats")}}
     rows = []
-    for key, (fn_name, replaces) in names.items():
-        r = kernels[key]
-        rows.append({"name": key, "route": "cuda",
-                     "source": f"videollamb_torch/csrc/{key}.cu", "replaces": replaces,
-                     "launches": sliced["launches"][fn_name],
-                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                     "plain_ms": r["plain_ms"]})
-    print(json.dumps({"requests": sliced["stats"]}))
+    for name, (source, replaces) in SOURCES.items():
+        r = kernels[name]
+        rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                     "launches": launches[name], "max_abs_err": r["max_abs_err"],
+                     "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+                     "bound_by": r["bound"][1], "library_ms": r["library_ms"]})
+    print(json.dumps({"requests": sliced["stats"] + served["stats"]}))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

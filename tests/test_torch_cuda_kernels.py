@@ -8,8 +8,12 @@ so it also runs where jax is absent:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_kernels.py
 
 Shapes are the main path's: 257 tokens x 16 heads of 64 in the tower,
-(B, 32, 2048, 128) in the LM prefill. Tolerances: bf16 outputs (relative
-step 2^-8) and f32 sums taken in other orders, atol 1e-2 + rtol 2e-2.
+(B, 32, 2048, 128) in the LM prefill, the paged decode step's pools at 7B
+(plus small GQA cases). Tolerances: K1-K3 have bf16 outputs (relative step
+2^-8) and f32 sums taken in other orders, atol 1e-2 + rtol 2e-2. K4 and K6
+return f32 statistics (m, l) within 1e-5 and outputs within 2e-3 (K4: one
+int8 step of the probability requantisation) or 1e-4 (K6) of max|out|. K5
+is a copy: exact outside the trash page.
 """
 
 from __future__ import annotations
@@ -18,6 +22,15 @@ import pytest
 import torch
 
 from videollamb_torch.ops.flash_attention import flash_attention, flash_attention_reference
+from videollamb_torch.ops.gathered_paged_attention import (
+    gathered_paged_attention_int8,
+    gathered_paged_attention_int8_reference,
+)
+from videollamb_torch.ops.paged_attention_stats import (
+    attend_paged_with_stats_xla,
+    paged_attention_with_stats,
+)
+from videollamb_torch.ops.paged_fresh_write import paged_fresh_write, paged_fresh_write_xla
 from videollamb_torch.ops.spatial_attention import (
     fused_spatial_core_packed,
     spatial_core_packed_reference,
@@ -89,11 +102,102 @@ def test_flash_kernel_matches_plain(dev, b, h, s, dh, lengths, causal):
 
 
 @pytest.mark.cuda
-def test_flash_kernel_gives_zero_on_rows_without_a_valid_key(dev):
+def test_flash_kernel_gives_mean_of_v_on_rows_without_a_valid_key(dev):
     q, k, v = (_randn(dev, 1, 2, 70, 64, seed=9 + i) for i in range(3))
     mask = torch.arange(70, device=dev)[None] >= 6  # keys 0..5 padded (left padding)
     got = flash_attention(q, k, v, mask, causal=True)
-    torch.testing.assert_close(got[:, :, :6].float(), torch.zeros_like(got[:, :, :6].float()))
+    mean_v = v.float().mean(dim=2, keepdim=True).expand(-1, -1, 6, -1)
+    torch.testing.assert_close(got[:, :, :6].float(), mean_v, **TOL)
     torch.testing.assert_close(got.float(),
                                flash_attention_reference(q, k, v, mask, causal=True).float(),
                                **TOL)
+
+
+def _paged_case(dev, b, lengths, page, pps, p_total, seed):
+    """A page table of disjoint random pages (from page 1 on) per slot."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    perm = torch.randperm(p_total - 1, generator=g) + 1
+    table = torch.zeros((b, pps), dtype=torch.int32)
+    nxt = 0
+    for i, n in enumerate(lengths):
+        used = -(-n // page)
+        table[i, :used] = perm[nxt:nxt + used]
+        nxt += used
+    return table.to(dev), torch.tensor(lengths, dtype=torch.int32, device=dev)
+
+
+def _assert_stats_close(got, want, out_tol):
+    out, m, l = (x.float() for x in got)
+    w_out, w_m, w_l = (x.float() for x in want)
+    torch.testing.assert_close(m, w_m, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(l, w_l, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(out, w_out, rtol=0, atol=out_tol * float(w_out.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,h_kv,page,pps,ppb,lengths", [
+    (32, 32, 64, 40, 8, [0, 300, 517, 1024, 1500, 2047, 2560, 1777]),  # 7B serving shape
+    (8, 2, 16, 8, 2, [5, 0, 128, 77]),                                  # GQA, small pages
+])
+def test_gathered_int8_kernel_matches_plain(dev, h, h_kv, page, pps, ppb, lengths):
+    b, p_total = len(lengths), 1 + len(lengths) * pps
+    g = torch.Generator(device=dev).manual_seed(11)
+    kd = h_kv * 128
+    k = torch.randint(-128, 128, (p_total, page, kd), generator=g, device=dev, dtype=torch.int8)
+    v = torch.randint(-128, 128, (p_total, page, kd), generator=g, device=dev, dtype=torch.int8)
+    ks = torch.rand((p_total, page, h_kv), generator=g, device=dev) + 0.05
+    vs = torch.rand((p_total, page, h_kv), generator=g, device=dev) + 0.05
+    q = torch.randn((b, h, 128), generator=g, device=dev) * 128 ** -0.5
+    table, lens = _paged_case(dev, b, lengths, page, pps, p_total, seed=12)
+    before = gathered_paged_attention_int8.launches
+    got = gathered_paged_attention_int8(q, k, v, table, lens, ks, vs, pages_per_block=ppb)
+    torch.cuda.synchronize()
+    assert gathered_paged_attention_int8.launches == before + 1
+    want = gathered_paged_attention_int8_reference(q, k, v, table, lens, ks, vs,
+                                                   pages_per_block=ppb)
+    _assert_stats_close(got, want, 2e-3)
+    zero = lens == 0
+    assert not got[0][zero].any() and torch.isneginf(got[1][zero]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,h_kv,page,pps,lengths", [
+    (32, 32, 64, 40, [0, 300, 517, 1024, 1500, 2047, 2560, 1777]),
+    (8, 2, 16, 8, [5, 0, 128, 77]),
+])
+def test_paged_stats_kernel_matches_plain(dev, h, h_kv, page, pps, lengths):
+    b, p_total = len(lengths), 1 + len(lengths) * pps
+    g = torch.Generator(device=dev).manual_seed(13)
+    shape = (h_kv, p_total, page, 128)
+    k = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+    v = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+    q = torch.randn((b, h, 128), generator=g, device=dev) * 128 ** -0.5
+    table, lens = _paged_case(dev, b, lengths, page, pps, p_total, seed=14)
+    before = paged_attention_with_stats.launches
+    got = paged_attention_with_stats(q, k, v, lens, table)
+    torch.cuda.synchronize()
+    assert paged_attention_with_stats.launches == before + 1
+    _assert_stats_close(got, attend_paged_with_stats_xla(q, k, v, table, lens), 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layers,p_total,page,kd,b", [(32, 321, 64, 4096, 8), (2, 9, 16, 256, 5)])
+def test_fresh_write_kernel_matches_plain(dev, layers, p_total, page, kd, b):
+    g = torch.Generator(device=dev).manual_seed(15)
+    pools = [torch.randint(-128, 128, (layers, p_total, page, kd), generator=g, device=dev,
+                           dtype=torch.int8) for _ in range(2)]
+    fresh = [torch.randint(-128, 128, (layers, b, kd), generator=g, device=dev,
+                           dtype=torch.int8) for _ in range(2)]
+    pages = torch.randperm(p_total - 1, device=dev)[:b].int() + 1
+    pages[1] = 0  # two slots on the trash page
+    pages[-1] = 0
+    offs = torch.randint(0, page, (b,), generator=g, device=dev, dtype=torch.int32)
+    want = paged_fresh_write_xla(*(p.clone() for p in pools), *fresh, pages, offs)
+    before = paged_fresh_write.launches
+    got = paged_fresh_write(*pools, *fresh, pages, offs)
+    torch.cuda.synchronize()
+    assert paged_fresh_write.launches == before + 1 and got[0] is pools[0]
+    for a, w in zip(got, want):
+        assert torch.equal(a[:, 1:], w[:, 1:])
+    with pytest.raises(ValueError):
+        paged_fresh_write(pools[0], pools[1], fresh[0].float(), fresh[1], pages, offs)

@@ -4,9 +4,8 @@ against the JAX package's XLA and chunked statements, through the port's
 plain version in test_torch_cuda_kernels.py.
 
 The JAX flash kernel has no interpret flag, so its XLA statement is the
-oracle. A query row with no valid key gives 0 in the port, but the mean of v
-in the XLA and chunked statements, so those rows are compared to 0 and the
-rest to JAX."""
+oracle, on every row: a query row with no valid key gives the mean of v in
+both packages."""
 
 from __future__ import annotations
 
@@ -20,7 +19,10 @@ import jax.numpy as jnp  # noqa: E402
 
 from videollamb_tpu.ops.attention import _chunked_attention, _xla_attention  # noqa: E402
 from videollamb_torch.ops.attention import multihead_attention  # noqa: E402
-from videollamb_torch.ops.flash_attention import flash_attention_reference  # noqa: E402
+from videollamb_torch.ops.flash_attention import (  # noqa: E402
+    flash_attention,
+    flash_attention_reference,
+)
 
 F32_TOL = dict(rtol=2e-5, atol=2e-5)
 
@@ -57,12 +59,28 @@ def test_plain_matches_xla_and_chunked(b, s, h, hkv, dh, lengths, causal):
 
 
 def test_rows_without_a_valid_key_give_zero():
+    """Rows 0..5 see only padded keys. They used to give 0 in the port; they
+    now give what ``_xla_attention`` gives there, the mean of v over all keys,
+    through the wrapper and through the plain version alike."""
     q, k, v, mask = _case(1, 37, 2, 2, 8, [37], seed=5, left_pad=6)
     xla = np.asarray(_xla_attention(*map(jnp.asarray, (q, k, v)), causal=True,
                                     k_mask=jnp.asarray(mask), scale=8 ** -0.5))
-    got = flash_attention_reference(
-        *(torch.from_numpy(x).transpose(1, 2) for x in (q, k, v)),
-        torch.from_numpy(mask), causal=True).transpose(1, 2).numpy()
-    np.testing.assert_array_equal(got[:, :6], 0.0)  # rows 0..5 see only padded keys
-    np.testing.assert_allclose(got[:, 6:], xla[:, 6:], **F32_TOL)
+    args = [torch.from_numpy(x).transpose(1, 2) for x in (q, k, v)]
+    for fn in (flash_attention, flash_attention_reference):
+        got = fn(*args, torch.from_numpy(mask), causal=True).transpose(1, 2).numpy()
+        np.testing.assert_allclose(got[:, :6], np.broadcast_to(v.mean(axis=1, keepdims=True),
+                                                               (1, 6, 2, 8)), **F32_TOL)
+        np.testing.assert_allclose(got, xla, **F32_TOL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_wrapper_matches_xla_when_a_whole_row_is_masked(causal):
+    """A batch row whose keys are all padded: every query row of it has no
+    valid key, causal or not."""
+    q, k, v, mask = _case(2, 19, 2, 2, 8, [19, 0], seed=7)
+    xla = np.asarray(_xla_attention(*map(jnp.asarray, (q, k, v)), causal=causal,
+                                    k_mask=jnp.asarray(mask), scale=8 ** -0.5))
+    got = flash_attention(*(torch.from_numpy(x).transpose(1, 2) for x in (q, k, v)),
+                          torch.from_numpy(mask), causal=causal).transpose(1, 2).numpy()
+    np.testing.assert_allclose(got, xla, **F32_TOL)
 

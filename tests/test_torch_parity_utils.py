@@ -9,6 +9,7 @@ dir) that both packages' loaders read.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 
@@ -21,6 +22,21 @@ jax = pytest.importorskip("jax")
 from videollamb_tpu.config import BridgeConfig, LlamaConfig, ModelConfig, VisionConfig  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def port_config(jcfg: ModelConfig):
+    """The port's ModelConfig with the same fields as a JAX ModelConfig: the
+    packages keep separate dataclasses, so compare them with ``asdict``."""
+    from videollamb_torch import config as pc
+
+    fields = dataclasses.asdict(jcfg)
+    lm = dict(fields.pop("lm"))
+    rope = lm.pop("rope_scaling")
+    return pc.ModelConfig(
+        vision=pc.VisionConfig(**fields.pop("vision")),
+        bridge=pc.BridgeConfig(**fields.pop("bridge")),
+        lm=pc.LlamaConfig(**lm, rope_scaling=pc.RopeScaling(**rope) if rope else None),
+        **fields)
 
 
 def np_tree(tree):
@@ -49,6 +65,7 @@ def port_model(cfg: ModelConfig, tree: dict):
     from videollamb_torch.models.lm.llama import LlamaForCausalLM
     from videollamb_torch.models.vision.clip_vit import CLIPVisionTower
 
+    cfg = port_config(cfg)
     model = VideoLLaMB(CLIPVisionTower(cfg.vision),
                        RMTRBridge(cfg.bridge, cfg.lm.hidden_size), LlamaForCausalLM(cfg.lm))
     model.load_state_dict(from_jax_params(tree), strict=True)
@@ -154,6 +171,72 @@ def write_reference_checkpoint(root: str, seed: int = 0):
     return model_dir, tower_dir
 
 
+def load_both(model_dir: str, tower_dir: str):
+    """(JAX params, JAX cfg, port model, port cfg) of one checkpoint, f32 on the
+    CPU. The configs say float32 too: the JAX engines take their cache and
+    compute dtype from ``cfg.dtype`` (config.json does not set it), the
+    port's from the weights."""
+    from videollamb_tpu.models.builder import load_pretrained_model as jax_load
+    from videollamb_torch.models.builder import load_pretrained_model
+
+    _, params, jcfg, _, _ = jax_load(model_dir, video_tower_path=tower_dir, dtype="float32",
+                                     load_tokenizer=False)
+    _, model, cfg, _, _ = load_pretrained_model(model_dir, video_tower_path=tower_dir,
+                                                dtype="float32", load_tokenizer=False,
+                                                device="cpu")
+    return (params, dataclasses.replace(jcfg, dtype="float32"), model,
+            dataclasses.replace(cfg, dtype="float32"))
+
+
+def video_rows(cfg, seeds, text_len: int = 8, frames: int = 16, video_seed: int = 100):
+    """(ids, mask, videos) numpy rows of B=1 video requests: text ids from
+    each seed with the VIDEO sentinel at 2, one shared clip (so every
+    request has the same spliced length)."""
+    from videollamb_tpu.constants import VIDEO_TOKEN_INDEX
+
+    img = cfg.vision.image_size
+    video = np.random.default_rng(video_seed).normal(
+        size=(1, frames, 3, img, img)).astype(np.float32)
+    rows = []
+    for seed in seeds:
+        ids = np.random.default_rng(seed).integers(
+            4, cfg.lm.vocab_size, size=(1, text_len)).astype(np.int32)
+        ids[:, 2] = VIDEO_TOKEN_INDEX
+        rows.append((ids, np.ones((1, text_len), np.int32), video))
+    return rows
+
+
+def jax_requests(rows, max_new: int):
+    import jax.numpy as jnp
+
+    from videollamb_tpu.models.assembly import MultimodalBatch
+    from videollamb_tpu.serve.server import Request
+
+    return [Request(uid=i, batch=MultimodalBatch(jnp.asarray(ids), jnp.asarray(mask), None,
+                                                 jnp.asarray(video), None),
+                    max_new_tokens=max_new, temperature=0.0)
+            for i, (ids, mask, video) in enumerate(rows)]
+
+
+def port_requests(rows, max_new: int):
+    from videollamb_torch.models.assembly import MultimodalBatch
+    from videollamb_torch.serve.server import Request
+
+    return [Request(uid=i, batch=MultimodalBatch(torch.from_numpy(ids).long(),
+                                                 torch.from_numpy(mask).long(),
+                                                 videos=torch.from_numpy(video)),
+                    max_new_tokens=max_new, temperature=0.0)
+            for i, (ids, mask, video) in enumerate(rows)]
+
+
+def serve(engine, requests, k: int):
+    for r in requests:
+        engine.submit(r)
+    done = engine.run_until_drained(k=k)
+    assert sorted(r.uid for r in done) == sorted(r.uid for r in requests)
+    return [r.tokens for r in requests]
+
+
 def tiny_tokenizer(directory: str):
     """The tiny BPE tokenizer of scripts/parity_rehearsal.py (HF fast format)."""
     import importlib.util
@@ -175,6 +258,18 @@ def test_tower_export_inverts_convert():
     flat_b = dict(jax.tree_util.tree_leaves_with_path(back))
     for path, leaf in flat_a:
         np.testing.assert_array_equal(np.asarray(flat_b[path]), leaf)
+
+
+@pytest.mark.parametrize("cfg", [ModelConfig.tiny(), checkpoint_config(), ModelConfig()],
+                         ids=["tiny", "checkpoint", "7b"])
+def test_port_config_has_the_jax_fields(cfg):
+    from videollamb_torch import config as pc
+
+    port = port_config(cfg)
+    assert type(port) is pc.ModelConfig and type(port.lm) is pc.LlamaConfig
+    assert dataclasses.asdict(port) == dataclasses.asdict(cfg)
+    assert port.lm.head_dim == cfg.lm.head_dim
+    assert port.bridge.tokens_per_frame == cfg.bridge.tokens_per_frame
 
 
 @pytest.mark.parametrize("cfg", [ModelConfig.tiny(), checkpoint_config()],

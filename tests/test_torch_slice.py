@@ -9,6 +9,7 @@ flags it does not implement, and that no port module imports jax.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -57,8 +58,10 @@ def test_greedy_tokens_equal_jax(checkpoint, prompt_lens):
     _, params, jcfg, _, _ = jax_load(model_dir, video_tower_path=tower_dir,
                                      dtype="float32", load_tokenizer=False)
     _, model, cfg, _, ctx = load_pretrained_model(
-        model_dir, video_tower_path=tower_dir, dtype="float32", load_tokenizer=False)
-    assert cfg == jcfg and ctx == cfg.max_length == 2048
+        model_dir, video_tower_path=tower_dir, dtype="float32", load_tokenizer=False,
+        device="cpu")
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+    assert ctx == cfg.max_length == 2048
     ids, mask, videos = _inputs(cfg, prompt_lens)
     max_seq = cfg.max_length + 64
 
@@ -79,7 +82,8 @@ def test_chat_ask_about_video(checkpoint, tmp_path):
 
     model_dir, tower_dir = checkpoint
     _, model, cfg, processors, _ = load_pretrained_model(
-        model_dir, video_tower_path=tower_dir, dtype="float32", load_tokenizer=False)
+        model_dir, video_tower_path=tower_dir, dtype="float32", load_tokenizer=False,
+        device="cpu")
     tokenizer = tiny_tokenizer(str(tmp_path))
     chat = Chat(tokenizer, model, cfg, processors)
     frames = np.random.default_rng(1).integers(0, 255, (16, 64, 80, 3), dtype=np.uint8)
@@ -105,15 +109,16 @@ def test_cli_rejects_unported_flags(flag):
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port leaves jax out of sys.modules."""
+    """Importing every module of the port leaves jax and every module of the
+    JAX package out of sys.modules."""
     code = (
         "import pkgutil, importlib, sys\n"
         "import videollamb_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(videollamb_torch.__path__, "
         "'videollamb_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        "assert len(names) > 20, names\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')]\n"
+        "assert len(names) > 30, names\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'videollamb_tpu')]\n"
         "assert not bad, bad\n"
         "print(len(names))\n"
     )
@@ -122,3 +127,38 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+def test_port_sources_import_nothing_of_the_jax_package():
+    """No module of the port, and not chip_smoke.py, imports videollamb_tpu or
+    jax; the JAX package appears only in comments and strings there."""
+    import re
+
+    pattern = re.compile(r"^\s*(from|import)\s+(videollamb_tpu|jax)\b", re.M)
+    files = [os.path.join(root, f) for root, _, names in
+             os.walk(os.path.join(REPO, "videollamb_torch")) for f in names if f.endswith(".py")]
+    files.append(os.path.join(REPO, "chip_smoke.py"))
+    assert len(files) > 30
+    offenders = [f for f in files if pattern.search(open(f).read())]
+    assert not offenders, offenders
+
+
+def test_cli_without_device_needs_a_gpu(monkeypatch):
+    """The card is the default device: without CUDA and without --device cpu
+    the CLI raises instead of running on the CPU."""
+    from videollamb_torch.serve import cli
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = cli.parse_args(["--model-path", "unused", "--video-file", "v.mp4"])
+    assert args.device == "cuda"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(args)
+
+
+def test_load_pretrained_model_defaults_to_the_card(checkpoint, monkeypatch):
+    from videollamb_torch.models.builder import load_pretrained_model
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model_dir, tower_dir = checkpoint
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_pretrained_model(model_dir, video_tower_path=tower_dir, load_tokenizer=False)

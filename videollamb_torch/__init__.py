@@ -2,7 +2,7 @@
 
 Mirrors the module layout and function names of the JAX package
 ``videollamb_tpu``, which stays the reference the port is tested against.
-Imports torch and never jax; the jax-free host modules of ``videollamb_tpu``
-(config, constants, conversation, mm_utils, data) are shared, the first two
-through ``videollamb_torch.config`` and ``videollamb_torch.constants``.
+Imports torch and never jax, and nothing of ``videollamb_tpu``: the host
+modules it needs (config, constants, conversation, mm_utils, data) are its
+own copies.
 """

@@ -1,0 +1,155 @@
+"""Host video decoding: frame sampling across multiple backends.
+
+A copy of ``videollamb_tpu/data/video_reader.py`` (reference
+llava/vid_utils.py:35-195 and languagebind/video/processing_video.py:78-197)
+with the same sampling, without the JAX package's optional C++ libav
+decoder:
+
+- OpenCV (seek-based sparse sampling, like the reference's 'opencv'
+  backend);
+- PyAV ('av' backend), gif (imageio) and frame-directory backends.
+
+All backends return (T, H, W, C) uint8 RGB frames at the sampled indices.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+
+
+def sample_indices_uniform(total: int, num: int) -> np.ndarray:
+    """linspace(0, total-1, num) as int — the reference's universal sampling
+    (vid_utils.py:18-32, processing_video.py:105)."""
+    return np.linspace(0, max(total - 1, 0), num, dtype=int)
+
+
+def fps_num_frames(total_frames: int, avg_fps: float, target_fps: float,
+                   min_frames: int = 8, max_frames: int = 512) -> int:
+    """fps-driven frame budget: ceil(secs*fps) rounded down to a multiple of
+    8, floored at 8, capped at 512 (reference processing_video.py:100-106)."""
+    secs = total_frames / max(avg_fps, 1e-6)
+    new_duration = math.ceil(secs * target_fps)
+    num = max(min_frames, new_duration - new_duration % 8)
+    return min(num, max_frames)
+
+
+def probe_video(path: str) -> Tuple[int, float]:
+    """(total_frames, avg_fps)."""
+    import cv2
+
+    cap = cv2.VideoCapture(path)
+    try:
+        total = int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
+        fps = float(cap.get(cv2.CAP_PROP_FPS)) or 30.0
+    finally:
+        cap.release()
+    return total, fps
+
+
+def _read_cv2(path: str, indices: Sequence[int]) -> np.ndarray:
+    import cv2
+
+    cap = cv2.VideoCapture(path)
+    frames = []
+    try:
+        last_pos = -2
+        for idx in indices:
+            idx = int(idx)
+            if idx != last_pos + 1:
+                cap.set(cv2.CAP_PROP_POS_FRAMES, idx)
+            ok, frame = cap.read()
+            if not ok:
+                raise ValueError(f"video decode error at frame {idx}: {path}")
+            last_pos = idx
+            frames.append(cv2.cvtColor(frame, cv2.COLOR_BGR2RGB))
+    finally:
+        cap.release()
+    return np.stack(frames)
+
+
+def _read_gif(path: str, num_frames: int) -> np.ndarray:
+    import imageio
+
+    reader = imageio.get_reader(path)
+    frames = [np.asarray(f) for f in reader]
+    indices = sample_indices_uniform(len(frames), num_frames)
+    out = []
+    for i in indices:
+        f = frames[int(i)]
+        if f.ndim == 2:
+            f = np.stack([f] * 3, -1)
+        if f.shape[-1] == 4:
+            f = f[..., :3]
+        out.append(f)
+    return np.stack(out)
+
+
+def _read_frame_dir(path: str, num_frames: int) -> np.ndarray:
+    from PIL import Image
+
+    names = sorted(os.listdir(path))
+    indices = sample_indices_uniform(len(names), num_frames)
+    frames = []
+    for i in indices:
+        img = Image.open(os.path.join(path, names[int(i)]))
+        if img.mode != "RGB":
+            img = img.convert("RGB")
+        frames.append(np.asarray(img))
+    return np.stack(frames)
+
+
+def _read_av(path: str, indices: Sequence[int]) -> np.ndarray:
+    """PyAV backend (reference vid_utils.py:52-68 'av' branch): sequential
+    decode, keep the sampled indices. Optional dependency — import is
+    deferred so the backend is selectable only where PyAV exists."""
+    import av  # noqa: PLC0415 — optional backend
+
+    wanted = {int(i) for i in indices}
+    frames = {}
+    with av.open(path) as container:
+        for idx, frame in enumerate(container.decode(video=0)):
+            if idx in wanted:
+                frames[idx] = frame.to_ndarray(format="rgb24")
+            if len(frames) == len(wanted):
+                break
+    return np.stack([frames[int(i)] for i in indices])
+
+
+def load_video(
+    path: str,
+    num_frames: Optional[int] = None,
+    fps: Optional[float] = None,
+    max_frames: int = 512,
+    backend: str = "auto",
+) -> np.ndarray:
+    """Decode and uniformly sample a video.
+
+    Args:
+      path: video file, gif, or frame directory.
+      num_frames: fixed frame budget; overridden by ``fps`` if given.
+      fps: target sampling rate — frame budget becomes
+        fps_num_frames(total, avg_fps, fps) (reference decord branch).
+    Returns:
+      (T, H, W, C) uint8 RGB.
+    """
+    if os.path.isdir(path):
+        return _read_frame_dir(path, num_frames or 8)
+    if path.lower().endswith(".gif"):
+        return _read_gif(path, num_frames or 8)
+
+    total, avg_fps = probe_video(path)
+    if fps:
+        num_frames = fps_num_frames(total, avg_fps, fps, max_frames=max_frames)
+    elif num_frames is None:
+        num_frames = 8
+    indices = sample_indices_uniform(total, num_frames)
+
+    if backend == "av":
+        return _read_av(path, indices)
+    if backend not in ("auto", "cv2"):
+        raise ValueError(f"unknown video backend {backend!r} (auto, cv2, av)")
+    return _read_cv2(path, indices)

@@ -1,10 +1,11 @@
 """Build the port's CUDA kernels with ``nvcc`` and load them through ctypes.
 
 Every ``videollamb_torch/csrc/*.cu`` file is compiled for Hopper
-(``sm_90a``) into one shared library with a plain C interface. The build
-runs at first use, goes into ``build/kernels/`` at the root of the checkout
-and is keyed by a hash of the sources and flags, so an edited source
-rebuilds and an unchanged one loads the cached library. No binary is
+(``sm_90a``) by its own ``nvcc`` process, all started together, and the
+objects are linked into one shared library with a plain C interface. The
+build runs at first use, goes into ``build/kernels/`` at the root of the
+checkout and is keyed by a hash of the sources and flags, so an edited
+source rebuilds and an unchanged one loads the cached library. No binary is
 committed. Without ``nvcc`` a CUDA run raises: the kernels have no
 fallback on the card.
 
@@ -26,7 +27,7 @@ from pathlib import Path
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -38,6 +39,10 @@ SIGNATURES = {
     "temporal_attention_bf16": (_I, (_P, _P, _I, _I, _I, _I, _I, _P)),
     "flash_attention_bf16": (_I, (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                   ctypes.c_float, _I, _P)),
+    "gathered_paged_attention_int8": (_I, (_P,) * 10 + (_I,) * 6 + (_P,)),
+    "gathered_paged_attention_smem_bytes": (ctypes.c_size_t, (_I,)),
+    "paged_fresh_write_int8": (_I, (_P,) * 6 + (_I,) * 5 + (_P,)),
+    "paged_attention_stats_bf16": (_I, (_P,) * 8 + (_I,) * 6 + (_P,)),
 }
 
 _lock = threading.Lock()
@@ -75,14 +80,32 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc, tag = _nvcc(), f"{out.stem}.{os.getpid()}"
+    jobs = []
+    for src in _sources():  # one nvcc per source, all running at once
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT, text=True)))
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = out.with_suffix(".log")
-    log.write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}); see {log}:\n{proc.stderr[-4000:]}")
+    link = [nvcc, "-shared", "-o", str(tmp), *(str(obj) for _, obj, _ in jobs)]
+    log, failed = [], []
+    for cmd, _, proc in jobs:
+        log += [" ".join(cmd), proc.communicate()[0]]
+        if proc.returncode != 0:
+            failed.append(f"{cmd[-1]} ({proc.returncode})")
+    if not failed:
+        proc = subprocess.run(link, capture_output=True, text=True)
+        log += [" ".join(link), proc.stdout + proc.stderr]
+        if proc.returncode != 0:
+            failed.append(f"link ({proc.returncode})")
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
+    log_path = out.with_suffix(".log")
+    log_path.write_text("\n".join(log))
+    if failed:
+        raise RuntimeError(f"nvcc failed: {', '.join(failed)}; see {log_path}:\n"
+                           f"{chr(10).join(log)[-4000:]}")
     os.replace(tmp, out)
     return out
 

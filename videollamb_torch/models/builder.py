@@ -9,6 +9,7 @@ with ``torch.load(weights_only=True)``.
 
 Base + projector-only and LoRA checkpoints, safetensors shards, int8
 loading, the image tower and device-side preprocessing are not ported yet.
+The model loads onto the card unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ from videollamb_torch.models.convert import split_reference_state, tower_state
 from videollamb_torch.models.lm.llama import LlamaForCausalLM
 from videollamb_torch.models.seeded import empty_module
 from videollamb_torch.models.vision.clip_vit import CLIPVisionTower
-from videollamb_tpu.data.processing import VideoProcessor
+from videollamb_torch.data.processing import VideoProcessor
 
 
 def load_state_dict(model_dir: str) -> Dict[str, torch.Tensor]:
@@ -101,6 +102,16 @@ def vision_config_from_tower_json(tower_dir: str) -> Optional[VisionConfig]:
         layer_norm_eps=vc.get("layer_norm_eps", 1e-5))
 
 
+def resolve_device(device) -> torch.device:
+    """The torch device to run on; a CUDA device must exist (no CPU fallback)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: videollamb_torch runs on the GPU by default; pass "
+            "device='cpu' (--device cpu on the command line) to run on the CPU")
+    return dev
+
+
 def _load(factory, state, device, dtype) -> torch.nn.Module:
     module = empty_module(factory, device, dtype)
     module.load_state_dict(state, strict=True)
@@ -117,7 +128,7 @@ def load_pretrained_model(
     load_8bit: bool = False,
     load_tokenizer: bool = True,
     device_preprocess: bool = False,
-    device="cpu",
+    device="cuda",
 ) -> Tuple[Any, VideoLLaMB, ModelConfig, Dict[str, Any], int]:
     """Load a full reference-format checkpoint.
 
@@ -129,6 +140,7 @@ def load_pretrained_model(
     for name, value in unported.items():
         if value:
             raise NotImplementedError(f"load_pretrained_model({name}=...) is not ported yet")
+    device = resolve_device(device)
     wanted = torch.bfloat16 if dtype == "bfloat16" else torch.float32
     cfg = config_from_json(model_path)
     lm_sd, bridge_sd = split_reference_state(load_state_dict(model_path))

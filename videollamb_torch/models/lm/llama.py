@@ -1,7 +1,8 @@
 """Llama-family LM backbone with a dense KV cache.
 
 Port of ``videollamb_tpu/models/lm/llama.py`` for inference: token
-embedding, cached prefill and one-token decode. Module names follow the HF
+embedding, cached prefill, chunk extension of a filled cache (the serving
+engines' chunked admission) and one-token decode. Module names follow the HF
 ``LlamaForCausalLM`` state dict (``model.layers.N.self_attn.q_proj``,
 ``model.norm``, ``lm_head``), so a reference checkpoint loads by name.
 
@@ -11,8 +12,8 @@ embedding, cached prefill and one-token decode. Module names follow the HF
   Unlike JAX, the port writes the cache in place.
 - Prefill attention runs over the fresh keys through
   ``ops/attention.multihead_attention`` (the flash kernel on the card).
-  Decode attention is plain PyTorch over the whole cache, as the JAX
-  package's decode is plain XLA.
+  Extend and decode attention are plain PyTorch over the cache, as they are
+  plain XLA (``_grouped_attention``) in the JAX package.
 - RMSNorm, RoPE and attention scores are f32; weights may be bf16.
 - Sliding-window attention, RoPE scaling, LoRA and quantised weights are
   not ported yet.
@@ -21,8 +22,9 @@ embedding, cached prefill and one-token decode. Module names follow the HF
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -33,6 +35,7 @@ from videollamb_torch.models.seeded import empty_module, generator
 from videollamb_torch.ops.attention import multihead_attention
 
 NEG_INF = -1e30
+PREFILL_CHUNK = 256  # tokens per llama_extend call of the chunked prefill
 
 
 class KVCache(NamedTuple):
@@ -177,6 +180,78 @@ def llama_prefill(lm: LlamaForCausalLM, cfg: LlamaConfig, inputs_embeds: torch.T
     logits = _final(lm, cfg, x)  # (B, S, V)
     last = logits[torch.arange(b, device=logits.device), lengths - 1]
     return last, KVCache(k=cache.k, v=cache.v, length=lengths)
+
+
+@torch.no_grad()
+def llama_extend(lm: LlamaForCausalLM, cfg: LlamaConfig, inputs_embeds: torch.Tensor,
+                 attention_mask: torch.Tensor, cache: KVCache) -> Tuple[torch.Tensor, KVCache]:
+    """Append a right-padded (B, S, D) chunk to a filled cache (in place).
+
+    Row i's fresh tokens are written at [len_i, len_i + S) (rows past the
+    buffer are dropped) and attend causally over the cache and each other.
+    Returns (last valid token's logits (B, V) f32, the cache with lengths
+    advanced by the valid count).
+    """
+    _check_supported(cfg)
+    b, s, d = inputs_embeds.shape
+    s_max = cache.k.shape[2]
+    dev = inputs_embeds.device
+    valid = attention_mask.bool()
+    fresh_len = valid.sum(dim=1)
+    start = cache.length
+    rank = valid.long().cumsum(dim=1) - 1
+    pos_ids = start[:, None] + torch.where(valid, rank, s)  # padding: past the end
+    cos, sin = rope_cos_sin_cfg(cfg, pos_ids)
+    # Keys at or past max(start) + S are visible to no query: attend over the
+    # buffer up to there (the masked keys would contribute exactly 0).
+    end = min(s_max, int(start.max()) + s)
+    k_pos = torch.arange(end, device=dev)
+    mask = (k_pos[None, None] <= pos_ids[:, :, None]) & valid[:, :, None]
+    write = start[:, None] + torch.arange(s, device=dev)[None]
+    keep = write < s_max
+    rows = torch.arange(b, device=dev)[:, None].expand(b, s)[keep]
+    write = write[keep]
+    x = inputs_embeds
+    for i, layer in enumerate(lm.model.layers):
+        q, k, v = _qkv(layer, cfg, x, cos, sin)
+        cache.k[i, rows, write] = k[keep].to(cache.k.dtype)
+        cache.v[i, rows, write] = v[keep].to(cache.v.dtype)
+        attn = _grouped_attention(q, cache.k[i, :, :end].to(q.dtype),
+                                  cache.v[i, :, :end].to(q.dtype), mask)
+        x = x + layer.self_attn.o_proj(attn.reshape(b, s, d))
+        x = _mlp(layer, cfg, x)
+    last = x[torch.arange(b, device=dev), (fresh_len - 1).clamp(min=0)]
+    return (_final(lm, cfg, last[:, None])[:, 0],
+            KVCache(k=cache.k, v=cache.v, length=start + fresh_len))
+
+
+@torch.no_grad()
+def chunked_prefill(lm: LlamaForCausalLM, cfg: LlamaConfig, inputs_embeds: torch.Tensor,
+                    attention_mask: torch.Tensor, cache: KVCache,
+                    lengths: Optional[Sequence[int]] = None) -> Tuple[torch.Tensor, KVCache]:
+    """Prefill an empty cache in PREFILL_CHUNK-token slices of
+    :func:`llama_extend`, up to the longest row's real length (``lengths``,
+    host ints, saves the device read of the mask). Same contract as
+    :func:`llama_prefill`."""
+    chunk = PREFILL_CHUNK
+    b, s_pad, d = inputs_embeds.shape
+    if lengths is None:
+        lengths = attention_mask.sum(dim=1).cpu().numpy()
+    lengths = np.atleast_1d(np.asarray(lengths))
+    logits = None
+    for lo in range(0, max(1, int(lengths.max())), chunk):
+        e = inputs_embeds[:, lo:lo + chunk]
+        m = attention_mask[:, lo:lo + chunk]
+        if e.shape[1] < chunk:  # ragged tail of the buffer
+            e = F.pad(e, (0, 0, 0, chunk - e.shape[1]))
+            m = F.pad(m, (0, chunk - m.shape[1]))
+        nxt, cache = llama_extend(lm, cfg, e, m, cache)
+        if logits is None:
+            logits = nxt
+        else:  # rows whose prompt ended in an earlier chunk keep their logits
+            alive = torch.as_tensor(lengths > lo, device=nxt.device)[:, None]
+            logits = torch.where(alive, nxt, logits)
+    return logits, cache
 
 
 @torch.no_grad()

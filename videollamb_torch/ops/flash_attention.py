@@ -10,12 +10,13 @@ caller (``ops/attention.py``).
   tensor and runs :func:`flash_attention_reference` on a CPU tensor.
 - :func:`flash_attention_reference` is the plain PyTorch statement.
 
-Masked keys contribute exactly nothing, so a query row with no valid key
-gives 0 (``l == 0 -> 0``). The JAX statements (``_xla_attention`` and the
-chunked scan) give the mean of v on such rows instead, and so does the TPU
-kernel: its mask value is a finite -1e30, so masked keys count with weight
-exp(0) until a valid key appears and its ``l == 0`` branch never fires.
-Rows with at least one valid key agree; right-padded prefill has no other.
+A query row with no valid key (no key both valid in ``k_mask`` and
+causally visible) gives the mean of v over all Skv keys, as the JAX
+package's ``_xla_attention`` does: its finite -1e30 mask makes such a row's
+softmax uniform. Inside the kernel masked keys contribute exactly nothing
+(``l == 0 -> 0``); :func:`_fill_rows_without_keys` sets those rows
+afterwards, a cheap pass that both versions share. Right-padded prefill
+has no such row.
 
 On the H100 the op is bound by tensor-core throughput at the prefill shape
 (1, 32, 2048, 128); the kernel skips key tiles above the causal diagonal
@@ -32,6 +33,23 @@ import torch
 from videollamb_torch.kernels import build as kb
 
 NEG_INF = -1e30
+
+
+def _fill_rows_without_keys(out: torch.Tensor, v: torch.Tensor,
+                            k_mask: Optional[torch.Tensor], causal: bool) -> torch.Tensor:
+    """Rows with no valid, visible key take the mean of v over all keys."""
+    if k_mask is None:
+        return out
+    sq = out.shape[2]
+    valid = k_mask.bool()
+    if causal:  # a key j <= i is valid iff the running count at min(i, Skv-1) > 0
+        seen = valid.long().cumsum(dim=1)
+        rows = torch.arange(sq, device=out.device).clamp(max=valid.shape[1] - 1)
+        has_key = seen[:, rows] > 0  # (B, Sq)
+    else:
+        has_key = valid.any(dim=1, keepdim=True).expand(-1, sq)
+    mean_v = v.mean(dim=2, keepdim=True, dtype=torch.float32).to(out.dtype)  # (B, H, 1, Dh)
+    return torch.where(has_key[:, None, :, None], out, mean_v, out=out)
 
 
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -56,7 +74,7 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.exp(s - m) * valid
     l = p.sum(dim=-1, keepdim=True)
     out = (p.to(v.dtype).float() @ v.float()) / torch.where(l == 0, 1.0, l)
-    return out.to(q.dtype)
+    return _fill_rows_without_keys(out.to(q.dtype), v, k_mask, causal)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -88,7 +106,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         kb.ptr(out), b, h, sq, skv, dh, float(scale), int(causal),
         kb.current_stream(q.device)), "flash_attention_bf16")
     flash_attention.launches += 1
-    return out
+    return _fill_rows_without_keys(out, v, mask, causal)
 
 
 flash_attention.launches = 0

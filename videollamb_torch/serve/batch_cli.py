@@ -1,0 +1,178 @@
+"""Batch serving CLI: drive the continuous-batching engines from JSONL.
+
+Port of ``videollamb_tpu/serve/batch_cli.py``:
+
+    python -m videollamb_torch.serve.batch_cli \\
+        --model-path <ckpt> --video-tower <tower dir> \\
+        --requests in.jsonl --output out.jsonl --paged --quantize-kv --num-slots 8
+
+Each input line: {"id": ..., "prompt": ..., "video": <path, optional>,
+"max_new_tokens": ..., "temperature": ...}, optionally with "system",
+"system_suffix", "history" ([[user, assistant], ...]) or "raw" (a text-only
+prompt tokenized verbatim). Each output line: {"id": ..., "text": ...,
+"tokens": N}. It runs on the card unless ``--device cpu`` is given. Row
+fields and options the port does not implement yet are refused with an
+error that names them.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from typing import Any, Dict, List
+
+# Row fields of the JAX package's batch CLI that the port does not serve yet.
+UNPORTED_FIELDS = {
+    "shared_prefix": "prefix caching",
+    "choices": "choice-constrained decoding",
+    "response_format": "grammar-constrained decoding",
+    "logit_bias": "sampling controls",
+    "presence_penalty": "sampling controls",
+    "frequency_penalty": "sampling controls",
+    "min_tokens": "sampling controls",
+    "top_k": "sampling controls",
+    "logprobs": "logprobs",
+    "top_logprobs": "logprobs",
+    "adapter": "multi-LoRA adapters",
+    "image": "image rows",
+    "audio": "audio rows",
+}
+UNPORTED_FLAGS = {"load_8bit": "--load-8bit", "device_preprocess": "--device-preprocess"}
+
+
+def build_requests(lines: List[Dict[str, Any]], chat) -> List[Any]:
+    """Conversation template + media -> Requests, one fresh conversation per
+    row (the reference cli.py prompt assembly)."""
+    import numpy as np
+    import torch
+
+    from videollamb_torch.constants import DEFAULT_X_TOKEN
+    from videollamb_torch.data.video_reader import load_video
+    from videollamb_torch.models.assembly import MultimodalBatch
+    from videollamb_torch.serve.server import Request
+
+    def request(row, ids, mask, videos=None):
+        return Request(
+            uid=row.get("id"),
+            batch=MultimodalBatch(input_ids=torch.from_numpy(ids).to(chat.device),
+                                  attention_mask=torch.from_numpy(mask).to(chat.device),
+                                  videos=videos),
+            max_new_tokens=int(row.get("max_new_tokens", 128)),
+            temperature=float(row.get("temperature", 0.0)))
+
+    reqs = []
+    for row in lines:
+        for key, what in UNPORTED_FIELDS.items():
+            if row.get(key):
+                raise ValueError(f"request {row.get('id')!r}: {key!r} ({what}) is not "
+                                 "supported by the PyTorch port yet")
+        if row.get("raw"):
+            if row.get("video"):
+                raise ValueError("'raw' rows are text-only (no template to place media tags in)")
+            ids_list = chat.tokenizer(row["prompt"]).input_ids
+            t = max(chat.text_bucket, -(-len(ids_list) // chat.text_bucket) * chat.text_bucket)
+            ids = np.zeros((1, t), np.int64)
+            mask = np.zeros((1, t), np.int64)
+            ids[0, :len(ids_list)] = ids_list
+            mask[0, :len(ids_list)] = 1
+            reqs.append(request(row, ids, mask))
+            continue
+        videos = None
+        if row.get("video"):
+            frames = chat.processors["VIDEO"](load_video(row["video"], fps=1.0, max_frames=512))
+            videos = torch.from_numpy(frames)[None].to(chat.device, chat.dtype)
+        chat.reset()
+        if row.get("system") is not None:
+            chat.conv.system = row["system"]
+        if row.get("system_suffix"):
+            chat.conv.system = (chat.conv.system or "") + row["system_suffix"]
+        history = row.get("history") or []
+        question = row["prompt"]
+        seen = question + "".join(u + (a or "") for u, a in history)
+        if videos is not None and DEFAULT_X_TOKEN["VIDEO"] not in seen:
+            question = DEFAULT_X_TOKEN["VIDEO"] + "\n" + question
+        for user_msg, assistant_msg in history:
+            chat.conv.append_message(chat.conv.roles[0], user_msg)
+            chat.conv.append_message(chat.conv.roles[1], assistant_msg)
+        chat.conv.append_message(chat.conv.roles[0], question)
+        chat.conv.append_message(chat.conv.roles[1], None)
+        ids, mask = chat._prepare_ids(chat.conv.get_prompt(),
+                                      "VIDEO" if videos is not None else "IMAGE")
+        reqs.append(request(row, ids, mask, videos))
+    return reqs
+
+
+def serve_requests(engine, requests, tokenizer, k: int = 8):
+    for r in requests:
+        engine.submit(r)
+    done = engine.run_until_drained(k=k)
+    out = []
+    for r in done:
+        text = tokenizer.decode(r.tokens, skip_special_tokens=True)
+        out.append({"id": r.uid, "text": text.strip(), "tokens": len(r.tokens)})
+    return out
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--model-path", required=True)
+    parser.add_argument("--model-base", default=None)
+    parser.add_argument("--video-tower", default=None,
+                        help="LanguageBind video tower dir (video rows need it)")
+    parser.add_argument("--requests", required=True, help="input JSONL")
+    parser.add_argument("--output", required=True, help="output JSONL")
+    parser.add_argument("--num-slots", type=int, default=4)
+    parser.add_argument("--paged", action="store_true",
+                        help="paged KV pool (serve/paged.py) instead of dense per-slot rows")
+    parser.add_argument("--page-size", type=int, default=64)
+    parser.add_argument("--quantize-kv", action="store_true",
+                        help="int8 KV pages (paged engine only)")
+    parser.add_argument("--sync-every", type=int, default=8,
+                        help="decode steps between host syncs")
+    parser.add_argument("--fp32", action="store_true")
+    parser.add_argument("--device", default="cuda",
+                        help="torch device (default cuda; cpu runs the plain versions "
+                             "of the kernels)")
+    parser.add_argument("--load-8bit", action="store_true",
+                        help="not supported by the port yet")
+    parser.add_argument("--device-preprocess", action="store_true",
+                        help="not supported by the port yet")
+    args = parser.parse_args(argv)
+    for attr, flag in UNPORTED_FLAGS.items():
+        if getattr(args, attr):
+            sys.exit(f"{flag} is not supported by the PyTorch port yet")
+    if args.quantize_kv and not args.paged:
+        sys.exit("--quantize-kv needs --paged")
+
+    from videollamb_torch.models.builder import load_pretrained_model, resolve_device
+    from videollamb_torch.serve.chat import Chat
+
+    device = resolve_device(args.device)
+    tokenizer, model, cfg, processors, _ = load_pretrained_model(
+        args.model_path, args.model_base, video_tower_path=args.video_tower,
+        dtype="float32" if args.fp32 else "bfloat16", device=device)
+    chat = Chat(tokenizer, model, cfg, processors)
+    eos = int(tokenizer.eos_token_id or 2)
+    if args.paged:
+        from videollamb_torch.serve.paged import PagedServingEngine
+
+        engine = PagedServingEngine(model, cfg, num_slots=args.num_slots,
+                                    page_size=args.page_size, quantize_kv=args.quantize_kv,
+                                    eos_token_id=eos)
+    else:
+        from videollamb_torch.serve.server import ServingEngine
+
+        engine = ServingEngine(model, cfg, num_slots=args.num_slots, eos_token_id=eos)
+
+    with open(args.requests) as f:
+        lines = [json.loads(line) for line in f if line.strip()]
+    out = serve_requests(engine, build_requests(lines, chat), tokenizer, k=args.sync_every)
+    with open(args.output, "w") as f:
+        for row in out:
+            f.write(json.dumps(row) + "\n")
+    print(f"served {len(out)} requests -> {args.output}")
+
+
+if __name__ == "__main__":
+    main()

@@ -17,10 +17,10 @@ import torch
 
 from videollamb_torch.config import ModelConfig
 from videollamb_torch.constants import DEFAULT_X_TOKEN, X_TOKEN_INDEX
+from videollamb_torch.conversation import SeparatorStyle, conv_templates
 from videollamb_torch.models.assembly import MultimodalBatch, VideoLLaMB
+from videollamb_torch.mm_utils import KeywordStopper, tokenizer_x_token
 from videollamb_torch.models.engine import generate
-from videollamb_tpu.conversation import SeparatorStyle, conv_templates
-from videollamb_tpu.mm_utils import KeywordStopper, tokenizer_x_token
 
 
 def _round_up(x: int, m: int) -> int:

@@ -2,8 +2,9 @@
 
 Port of ``videollamb_tpu/serve/cli.py`` for video questions (reference
 llava/serve/cli.py:25-111): load the model, preprocess one video, then
-answer questions read from stdin until an empty line or EOF. The options
-the port does not implement yet exit with an error that says so.
+answer questions read from stdin until an empty line or EOF. It runs on
+the card unless ``--device cpu`` is given. The options the port does not
+implement yet exit with an error that says so.
 """
 
 from __future__ import annotations
@@ -21,10 +22,8 @@ UNPORTED = {
 
 
 def main(args) -> None:
-    import torch
-
-    from videollamb_tpu.data.video_reader import load_video
-    from videollamb_torch.models.builder import load_pretrained_model
+    from videollamb_torch.data.video_reader import load_video
+    from videollamb_torch.models.builder import load_pretrained_model, resolve_device
     from videollamb_torch.serve.chat import Chat
 
     for attr, flag in UNPORTED.items():
@@ -32,7 +31,7 @@ def main(args) -> None:
             sys.exit(f"{flag} is not supported by the PyTorch port yet")
     if not args.video_file:
         sys.exit("--video-file is required")
-    device = args.device or ("cuda" if torch.cuda.is_available() else "cpu")
+    device = resolve_device(args.device)
     tokenizer, model, cfg, processors, _ = load_pretrained_model(
         args.model_path, args.model_base, video_tower_path=args.video_tower,
         dtype="float32" if args.fp32 else "bfloat16", device=device)
@@ -75,8 +74,9 @@ def parse_args(argv=None):
     parser.add_argument("--temperature", type=float, default=0.2)
     parser.add_argument("--max-new-tokens", type=int, default=512)
     parser.add_argument("--fp32", action="store_true")
-    parser.add_argument("--device", type=str, default=None,
-                        help="torch device (default: cuda when available)")
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="torch device (default cuda; cpu runs the plain "
+                             "PyTorch versions of the kernels)")
     parser.add_argument("--device-preprocess", action="store_true",
                         help="not supported by the port yet")
     parser.add_argument("--kv-reuse", action="store_true",

@@ -18,10 +18,25 @@
    prompt lengths, greedy, 32 new tokens, 8 decode steps per host sync),
    then one with bf16 pages serves 4. K4 and K5 must launch in the first
    run and K6 in the second.
-4. Holds the kernel paths against the plain paths on a small input: a
+4. Speculative decoding at full depth in bf16: ``Chat.generate_speculative``
+   with prompt lookup and with an int8 copy of the LM as the draft, beside
+   plain greedy (accepted lengths, rounds, rates, and where the chains part,
+   if they do: reported, not asserted, in bf16), and a dense
+   ``ServingEngine(speculative="lookup")`` serving three requests.
+5. Quantised weights at full width and depth: the int8 LM
+   (``quantize_llama_params``, the ``load_8bit`` route) answers offline
+   requests; then the bf16 LM is quantised in place by
+   ``quantize_llama_params_int4`` and answers them through ``generate``
+   (K1-K3 and K7: 225 launches of K7 per decode step, 7 projections x 32
+   layers + lm_head, and none during the 2048-token prefill) and through a
+   short run of the paged engine with int8 pages (K4, K5 and K7 in one
+   step); then the int8 tower encodes one clip, held against the bf16 tower.
+6. Holds the kernel paths against the plain paths on a small input: a
    depth-cut model at full width runs on the card (kernels, bf16) and on
    the host (plain versions, f32) from the same weights, through the
-   prefill and through two paged decode steps of each pool type.
+   prefill and through two paged decode steps of each pool type. On the
+   host copy (f32, where greedy-exactness is exact) lookup and int8
+   self-draft speculation must give plain greedy's tokens, one for one.
 
 Prints the card's name and power limit, one JSON line with the kernels'
 numbers, and as its last line ``{"ok": true, "device": {...}}``. Exits
@@ -51,6 +66,16 @@ KERNEL_RTOL = 2e-2
 STATS_TOL = 1e-5
 K4_OUT_TOL = 2e-3  # of max |out|
 K6_OUT_TOL = 1e-4  # of max |out|
+# K7 and its plain version both sum in f32 and round once to bf16: they part
+# only where the two f32 sums straddle a rounding edge, by one bf16 step.
+K7_ATOL = 1e-3
+K7_RTOL = 2 ** -7
+# Main-path shapes of K7 (M, K, N): up_proj in an 8-slot decode step, q_proj
+# at B=1, down_proj in a 64-row verify step, lm_head in an 8-slot step.
+K7_SHAPES = [(8, 4096, 11008), (1, 4096, 4096), (64, 11008, 4096), (8, 4096, 32000)]
+# int8 tower (int8 weights and per-row int8 activations) vs the bf16 tower:
+# relative L2 of the select-layer features.
+INT8_TOWER_REL_L2 = 0.1
 # Kernel path (bf16, card) vs plain path (f32, host) on the depth-cut model:
 # relative L2 error of the tower features and of the logits.
 PATH_REL_L2 = 5e-2
@@ -84,6 +109,35 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_ms(fn, iters: int = 50) -> float:
+    """Host time to enqueue one call (no wait for the card inside the loop): where
+    it is close to ``cuda_ms`` of the same call, the host, not the kernel, sets the time."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / iters
+    torch.cuda.synchronize()
+    return ms
+
+
+def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
+    """Device time of one call: ``iters`` calls captured into a CUDA graph and
+    replayed, so that the host's enqueue time is out of the measurement."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    return cuda_ms(graph.replay, iters=replays, warmup=1) / iters
 
 
 def bound(nbytes: float, ops: float, kind: str):
@@ -131,6 +185,12 @@ def kernel_phase(g: torch.Generator) -> dict:
         _pick_ppb,
         gathered_paged_attention_int8,
         gathered_paged_attention_int8_reference,
+    )
+    from videollamb_torch.ops.int4_matmul import (
+        dequantize_int4,
+        int4_matmul,
+        int4_matmul_reference,
+        quantize_int4,
     )
     from videollamb_torch.ops.paged_attention_stats import (
         attend_paged_with_stats_xla,
@@ -272,6 +332,40 @@ def kernel_phase(g: torch.Generator) -> dict:
         bound=bound(tokens * h * dh * 2 * 2 + 2 * q.numel() * 4 + 2 * n_slots * h * 4
                     + table.numel() * 4, 4 * tokens * h * dh, "bf16"))
     del k6
+
+    # K7: bf16 activations by int4 weights (groups of 128) at the LM's shapes.
+    # library_ms is the bf16 torch.matmul of x with the dequantised weight:
+    # the product that int4 replaces (four times the weight bytes), not the
+    # same function.
+    k7_rows = []
+    for m, k, n in K7_SHAPES:
+        qk = quantize_int4(torch.randn((k, n), generator=g, device=dev) * 0.02, 128)
+        x = randn(m, k)
+        q4, scale = qk["q4"], qk["scale"]
+        err = compare(f"int4 matmul ({m}, {k}) x ({k}, {n})", int4_matmul(x, q4, scale),
+                      int4_matmul_reference(x, q4, scale), K7_ATOL, K7_RTOL)
+        if not torch.equal(int4_matmul(x, q4, scale), int4_matmul(x, q4, scale)):
+            raise AssertionError("int4 matmul: two launches on the same inputs differ")
+        dense = dequantize_int4(qk, bf)
+        nbytes = q4.numel() + 2 * scale.numel() + 2 * x.numel() + 2 * m * n
+        k7_rows.append(dict(
+            shape=[m, k, n], max_abs_err=err,
+            ms=cuda_ms(lambda: int4_matmul(x, q4, scale), iters=50),
+            host_ms=host_ms(lambda: int4_matmul(x, q4, scale)),
+            device_ms=graph_ms(lambda: int4_matmul(x, q4, scale)),
+            library_device_ms=graph_ms(lambda: torch.matmul(x, dense)),
+            plain_ms=cuda_ms(lambda: int4_matmul_reference(x, q4, scale), iters=5, warmup=1),
+            library_ms=cuda_ms(lambda: torch.matmul(x, dense)),
+            bound=bound(nbytes, 2 * m * k * n, "bf16")))
+        del qk, q4, scale, dense
+    results["int4_matmul"] = dict(k7_rows[0], max_abs_err=max(r["max_abs_err"] for r in k7_rows),
+                                  shapes=k7_rows)
+    for r in k7_rows:
+        print(f"[kernel] int4_matmul {tuple(r['shape'])}: kernel {r['ms']:.4f} ms (host enqueue "
+              f"{r['host_ms']:.4f} ms; replayed from a CUDA graph {r['device_ms']:.4f} ms, the "
+              f"bf16 matmul {r['library_device_ms']:.4f} ms), plain "
+              f"{r['plain_ms']:.4f} ms, bf16 matmul of the dequantised weight "
+              f"{r['library_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms ({r['bound'][1]})")
     torch.cuda.empty_cache()
     for name, r in results.items():
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
@@ -292,6 +386,26 @@ def build_model(cfg, seed: int, device, dtype):
                       init_llama_params(cfg.lm, seed=seed + 2, **kw))
 
 
+def lm_variant(model, choice: str):
+    """The model with its LM in "bf16" (as built), as an "int8" copy
+    (``quantize_llama_params``, the ``load_8bit`` route), or quantised to "int4"
+    in place (``quantize_llama_params_int4`` consumes the bf16 LM, so int4
+    comes last)."""
+    from videollamb_torch.models.assembly import VideoLLaMB
+    from videollamb_torch.models.lm.quant import (
+        is_int4,
+        quantize_llama_params,
+        quantize_llama_params_int4,
+    )
+
+    if choice == "int8":
+        return VideoLLaMB(model.video_tower, model.mm_projector,
+                          quantize_llama_params(copy.deepcopy(model.lm)))
+    if choice == "int4" and not is_int4(model.lm.lm_head):
+        quantize_llama_params_int4(model.lm)
+    return model
+
+
 def make_batch(cfg, g: torch.Generator, prompt_lens, frames: int):
     from videollamb_torch.constants import VIDEO_TOKEN_INDEX
     from videollamb_torch.models.assembly import MultimodalBatch
@@ -308,6 +422,7 @@ def make_batch(cfg, g: torch.Generator, prompt_lens, frames: int):
 def counters():
     from videollamb_torch.ops.flash_attention import flash_attention
     from videollamb_torch.ops.gathered_paged_attention import gathered_paged_attention_int8
+    from videollamb_torch.ops.int4_matmul import int4_matmul
     from videollamb_torch.ops.paged_attention_stats import paged_attention_with_stats
     from videollamb_torch.ops.paged_fresh_write import paged_fresh_write
     from videollamb_torch.ops.spatial_attention import fused_spatial_core_packed
@@ -318,7 +433,8 @@ def counters():
             "flash_attention": flash_attention,
             "gathered_paged_attention": gathered_paged_attention_int8,
             "paged_fresh_write": paged_fresh_write,
-            "paged_attention_stats": paged_attention_with_stats}
+            "paged_attention_stats": paged_attention_with_stats,
+            "int4_matmul": int4_matmul}
 
 
 def zero_counters() -> None:
@@ -330,42 +446,56 @@ def read_counters() -> dict:
     return {name: fn.launches for name, fn in counters().items()}
 
 
-def slice_phase(model, cfg, g: torch.Generator) -> dict:
+OFFLINE_REQUESTS = [([40], 16), ([41], 32), ([39], 64), ([40, 27], 32)]
+K7_PER_STEP = 7 * 32 + 1  # projections x layers + lm_head
+
+
+def slice_phase(model, cfg, g: torch.Generator, *, requests=OFFLINE_REQUESTS, new: int = 32,
+                label: str = "bf16", int4: bool = False) -> dict:
+    """Offline requests through ``generate``; K1-K3 must launch, and with int4
+    weights K7 exactly 225 times per decode step and never during the prefill."""
     from videollamb_torch.models.engine import generate
 
-    requests = [([40], 16), ([41], 32), ([39], 64), ([40, 27], 32)]
     batches = [make_batch(cfg, g, lens, frames) for lens, frames in requests]
-    new = 32
-    kw = dict(max_new_tokens=new, do_sample=False, max_seq_len=cfg.max_length + 64)
-    generate(model, cfg, batches[0], **kw)  # warm-up: cuBLAS handles, kernel library
+    kw = dict(max_new_tokens=new, do_sample=False, max_seq_len=cfg.max_length + 64,
+              eos_token_id=-1)
+    generate(model, cfg, batches[0], **dict(kw, max_new_tokens=2))  # warm-up
     torch.cuda.synchronize()
 
     zero_counters()
     stats = []
     for (lens, frames), batch in zip(requests, batches):
+        k7_before = read_counters()["int4_matmul"]
         t0 = time.perf_counter()
         first = generate(model, cfg, batch, **dict(kw, max_new_tokens=1))
         torch.cuda.synchronize()
         ttft = time.perf_counter() - t0
+        k7_prefill = read_counters()["int4_matmul"] - k7_before
         t0 = time.perf_counter()
         res = generate(model, cfg, batch, **kw)
         torch.cuda.synchronize()
         total = time.perf_counter() - t0
+        k7_decode = read_counters()["int4_matmul"] - k7_before - k7_prefill
         b = len(lens)
         toks = res.tokens
         if (toks.shape != (b, new) or int(toks.min()) < 0
                 or int(toks.max()) >= cfg.lm.vocab_size
                 or not torch.equal(toks[:, 0], first.tokens[:, 0])):
-            raise AssertionError(f"request {lens}x{frames}: bad tokens {toks.tolist()}")
+            raise AssertionError(f"{label} request {lens}x{frames}: bad tokens {toks.tolist()}")
+        want_k7 = K7_PER_STEP * (new - 1) if int4 else 0
+        if k7_prefill != 0 or k7_decode != want_k7:
+            raise AssertionError(
+                f"{label} request {lens}x{frames}: int4_matmul launched {k7_prefill} times in "
+                f"the prefill (want 0) and {k7_decode} in {new - 1} decode steps (want {want_k7})")
         decoded = int(res.lengths.sum()) - b
         rate = decoded / max(total - ttft, 1e-9)
-        stats.append(dict(path="generate", batch=b, frames=frames, prompt_lens=lens,
+        stats.append(dict(path=f"generate {label}", batch=b, frames=frames, prompt_lens=lens,
                           ttft_s=ttft, decode_tok_s=rate, total_s=total))
-        print(f"[slice] B={b} frames={frames} prompt={lens}: TTFT {ttft * 1e3:.1f} ms, "
+        print(f"[slice] {label} B={b} frames={frames} prompt={lens}: TTFT {ttft * 1e3:.1f} ms, "
               f"decode {rate:.1f} tok/s, total {total:.2f} s, first tokens "
               f"{toks[:, :8].tolist()}")
     launches = read_counters()
-    print(f"[slice] launches during the requests: {launches}")
+    print(f"[slice] {label} launches during the requests: {launches}")
     for name in ("spatial_attention", "temporal_attention", "flash_attention"):
         if launches[name] == 0:
             raise AssertionError(f"kernel {name} of the offline path was never launched")
@@ -434,6 +564,219 @@ def serving_phase(model, cfg, g: torch.Generator) -> dict:
                           "paged_attention_stats": bf16["launches"]["paged_attention_stats"]})
 
 
+class SmokeTokenizer:
+    """A stand-in tokenizer for ``Chat`` (the smoke run has no tokenizer files):
+    whitespace words hashed into the vocabulary, reversible ``decode``."""
+
+    bos_token_id, eos_token_id, pad_token_id = 1, 2, 0
+
+    def __init__(self, vocab_size: int):
+        self.vocab_size = vocab_size
+
+    def __call__(self, text: str):
+        import types
+        import zlib
+
+        ids = [self.bos_token_id]
+        for word in text.split():
+            ids.append(self.eos_token_id if word == "</s>"
+                       else 4 + zlib.crc32(word.encode()) % (self.vocab_size - 4))
+        return types.SimpleNamespace(input_ids=ids)
+
+    def decode(self, tokens, skip_special_tokens: bool = True) -> str:
+        return " ".join(str(int(t)) for t in tokens if not (skip_special_tokens and int(t) < 3))
+
+
+# A question whose phrases repeat, so that prompt lookup has n-grams to hit.
+SPEC_QUESTION = " ".join(["what does the person in the red coat do next"] * 4)
+
+
+def _answer_tokens(text: str):
+    return [int(t) for t in text.split()]
+
+
+def _first_split(a, b):
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            return i
+    return None if len(a) == len(b) else min(len(a), len(b))
+
+
+def speculative_chat_runs(chat, frames, draft_lm, new: int, label: str) -> dict:
+    """Plain greedy, prompt lookup and int8 self-draft through ``Chat`` on one
+    prompt: (tokens, seconds, stats) of each."""
+    from videollamb_torch.constants import DEFAULT_X_TOKEN
+
+    chat.reset()
+    chat.conv.append_message(chat.conv.roles[0], DEFAULT_X_TOKEN["VIDEO"] + "\n" + SPEC_QUESTION)
+    chat.conv.append_message(chat.conv.roles[1], None)
+    prompt = chat.conv.get_prompt()
+    on_card = chat.device.type == "cuda"
+
+    def timed(fn):
+        if on_card:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        if on_card:
+            torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    out = {}
+    text, secs = timed(lambda: chat.generate_text(prompt, videos=frames, max_new_tokens=new,
+                                                  do_sample=False))
+    out["greedy"] = (_answer_tokens(text), secs, None)
+    (text, stats), secs = timed(lambda: chat.generate_speculative(
+        prompt, videos=frames, max_new_tokens=new))
+    out["lookup"] = (_answer_tokens(text), secs, stats)
+    (text, stats), secs = timed(lambda: chat.generate_speculative(
+        prompt, videos=frames, max_new_tokens=new, draft_params=draft_lm))
+    out["draft"] = (_answer_tokens(text), secs, stats)
+    for mode, (toks, secs, stats) in out.items():
+        extra = "" if stats is None else (
+            f", rounds {stats['steps']}, mean accepted length {stats['tokens_per_step']:.2f}, "
+            f"proposed {stats['proposed']}, accepted {stats['accepted']}, chain parts from "
+            f"greedy at {_first_split(toks, out['greedy'][0])}")
+        print(f"[spec] {label} {mode}: {len(toks)} tokens in {secs:.2f} s "
+              f"({len(toks) / secs:.1f} tok/s, tower and prefill included){extra}")
+    return out
+
+
+def speculative_phase(model, cfg, int8_lm, g: torch.Generator) -> dict:
+    """Full depth, bf16, on the card: the chains are reported, not asserted
+    (a verify step and a decode step may break an argmax tie differently)."""
+    from videollamb_torch.serve.chat import Chat
+    from videollamb_torch.serve.server import Request, ServingEngine
+
+    chat = Chat(SmokeTokenizer(cfg.lm.vocab_size), model, cfg, {})
+    img = cfg.vision.image_size
+    frames = torch.randn((16, 3, img, img), generator=g, device="cuda").cpu().numpy()
+    speculative_chat_runs(chat, frames, int8_lm, 8, "warm-up")
+    runs = speculative_chat_runs(chat, frames, int8_lm, 48, "7B bf16")
+    for mode, (toks, _, _) in runs.items():
+        if not toks or min(toks) < 0 or max(toks) >= cfg.lm.vocab_size:
+            raise AssertionError(f"speculative {mode}: bad tokens {toks}")
+
+    # A dense engine that speculates by prompt lookup serves three requests.
+    engine = ServingEngine(model, cfg, num_slots=2, eos_token_id=-1, speculative="lookup")
+    reqs = []
+    for i, n in enumerate([40, 33, 52]):
+        batch = make_batch(cfg, g, [n], 16)
+        batch.input_ids[0, 8:n] = batch.input_ids[0, 3:8].repeat(n)[:n - 8]  # repeated phrase
+        reqs.append(Request(uid=i, batch=batch, max_new_tokens=24))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r in reqs:
+        engine.submit(r)
+    done = engine.run_until_drained(k=4)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for r in reqs:
+        if (len(r.tokens) != 24 or r.error or min(r.tokens) < 0
+                or max(r.tokens) >= cfg.lm.vocab_size):
+            raise AssertionError(f"speculating engine, request {r.uid}: {r.error} {r.tokens}")
+    if len(done) != 3 or engine.spec_rounds == 0 or engine.spec_committed != 72:
+        raise AssertionError("speculating engine: requests lost or no speculation round ran")
+    print(f"[spec] dense engine, lookup, 2 slots: 3 requests x 24 tokens in {wall:.2f} s, "
+          f"{engine.spec_rounds} rounds, {engine.spec_committed / engine.spec_rounds:.2f} "
+          f"tokens per round over the active slots")
+    del engine
+    torch.cuda.empty_cache()
+    return dict(path="speculative 7B bf16",
+                runs={m: dict(tokens=len(t), seconds=s, stats=st)
+                      for m, (t, s, st) in runs.items()},
+                engine=dict(wall_s=wall))
+
+
+def quantized_phase(model, cfg, int8_lm, g: torch.Generator) -> dict:
+    """int8 LM, then int4 LM (offline and paged), then the int8 tower. The bf16
+    LM of ``model`` is consumed by the int4 quantiser."""
+    from videollamb_torch.models.assembly import VideoLLaMB
+    from videollamb_torch.models.lm.quant import linear_weight_bytes
+    from videollamb_torch.models.vision.clip_vit import vision_encode
+    from videollamb_torch.models.vision.quant import quantize_vision_params
+
+    requests = [([40], 16), ([40, 27], 32)]
+    gib = 2 ** 30
+    bf16_bytes = linear_weight_bytes(model.lm)
+    stats = []
+
+    int8_model = VideoLLaMB(model.video_tower, model.mm_projector, int8_lm)
+    int8 = slice_phase(int8_model, cfg, g, requests=requests, new=16, label="int8 LM")
+    int8_bytes = linear_weight_bytes(int8_lm)
+    stats += int8["stats"]
+    del int8_model
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    before = torch.cuda.memory_allocated()
+    lm_variant(model, "int4")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    int4_bytes = linear_weight_bytes(model.lm)
+    print(f"[quant] int4 quantisation of the 7B LM on the card: {time.perf_counter() - t0:.1f} s, "
+          f"allocated {before / gib:.2f} -> {torch.cuda.memory_allocated() / gib:.2f} GiB")
+    print(f"[quant] projection and lm_head weights held on the card: bf16 "
+          f"{bf16_bytes / gib:.2f} GiB, int8 {int8_bytes / gib:.2f} GiB, int4 "
+          f"{int4_bytes / gib:.2f} GiB")
+    int4 = slice_phase(model, cfg, g, requests=requests, new=16, label="int4 LM", int4=True)
+    stats += int4["stats"]
+    paged = serve_run(model, cfg, g, quantize_kv=True, frames=16, new=16, k=8,
+                      prompt_lens=[24, 90, 40, 61], label="int4 LM, int8 pages, 8 slots")
+    stats.append(paged)
+    for name in ("gathered_paged_attention", "paged_fresh_write", "int4_matmul"):
+        if paged["launches"][name] == 0:
+            raise AssertionError(f"kernel {name} was never launched by the int4 paged run")
+    # All four requests are admitted together and decode 16 steps: 225 launches
+    # a step, plus lm_head on the last row of each 256-token admission chunk
+    # (M = 1, so it takes the kernel; the chunk's other products have M = 256).
+    steps, chunks = divmod(paged["launches"]["int4_matmul"], K7_PER_STEP)
+    if steps != 16 or not 4 <= chunks <= 32:
+        raise AssertionError(f"int4 paged run: int4_matmul launched {K7_PER_STEP} x {steps} + "
+                             f"{chunks} times, want 225 x 16 decode steps + 4..32 chunks")
+    print(f"[quant] int4 paged run: int4_matmul {K7_PER_STEP} x {steps} decode steps + {chunks} "
+          f"admission chunks")
+
+    # int8 tower on one 16-frame clip against the bf16 tower.
+    clip = make_batch(cfg, g, [40], 16).videos
+    want = vision_encode(model.video_tower, clip, cfg.vision)
+    bf16_ms = cuda_ms(lambda: vision_encode(model.video_tower, clip, cfg.vision), iters=3, warmup=1)
+    quantize_vision_params(model.video_tower)
+    got = vision_encode(model.video_tower, clip, cfg.vision)
+    int8_ms = cuda_ms(lambda: vision_encode(model.video_tower, clip, cfg.vision), iters=3, warmup=1)
+    rel = float((got.float() - want.float()).norm() / want.float().norm())
+    ok = bool(torch.isfinite(got).all()) and got.shape == want.shape and rel <= INT8_TOWER_REL_L2
+    print(f"[quant] int8 tower, 16 frames: rel_l2 vs the bf16 tower {rel:.3e} (tol "
+          f"{INT8_TOWER_REL_L2}), {int8_ms:.1f} ms against {bf16_ms:.1f} ms -> "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the int8 tower disagrees with the bf16 tower")
+    return dict(stats=stats, launches=int4["launches"], paged_launches=paged["launches"],
+                weight_gib=dict(bf16=bf16_bytes / gib, int8=int8_bytes / gib,
+                                int4=int4_bytes / gib),
+                int8_tower=dict(rel_l2=rel, ms=int8_ms, bf16_ms=bf16_ms))
+
+
+def speculative_reference(cpu_model, cfg) -> None:
+    """On the host copy of the depth-cut model, f32: lookup and int8 self-draft
+    speculation give plain greedy's tokens, one for one."""
+    from videollamb_torch.models.lm.quant import quantize_llama_params
+    from videollamb_torch.serve.chat import Chat
+
+    cfg = dataclasses.replace(cfg, max_length=1024)
+    chat = Chat(SmokeTokenizer(cfg.lm.vocab_size), cpu_model, cfg, {})
+    img = cfg.vision.image_size
+    frames = torch.randn((8, 3, img, img), generator=torch.Generator().manual_seed(3)).numpy()
+    draft = quantize_llama_params(copy.deepcopy(cpu_model.lm))
+    runs = speculative_chat_runs(chat, frames, draft, 16, "depth-cut f32, host")
+    greedy = runs["greedy"][0]
+    for mode in ("lookup", "draft"):
+        if runs[mode][0] != greedy or not greedy:
+            raise AssertionError(f"f32 {mode} speculation differs from greedy: "
+                                 f"{runs[mode][0]} vs {greedy}")
+    print("[spec] depth-cut f32: lookup and int8 self-draft equal greedy token for token -> ok")
+
+
 def reference_phase(g: torch.Generator, seed: int) -> None:
     """Kernel path (card, bf16) vs plain path (host, f32) on a depth-cut model."""
     from videollamb_torch.config import ModelConfig
@@ -494,6 +837,9 @@ def reference_phase(g: torch.Generator, seed: int) -> None:
           f"{'ok' if ok else 'FAIL'}")
     if not ok or not all(torch.isfinite(x).all() for x in (feats_gpu, logits[0])):
         raise AssertionError("kernel path disagrees with the plain path")
+    del gpu
+    torch.cuda.empty_cache()
+    speculative_reference(cpu, cfg)
 
 
 SOURCES = {  # name -> (source, TPU kernel it replaces)
@@ -509,6 +855,8 @@ SOURCES = {  # name -> (source, TPU kernel it replaces)
                           "videollamb_tpu/ops/paged_fresh_write.py:81"),
     "paged_attention_stats": ("videollamb_torch/csrc/paged_attention_stats.cu",
                               "videollamb_tpu/ops/paged_attention_stats.py:36"),
+    "int4_matmul": ("videollamb_torch/csrc/int4_matmul.cu",
+                    "videollamb_tpu/ops/int4_matmul.py:147"),
 }
 
 
@@ -546,14 +894,22 @@ def main() -> int:
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     sliced = slice_phase(model, cfg, g)
     served = serving_phase(model, cfg, g)
-    del model
+
+    t0 = time.perf_counter()
+    int8_lm = lm_variant(model, "int8").lm
+    torch.cuda.synchronize()
+    print(f"[quant] int8 copy of the 7B LM made on the card in {time.perf_counter() - t0:.1f} s")
+    speculated = speculative_phase(model, cfg, int8_lm, g)
+    quantized = quantized_phase(model, cfg, int8_lm, g)
+    del model, int8_lm
     torch.cuda.empty_cache()
     reference_phase(g, args.seed)
 
     launches = {**{k: sliced["launches"][k] for k in
                    ("spatial_attention", "temporal_attention", "flash_attention")},
                 **{k: served["launches"][k] for k in
-                   ("gathered_paged_attention", "paged_fresh_write", "paged_attention_stats")}}
+                   ("gathered_paged_attention", "paged_fresh_write", "paged_attention_stats")},
+                "int4_matmul": quantized["launches"]["int4_matmul"]}
     rows = []
     for name, (source, replaces) in SOURCES.items():
         r = kernels[name]
@@ -561,7 +917,16 @@ def main() -> int:
                      "launches": launches[name], "max_abs_err": r["max_abs_err"],
                      "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
                      "bound_by": r["bound"][1], "library_ms": r["library_ms"]})
-    print(json.dumps({"requests": sliced["stats"] + served["stats"]}))
+        if "shapes" in r:  # K7: every main-path shape, beside the first one's numbers above
+            rows[-1]["shapes"] = [
+                {"shape": x["shape"], "max_abs_err": x["max_abs_err"], "ms": x["ms"],
+                 "host_enqueue_ms": x["host_ms"], "graph_replay_ms": x["device_ms"],
+                 "library_graph_replay_ms": x["library_device_ms"], "plain_ms": x["plain_ms"],
+                 "bound_ms": x["bound"][0], "bound_by": x["bound"][1],
+                 "library_ms": x["library_ms"]} for x in r["shapes"]]
+    print(json.dumps({"requests": sliced["stats"] + served["stats"] + quantized["stats"],
+                      "speculative": speculated, "weight_gib": quantized["weight_gib"],
+                      "int8_tower": quantized["int8_tower"]}))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

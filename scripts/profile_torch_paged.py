@@ -1,12 +1,15 @@
 """Where the PyTorch port's paged serving engine spends its time on one NVIDIA GPU.
 
     python3 scripts/profile_torch_paged.py [--slots 8] [--frames 16] [--seed 0]
+        [--weights bf16,int8,int4] [--pages int8,bf16]
         [--out results/profile_torch_paged.json]
 
 Builds VideoLLaMB-7B at full width and depth (``ModelConfig()``, seeded
-random bf16 weights, as ``chip_smoke.py`` does) and, for int8 pages and for
-bf16 pages, fills a ``PagedServingEngine`` of ``--slots`` slots with video
-requests (``--frames`` frames, prompts of 24-90 ids, one VIDEO sentinel):
+random bf16 weights, as ``chip_smoke.py`` does) and, for each choice of LM
+weights in ``--weights`` (bf16; int8 by ``quantize_llama_params``; int4 by
+``quantize_llama_params_int4``, kernel K7 in the decode step) and each page
+type in ``--pages``, fills a ``PagedServingEngine`` of ``--slots`` slots with
+video requests (``--frames`` frames, prompts of 24-90 ids, one VIDEO sentinel):
 
 - admission on the host clock, each stage ended by
   ``torch.cuda.synchronize()``: the splice (tower, SceneTilling, bridge),
@@ -122,8 +125,15 @@ def main() -> int:
     parser.add_argument("--slots", type=int, default=8)
     parser.add_argument("--frames", type=int, default=16)
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--weights", default="bf16",
+                        help="comma list of bf16, int8, int4: the LM weights of each pass")
+    parser.add_argument("--pages", default="int8,bf16", help="comma list of int8, bf16")
     parser.add_argument("--out", default=os.path.join("results", "profile_torch_paged.json"))
     args = parser.parse_args()
+    weights = [w for w in ("bf16", "int8", "int4") if w in args.weights.split(",")]
+    pages = [p for p in ("int8", "bf16") if p in args.pages.split(",")]
+    if not weights or not pages:
+        sys.exit("profile_torch_paged: --weights takes bf16,int8,int4 and --pages int8,bf16")
     if not torch.cuda.is_available():
         sys.exit("profile_torch_paged: needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -140,12 +150,15 @@ def main() -> int:
     model = chip_smoke.build_model(cfg, args.seed, "cuda", torch.bfloat16)
     g = torch.Generator(device="cuda").manual_seed(args.seed)
     report = dict(card=card, torch=torch.__version__, engines=[])
-    for quantize_kv in (True, False):
-        r = profile_engine(model, cfg, g, quantize_kv=quantize_kv, slots=args.slots,
+    for choice, page_type in ((w, p) for w in weights for p in pages):
+        r = profile_engine(chip_smoke.lm_variant(model, choice), cfg, g,
+                           quantize_kv=page_type == "int8", slots=args.slots,
                            frames=args.frames)
+        r["weights"] = choice
         report["engines"].append(r)
         torch.cuda.empty_cache()
-        print(f"[profile] {card} {r['pages']} pages, {r['slots']} slots: admission "
+        print(f"[profile] {card} {choice} weights, {r['pages']} pages, {r['slots']} slots: "
+              f"admission "
               f"{json.dumps(r['admission'])}; decode step {r['decode']['step_ms']:.1f} ms "
               f"(device busy {r['decode']['device_busy_step_ms']:.1f} ms, idle share "
               f"{r['decode']['device_idle_share']:.3f})")

@@ -1,11 +1,13 @@
 """Where the PyTorch port's main path spends its time on one NVIDIA GPU.
 
     python3 scripts/profile_torch_slice.py [--frames 16 64] [--new 32] [--seed 0]
-        [--out results/profile_torch_slice.json]
+        [--weights bf16,int8,int4] [--out results/profile_torch_slice.json]
 
 Builds VideoLLaMB-7B at full width and depth (``ModelConfig()``, seeded
-random bf16 weights, as ``chip_smoke.py`` does) and, for each frame count,
-answers one B=1 request (40-id prompt with one VIDEO sentinel, greedy):
+random bf16 weights, as ``chip_smoke.py`` does) and, for each choice of LM
+weights (bf16; int8 by ``quantize_llama_params``; int4 by
+``quantize_llama_params_int4``, kernel K7 in the decode step) and each frame
+count, answers one B=1 request (40-id prompt with one VIDEO sentinel, greedy):
 
 - stage times on the host clock, each ended by ``torch.cuda.synchronize()``:
   tower (``vision_encode``), bridge (``rmt_r_video_forward``), splice,
@@ -96,8 +98,13 @@ def main() -> int:
     parser.add_argument("--frames", type=int, nargs="+", default=[16, 64])
     parser.add_argument("--new", type=int, default=32)
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--weights", default="bf16",
+                        help="comma list of bf16, int8, int4: the LM weights of each pass")
     parser.add_argument("--out", default=os.path.join("results", "profile_torch_slice.json"))
     args = parser.parse_args()
+    weights = [w for w in ("bf16", "int8", "int4") if w in args.weights.split(",")]
+    if not weights:
+        sys.exit("profile_torch_slice: --weights takes bf16,int8,int4")
     if not torch.cuda.is_available():
         sys.exit("profile_torch_slice: needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -114,12 +121,13 @@ def main() -> int:
     model = chip_smoke.build_model(cfg, args.seed, "cuda", torch.bfloat16)
     g = torch.Generator(device="cuda").manual_seed(args.seed)
     report = dict(card=card, torch=torch.__version__, requests=[])
-    for frames in args.frames:
+    for choice, frames in ((w, f) for w in weights for f in args.frames):
         batch = chip_smoke.make_batch(cfg, g, [40], frames)
-        r = profile_request(model, cfg, batch, args.new)
-        r.update(frames=frames, new_tokens=args.new)
+        r = profile_request(chip_smoke.lm_variant(model, choice), cfg, batch, args.new)
+        r.update(frames=frames, new_tokens=args.new, weights=choice)
         report["requests"].append(r)
-        print(f"[profile] {card} frames={frames}: {json.dumps(r['stages'])}; generate "
+        print(f"[profile] {card} {choice} weights, frames={frames}: "
+              f"{json.dumps(r['stages'])}; generate "
               f"{r['generate_wall_ms']:.1f} ms, device idle share "
               f"{r['device_idle_share']:.3f}")
         for k in r["top_kernels"][:8]:

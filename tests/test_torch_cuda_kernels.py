@@ -13,7 +13,9 @@ Shapes are the main path's: 257 tokens x 16 heads of 64 in the tower,
 2^-8) and f32 sums taken in other orders, atol 1e-2 + rtol 2e-2. K4 and K6
 return f32 statistics (m, l) within 1e-5 and outputs within 2e-3 (K4: one
 int8 step of the probability requantisation) or 1e-4 (K6) of max|out|. K5
-is a copy: exact outside the trash page.
+is a copy: exact outside the trash page. K7 sums each group in f32 in
+another order than its plain version and rounds once: 2e-5 in f32, one
+bf16 step (2^-7 relative) plus 1e-3 absolute in bf16.
 """
 
 from __future__ import annotations
@@ -22,6 +24,12 @@ import pytest
 import torch
 
 from videollamb_torch.ops.flash_attention import flash_attention, flash_attention_reference
+from videollamb_torch.ops.int4_matmul import (
+    dequantize_int4,
+    int4_matmul,
+    int4_matmul_reference,
+    quantize_int4,
+)
 from videollamb_torch.ops.gathered_paged_attention import (
     gathered_paged_attention_int8,
     gathered_paged_attention_int8_reference,
@@ -201,3 +209,42 @@ def test_fresh_write_kernel_matches_plain(dev, layers, p_total, page, kd, b):
         assert torch.equal(a[:, 1:], w[:, 1:])
     with pytest.raises(ValueError):
         paged_fresh_write(pools[0], pools[1], fresh[0].float(), fresh[1], pages, offs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,group,dtype", [
+    (8, 4096, 11008, 128, torch.bfloat16), (1, 4096, 4096, 128, torch.bfloat16),
+    (64, 11008, 4096, 128, torch.bfloat16), (8, 4096, 32000, 128, torch.bfloat16),
+    (5, 4096, 4096, 128, torch.float32), (3, 256, 1000, 32, torch.float32),
+    (9, 128, 130, 16, torch.bfloat16), (17, 64, 37, 32, torch.float32),
+], ids=["up-proj", "m1", "verify-down-proj", "lm-head", "f32", "n-not-tile", "n-not-4", "odd-n"])
+def test_int4_matmul_kernel_matches_plain(dev, m, k, n, group, dtype):
+    g = torch.Generator(device=dev).manual_seed(m + n)
+    w = torch.randn((k, n), generator=g, device=dev) * 0.02
+    qk = quantize_int4(w, group)
+    x = torch.randn((m, k), generator=g, device=dev).to(dtype)
+    before = int4_matmul.launches
+    got = int4_matmul(x, qk["q4"], qk["scale"])
+    torch.cuda.synchronize()
+    assert int4_matmul.launches == before + 1
+    assert got.dtype == dtype and got.shape == (m, n)
+    want = int4_matmul_reference(x, qk["q4"], qk["scale"])
+    tol = dict(rtol=2e-5, atol=2e-5) if dtype == torch.float32 else dict(rtol=2 ** -7, atol=1e-3)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    # A second launch repeats the first bit for bit (no float atomics).
+    assert torch.equal(int4_matmul(x, qk["q4"], qk["scale"]), got)
+    # The dequantise-then-multiply route of large M computes the same product.
+    dense = (x.float() @ dequantize_int4(qk, torch.float32)).to(dtype)
+    torch.testing.assert_close(got.float(), dense.float(), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+def test_int4_matmul_kernel_refuses_other_operands(dev):
+    qk = quantize_int4(torch.randn((256, 64), device=dev), 32)
+    x = torch.randn((65, 256), device=dev)
+    for bad in (lambda: int4_matmul(x, qk["q4"], qk["scale"]),                       # M > 64
+                lambda: int4_matmul(x[:4].half(), qk["q4"], qk["scale"]),            # f16
+                lambda: int4_matmul(x[:4], qk["q4"].t(), qk["scale"]),               # layout
+                lambda: int4_matmul(x[:4], qk["q4"], qk["scale"].float())):          # scales
+        with pytest.raises(ValueError):
+            bad()

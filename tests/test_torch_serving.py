@@ -111,7 +111,7 @@ def test_batch_cli_refuses_unported_row_fields(field, value):
         build_requests([{"id": 1, "prompt": "hi", field: value}], chat=None)
 
 
-@pytest.mark.parametrize("flag", ["--load-8bit", "--device-preprocess"])
+@pytest.mark.parametrize("flag", ["--device-preprocess"])
 def test_batch_cli_refuses_unported_flags(flag, tmp_path):
     from videollamb_torch.serve import batch_cli
 

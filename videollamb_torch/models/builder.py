@@ -1,15 +1,19 @@
 """Checkpoint loading: ``load_pretrained_model`` for reference-format dirs.
 
-Port of the full-checkpoint path of ``videollamb_tpu/models/builder.py``
-(reference llava/model/builder.py:26-195): a model dir with ``config.json``
-and ``pytorch_model*.bin`` shards (LM under ``model.*`` / ``lm_head``,
-bridge under ``model.mm_projector.*``), and a LanguageBind tower dir with
-its own ``config.json`` and ``vision_model.*`` weights. Shards are read
-with ``torch.load(weights_only=True)``.
+Port of ``videollamb_tpu/models/builder.py`` (reference
+llava/model/builder.py:26-195): a model dir with ``config.json`` and
+``pytorch_model*.bin`` shards (LM under ``model.*`` / ``lm_head``, bridge
+under ``model.mm_projector.*``), and a LanguageBind tower dir with its own
+``config.json`` and ``vision_model.*`` weights. Shards are read with
+``torch.load(weights_only=True)``. With ``model_base`` the checkpoint is a
+PEFT LoRA dir (``adapter_config.json``; merged into the base at load, with
+``non_lora_trainables.bin`` on top) or a projector-only dir
+(``mm_projector.bin`` over the base). ``load_8bit`` quantises the LM to
+weight-only int8 after the cast (``models/lm/quant.quantize_llama_params``).
 
-Base + projector-only and LoRA checkpoints, safetensors shards, int8
-loading, the image tower and device-side preprocessing are not ported yet.
-The model loads onto the card unless the caller passes ``device="cpu"``.
+Safetensors shards, the image tower and device-side preprocessing are not
+ported yet. The model loads onto the card unless the caller passes
+``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -112,6 +116,45 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def _merge_lora(base_sd: Dict[str, torch.Tensor], lora_dir: str,
+                scaling: Optional[float] = None) -> Dict[str, torch.Tensor]:
+    """Merge PEFT LoRA adapter weights into a base state dict
+    (``merge_and_unload``): ``W += (B @ A) * lora_alpha / r``."""
+    with open(os.path.join(lora_dir, "adapter_config.json")) as f:
+        acfg = json.load(f)
+    if scaling is None:
+        scaling = acfg["lora_alpha"] / acfg["r"]
+    lora_sd = load_state_dict(lora_dir)
+    # Keys: base_model.model.<name>.lora_A.weight / lora_B.weight
+    for k in [k for k in lora_sd if k.endswith("lora_A.weight")]:
+        b_key = k.replace("lora_A.weight", "lora_B.weight")
+        target = k.replace("base_model.model.", "").replace(".lora_A.weight", ".weight")
+        if target not in base_sd:
+            continue
+        delta = (lora_sd[b_key].float() @ lora_sd[k].float()) * scaling
+        base_sd[target] = base_sd[target] + delta.to(base_sd[target].dtype)
+    return base_sd
+
+
+def _resolve_state(model_path: str, model_base: Optional[str]) -> Dict[str, torch.Tensor]:
+    """The full state dict of a checkpoint: LoRA dir over its base, projector
+    file over its base, or a full checkpoint."""
+    is_lora = os.path.exists(os.path.join(model_path, "adapter_config.json"))
+    projector_bin = os.path.join(model_path, "mm_projector.bin")
+    if model_base is not None and os.path.exists(projector_bin):
+        full_sd = load_state_dict(model_base)
+        full_sd.update(torch.load(projector_bin, map_location="cpu", weights_only=True))
+        return full_sd
+    if is_lora:
+        base_sd = load_state_dict(model_base)
+        extra = os.path.join(model_path, "non_lora_trainables.bin")
+        if os.path.exists(extra):
+            for k, v in torch.load(extra, map_location="cpu", weights_only=True).items():
+                base_sd[k.replace("base_model.model.", "").replace("base_model.", "")] = v
+        return _merge_lora(base_sd, model_path)
+    return load_state_dict(model_path)
+
+
 def _load(factory, state, device, dtype) -> torch.nn.Module:
     module = empty_module(factory, device, dtype)
     module.load_state_dict(state, strict=True)
@@ -130,20 +173,28 @@ def load_pretrained_model(
     device_preprocess: bool = False,
     device="cuda",
 ) -> Tuple[Any, VideoLLaMB, ModelConfig, Dict[str, Any], int]:
-    """Load a full reference-format checkpoint.
+    """Resolve a checkpoint (full, base + projector, or LoRA) into a model.
+
+    - ``model_base`` set and ``adapter_config.json`` present: LoRA merge;
+    - ``model_base`` set and ``mm_projector.bin`` present: projector only;
+    - else a full checkpoint.
 
     Returns (tokenizer, model, config, processors, context_len), the tuple
     the reference returns; the tokenizer is None unless ``load_tokenizer``.
     """
-    unported = {"model_base": model_base, "image_tower_path": image_tower_path,
-                "load_8bit": load_8bit, "device_preprocess": device_preprocess}
+    unported = {"image_tower_path": image_tower_path, "device_preprocess": device_preprocess}
     for name, value in unported.items():
         if value:
             raise NotImplementedError(f"load_pretrained_model({name}=...) is not ported yet")
     device = resolve_device(device)
     wanted = torch.bfloat16 if dtype == "bfloat16" else torch.float32
-    cfg = config_from_json(model_path)
-    lm_sd, bridge_sd = split_reference_state(load_state_dict(model_path))
+    is_lora = os.path.exists(os.path.join(model_path, "adapter_config.json"))
+    based = model_base is not None and (
+        is_lora or os.path.exists(os.path.join(model_path, "mm_projector.bin")))
+    cfg_dir = model_base if based and os.path.exists(
+        os.path.join(model_base, "config.json")) else model_path
+    cfg = config_from_json(cfg_dir)
+    lm_sd, bridge_sd = split_reference_state(_resolve_state(model_path, model_base))
 
     video_tower = None
     if video_tower_path:
@@ -157,12 +208,16 @@ def load_pretrained_model(
     lm = _load(lambda: LlamaForCausalLM(cfg.lm), lm_sd, device, wanted)
     bridge = _load(lambda: RMTRBridge(cfg.bridge, cfg.lm.hidden_size), bridge_sd,
                    device, wanted)
+    if load_8bit:  # weight-only int8 LM, quantised where it lies
+        from videollamb_torch.models.lm.quant import quantize_llama_params
+
+        lm = quantize_llama_params(lm)
     model = VideoLLaMB(video_tower, bridge, lm)
 
     tokenizer = None
     if load_tokenizer:
         from transformers import AutoTokenizer
 
-        tokenizer = AutoTokenizer.from_pretrained(model_path, use_fast=True)
+        tokenizer = AutoTokenizer.from_pretrained(model_base or model_path, use_fast=True)
     processors = {"VIDEO": VideoProcessor(size=cfg.vision.image_size)}
     return tokenizer, model, cfg, processors, cfg.max_length

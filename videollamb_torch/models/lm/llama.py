@@ -15,8 +15,11 @@ engines' chunked admission) and one-token decode. Module names follow the HF
   Extend and decode attention are plain PyTorch over the cache, as they are
   plain XLA (``_grouped_attention``) in the JAX package.
 - RMSNorm, RoPE and attention scores are f32; weights may be bf16.
-- Sliding-window attention, RoPE scaling, LoRA and quantised weights are
-  not ported yet.
+- Every projection is a module call (``attn.q_proj(x)``, ``lm.lm_head(x)``):
+  an ``nn.Linear``, a ``models/lm/quant.QuantLinear`` holding int8 or int4
+  weights (int4 with at most 64 rows goes through kernel K7 on the card), or
+  a ``models/lm/lora.LoRALinear`` around either.
+- Sliding-window attention and multi-LoRA adapter stacks are not ported yet.
 """
 
 from __future__ import annotations
@@ -184,13 +187,15 @@ def llama_prefill(lm: LlamaForCausalLM, cfg: LlamaConfig, inputs_embeds: torch.T
 
 @torch.no_grad()
 def llama_extend(lm: LlamaForCausalLM, cfg: LlamaConfig, inputs_embeds: torch.Tensor,
-                 attention_mask: torch.Tensor, cache: KVCache) -> Tuple[torch.Tensor, KVCache]:
+                 attention_mask: torch.Tensor, cache: KVCache,
+                 return_all: bool = False) -> Tuple[torch.Tensor, KVCache]:
     """Append a right-padded (B, S, D) chunk to a filled cache (in place).
 
     Row i's fresh tokens are written at [len_i, len_i + S) (rows past the
     buffer are dropped) and attend causally over the cache and each other.
-    Returns (last valid token's logits (B, V) f32, the cache with lengths
-    advanced by the valid count).
+    Returns (last valid token's logits (B, V) f32, or every position's
+    (B, S, V) with ``return_all``; the cache with lengths advanced by the
+    valid count).
     """
     _check_supported(cfg)
     b, s, d = inputs_embeds.shape
@@ -220,9 +225,11 @@ def llama_extend(lm: LlamaForCausalLM, cfg: LlamaConfig, inputs_embeds: torch.Te
                                   cache.v[i, :, :end].to(q.dtype), mask)
         x = x + layer.self_attn.o_proj(attn.reshape(b, s, d))
         x = _mlp(layer, cfg, x)
+    new_cache = KVCache(k=cache.k, v=cache.v, length=start + fresh_len)
+    if return_all:
+        return _final(lm, cfg, x), new_cache
     last = x[torch.arange(b, device=dev), (fresh_len - 1).clamp(min=0)]
-    return (_final(lm, cfg, last[:, None])[:, 0],
-            KVCache(k=cache.k, v=cache.v, length=start + fresh_len))
+    return _final(lm, cfg, last[:, None])[:, 0], new_cache
 
 
 @torch.no_grad()

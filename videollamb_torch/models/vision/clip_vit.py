@@ -11,6 +11,9 @@ by name. Linear weights keep the (out, in) orientation.
 - Temporal attention runs over fixed windows of ``cfg.num_frames`` frames
   on the frame-major residual stream (kernel K2), spatial attention over
   the patches of each frame with heads packed (kernel K1).
+- After ``models/vision/quant.quantize_vision_params`` the dense layers and
+  the patch embedding are ``Int8Dense`` modules (int8 x int8 products with
+  per-row activation scales); the attention cores are unchanged.
 - Feature extraction stops at the select layer (-2: the last layer is
   never run). Patch dropout (training only) is not ported.
 """
@@ -131,8 +134,11 @@ def _embed(emb: CLIPEmbeddings, pixels: torch.Tensor, cfg: VisionConfig) -> torc
     gh, gw = h // p, w // p
     x = pixels.reshape(m, c, gh, p, gw, p).permute(0, 2, 4, 1, 3, 5)
     x = x.reshape(m, gh * gw, c * p * p)
-    weight = emb.patch_embedding.weight
-    patches = x @ weight.reshape(weight.shape[0], -1).to(x.dtype).t()
+    if isinstance(emb.patch_embedding, PatchEmbedding):
+        weight = emb.patch_embedding.weight
+        patches = x @ weight.reshape(weight.shape[0], -1).to(x.dtype).t()
+    else:  # int8 patch embedding, no bias
+        patches = emb.patch_embedding(x)
     cls = emb.class_embedding.to(x.dtype).expand(m, 1, -1)
     x = torch.cat([cls, patches], dim=1)
     return x + emb.position_embedding.weight.to(x.dtype)[None]
@@ -150,7 +156,7 @@ def vision_encode(tower: CLIPVisionTower, pixels: torch.Tensor, cfg: VisionConfi
     sel = cfg.select_layer if select_layer is None else select_layer
     n_layers = len(layers) + sel + 1 if sel < 0 else sel
     time_window = cfg.num_frames if (cfg.add_time_attn and t > 1) else 1
-    dtype = vm.embeddings.patch_embedding.weight.dtype
+    dtype = vm.embeddings.class_embedding.dtype
     x = _embed(vm.embeddings, pixels.reshape(b * t, c, h, w).to(dtype), cfg)
     x = _layer_norm(vm.pre_layrnorm, x, cfg.layer_norm_eps)
     for layer in layers[:n_layers]:

@@ -85,8 +85,21 @@ def _ln_fm(x: torch.Tensor, temporal_embedding: torch.Tensor, ln: nn.LayerNorm,
 
 
 def _qkv_fused(attn: nn.Module, normed: torch.Tensor, q_scale: float) -> torch.Tensor:
-    """ONE 3d-wide projection: normed @ [Wq*s | Wk | Wv]^T + [bq*s | bk | bv]."""
+    """ONE 3d-wide projection: normed @ [Wq*s | Wk | Wv]^T + [bq*s | bk | bv].
+
+    With int8 projections (``models/vision/quant.Int8Dense``) the integer
+    kernels are concatenated and so are their scales, in f32: ``scale * s``
+    in bf16 would round the q third by about 0.4 %.
+    """
     dt = normed.dtype
+    if hasattr(attn.q_proj, "q"):
+        from videollamb_torch.models.vision.quant import dense_int8
+
+        qp, kp, vp = attn.q_proj, attn.k_proj, attn.v_proj
+        fused = {"q": torch.cat([qp.q, kp.q, vp.q], dim=1),
+                 "scale": torch.cat([qp.scale.float() * q_scale, kp.scale.float(),
+                                     vp.scale.float()], dim=-1)}
+        return dense_int8(fused, normed, torch.cat([qp.bias * q_scale, kp.bias, vp.bias]))
     w = torch.cat([attn.q_proj.weight.to(dt) * q_scale, attn.k_proj.weight.to(dt),
                    attn.v_proj.weight.to(dt)], dim=0)
     b = torch.cat([attn.q_proj.bias.float() * q_scale, attn.k_proj.bias.float(),

@@ -38,7 +38,7 @@ UNPORTED_FIELDS = {
     "image": "image rows",
     "audio": "audio rows",
 }
-UNPORTED_FLAGS = {"load_8bit": "--load-8bit", "device_preprocess": "--device-preprocess"}
+UNPORTED_FLAGS = {"device_preprocess": "--device-preprocess"}
 
 
 def build_requests(lines: List[Dict[str, Any]], chat) -> List[Any]:
@@ -135,7 +135,7 @@ def main(argv=None):
                         help="torch device (default cuda; cpu runs the plain versions "
                              "of the kernels)")
     parser.add_argument("--load-8bit", action="store_true",
-                        help="not supported by the port yet")
+                        help="weight-only int8 LM (models/lm/quant.py)")
     parser.add_argument("--device-preprocess", action="store_true",
                         help="not supported by the port yet")
     args = parser.parse_args(argv)
@@ -151,7 +151,7 @@ def main(argv=None):
     device = resolve_device(args.device)
     tokenizer, model, cfg, processors, _ = load_pretrained_model(
         args.model_path, args.model_base, video_tower_path=args.video_tower,
-        dtype="float32" if args.fp32 else "bfloat16", device=device)
+        dtype="float32" if args.fp32 else "bfloat16", load_8bit=args.load_8bit, device=device)
     chat = Chat(tokenizer, model, cfg, processors)
     eos = int(tokenizer.eos_token_id or 2)
     if args.paged:

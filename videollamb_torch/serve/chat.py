@@ -3,9 +3,10 @@
 Port of ``Chat.generate_text`` and ``Chat.ask_about_video`` of
 ``videollamb_tpu/serve/chat.py`` (reference llava/serve/cli.py:25-111):
 conversation template -> ``tokenizer_x_token`` -> multimodal generate ->
-stop-string trim. Text lengths are padded to bucket multiples, as in the
-JAX package. Speculative decoding, KV reuse across turns, streaming and
-mixed-modality turns are not ported yet.
+stop-string trim, and of ``Chat.generate_speculative`` (prompt-lookup or
+draft-model speculation, greedy-exact). Text lengths are padded to bucket
+multiples, as in the JAX package. KV reuse across turns (``KVChatSession``),
+streaming and mixed-modality turns are not ported yet.
 """
 
 from __future__ import annotations
@@ -90,13 +91,76 @@ class Chat:
         text = self.tokenizer.decode(tokens, skip_special_tokens=True).strip()
         return stopper.trim(text)
 
+    @torch.no_grad()
+    def generate_speculative(self, prompt: str, *, videos: Optional[np.ndarray] = None,
+                             max_new_tokens: int = 512, ngram: int = 3, k: int = 8,
+                             draft_params=None, draft_cfg=None):
+        """Greedy generation with speculative decoding (``models/speculative.py``):
+        the text of greedy ``generate_text``, in fewer forward passes of the
+        target. Prompt lookup by default; with ``draft_params`` (a whole model
+        or an LM of the same hidden size, for instance an int8 copy of this
+        one) the draft proposes and shares this model's spliced embeddings.
+        Returns (text, stats)."""
+        from videollamb_torch.models.assembly import prepare_multimodal_embeds
+        from videollamb_torch.models.lm.llama import init_kv_cache, llama_prefill
+        from videollamb_torch.models.speculative import (
+            speculative_decode,
+            speculative_decode_draft,
+        )
+
+        ids, mask = self._prepare_ids(prompt, "VIDEO")
+        dev = self.device
+        batch = MultimodalBatch(
+            input_ids=torch.from_numpy(ids).to(dev),
+            attention_mask=torch.from_numpy(mask).to(dev),
+            videos=(torch.from_numpy(np.asarray(videos)[None]).to(dev, self.dtype)
+                    if videos is not None else None))
+        spliced = prepare_multimodal_embeds(self.model, self.cfg, batch)
+        max_len = self.cfg.max_length + _round_up(max_new_tokens, 64)
+        cache = init_kv_cache(self.cfg.lm, 1, max_len, dtype=self.dtype, device=dev)
+        logits, cache = llama_prefill(self.model.lm, self.cfg.lm, spliced.embeds,
+                                      spliced.attention_mask, cache)
+        stopper = KeywordStopper([self.stop_str()], self.tokenizer)
+        common = dict(max_new_tokens=max_new_tokens,
+                      eos_token_id=int(self.tokenizer.eos_token_id or 2),
+                      stop_ids=set(stopper.stop_token_ids()), k=k)
+        if draft_params is not None:
+            d_cfg = draft_cfg or self.cfg.lm
+            d_lm = getattr(draft_params, "lm", draft_params)
+            d_cache = init_kv_cache(d_cfg, 1, max_len, dtype=self.dtype, device=dev)
+            _, d_cache = llama_prefill(d_lm, d_cfg, spliced.embeds, spliced.attention_mask,
+                                       d_cache)
+            toks, _, _, stats = speculative_decode_draft(
+                self.model, self.cfg.lm, cache, logits, draft_params=d_lm, draft_cfg=d_cfg,
+                draft_cache=d_cache, **common)
+        else:
+            prompt_tokens = tokenizer_x_token(prompt, self.tokenizer, X_TOKEN_INDEX["VIDEO"],
+                                              return_tensors="np")
+            ctx = [int(t) for t in prompt_tokens if int(t) >= 0]
+            toks, _, _, stats = speculative_decode(
+                self.model, self.cfg.lm, cache, logits, ctx, ngram=ngram, **common)
+        text = self.tokenizer.decode(toks, skip_special_tokens=True).strip()
+        return stopper.trim(text), stats
+
     def ask_about_video(self, question: str, frames: np.ndarray, first_turn: bool = True,
+                        speculative: Optional[str] = None, draft_params=None, draft_cfg=None,
                         **gen_kwargs) -> str:
-        """frames: processed (T, C, H, W). Keeps the conversation across turns."""
+        """frames: processed (T, C, H, W). Keeps the conversation across turns.
+
+        ``speculative``: None (plain greedy or sampled generate), 'lookup'
+        (prompt-lookup speculation) or 'draft' (draft-model speculation with
+        ``draft_params``); both are greedy-exact."""
         if first_turn:
             question = DEFAULT_X_TOKEN["VIDEO"] + "\n" + question
         self.conv.append_message(self.conv.roles[0], question)
         self.conv.append_message(self.conv.roles[1], None)
-        answer = self.generate_text(self.conv.get_prompt(), videos=frames, **gen_kwargs)
+        prompt = self.conv.get_prompt()
+        if speculative:
+            answer, _ = self.generate_speculative(
+                prompt, videos=frames, max_new_tokens=gen_kwargs.get("max_new_tokens", 512),
+                draft_params=draft_params if speculative == "draft" else None,
+                draft_cfg=draft_cfg)
+        else:
+            answer = self.generate_text(prompt, videos=frames, **gen_kwargs)
         self.conv.messages[-1][1] = answer
         return answer

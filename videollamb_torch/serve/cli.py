@@ -13,7 +13,6 @@ import argparse
 import sys
 
 UNPORTED = {
-    "speculative": "--speculative",
     "kv_reuse": "--kv-reuse",
     "device_preprocess": "--device-preprocess",
     "image_file": "--image-file",
@@ -40,6 +39,20 @@ def main(args) -> None:
         print(f"[WARNING] auto conv mode {conv_mode}, using {args.conv_mode}")
         conv_mode = args.conv_mode
     chat = Chat(tokenizer, model, cfg, processors, conv_mode=conv_mode)
+
+    speculative = None
+    draft_params = None
+    if args.speculative == "lookup":
+        speculative = "lookup"
+    elif args.speculative == "self-draft-int8":
+        # An int8 copy of the loaded LM drafts for the target (both share the
+        # multimodal embeds); greedy-exact, fewer passes of the target.
+        import copy
+
+        from videollamb_torch.models.lm.quant import quantize_llama_params
+
+        speculative = "draft"
+        draft_params = quantize_llama_params(copy.deepcopy(model.lm))
     frames = processors["VIDEO"](load_video(args.video_file, num_frames=args.num_frames))
 
     first = True
@@ -53,7 +66,9 @@ def main(args) -> None:
         print(f"{chat.conv.roles[1]}: ", end="", flush=True)
         out = chat.ask_about_video(
             inp, frames, first_turn=first, temperature=args.temperature,
-            max_new_tokens=args.max_new_tokens, do_sample=args.temperature > 0)
+            max_new_tokens=args.max_new_tokens, do_sample=args.temperature > 0,
+            speculative=speculative if args.temperature == 0 else None,
+            draft_params=draft_params)
         print(out)
         first = False
         if args.debug:
@@ -83,7 +98,9 @@ def parse_args(argv=None):
                         help="not supported by the port yet")
     parser.add_argument("--speculative", type=str, default=None,
                         choices=["lookup", "self-draft-int8"],
-                        help="not supported by the port yet")
+                        help="greedy-exact speculative decoding (used when "
+                             "--temperature 0): prompt lookup, or an int8 copy of "
+                             "the LM drafting for the loaded one")
     parser.add_argument("--debug", action="store_true")
     return parser.parse_args(argv)
 

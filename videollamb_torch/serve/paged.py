@@ -17,8 +17,9 @@ allocated in pages from one shared pool (``models/lm/paged.py``):
 
 ``quantize_kv=True`` keeps int8 token-major pages (kernels K4 and K5 on the
 card), otherwise the model's dtype in head-major pages (kernel K6). Prefix
-caching, grammar and choice constraints, sampling controls, logprobs,
-multi-LoRA adapters and speculative decoding are not ported yet.
+caching, grammar and choice constraints, sampling controls, logprobs and
+multi-LoRA adapters are not ported yet. The paged engine does not speculate
+(``speculative`` stays None), as in the JAX package.
 """
 
 from __future__ import annotations

@@ -15,7 +15,9 @@ return f32 statistics (m, l) within 1e-5 and outputs within 2e-3 (K4: one
 int8 step of the probability requantisation) or 1e-4 (K6) of max|out|. K5
 is a copy: exact outside the trash page. K7 sums each group in f32 in
 another order than its plain version and rounds once: 2e-5 in f32, one
-bf16 step (2^-7 relative) plus 1e-3 absolute in bf16.
+bf16 step (2^-7 relative) plus 1e-3 absolute in bf16; its cases reach both
+of its kernels (f32 FMAs: f32, M = 1, groups of 16; tensor cores: bf16 from
+M = 2 on) with ragged N and M on each.
 """
 
 from __future__ import annotations
@@ -217,7 +219,10 @@ def test_fresh_write_kernel_matches_plain(dev, layers, p_total, page, kd, b):
     (64, 11008, 4096, 128, torch.bfloat16), (8, 4096, 32000, 128, torch.bfloat16),
     (5, 4096, 4096, 128, torch.float32), (3, 256, 1000, 32, torch.float32),
     (9, 128, 130, 16, torch.bfloat16), (17, 64, 37, 32, torch.float32),
-], ids=["up-proj", "m1", "verify-down-proj", "lm-head", "f32", "n-not-tile", "n-not-4", "odd-n"])
+    (9, 128, 130, 32, torch.bfloat16), (40, 256, 203, 64, torch.bfloat16),
+    (2, 4096, 4096, 128, torch.bfloat16),
+], ids=["up-proj", "m1", "verify-down-proj", "lm-head", "f32", "n-not-tile", "n-not-4", "odd-n",
+        "tensor-cores-ragged-n", "tensor-cores-two-m-blocks", "m2"])
 def test_int4_matmul_kernel_matches_plain(dev, m, k, n, group, dtype):
     g = torch.Generator(device=dev).manual_seed(m + n)
     w = torch.randn((k, n), generator=g, device=dev) * 0.02

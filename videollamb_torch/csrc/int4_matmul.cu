@@ -13,6 +13,11 @@
 // a speculative verify step up to 64: 2 * M operations per packed nibble
 // against half a byte read. The design is built around the weight stream.
 //
+// Two kernels share that arithmetic. The first below does the products as
+// f32 FMAs and takes f32 activations, groups that are not multiples of 32
+// rows, and M = 1; the second, further down, does them on the tensor cores
+// and takes bf16 activations from M = 2 on.
+//
 // - A thread owns 4 neighbouring columns, so a warp reads 128 contiguous
 //   bytes of one packed row per load and a block owns a 128-column tile.
 //   Each byte yields two rows K/2 apart: the low nibble multiplies
@@ -52,6 +57,7 @@ constexpr int MAX_MT = 8;           // most rows of x per block
 constexpr int UNROLL = 16;          // packed rows whose loads are in flight per thread
 constexpr int MAX_GROUP = 128;
 constexpr int TARGET_BLOCKS = 2 * 132;
+constexpr int TC_MIN_M = 2;         // fewest rows of x that go to the tensor-core kernel
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -215,6 +221,230 @@ int4_matmul_kernel(const T* __restrict__ x,                   // (M, K)
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 activations, groups that are multiples of 32 rows: the same arithmetic
+// on the tensor cores. The f32 FMAs above cost 2 * MT operations per nibble
+// and set that kernel's time from M = 4 on; here a block unpacks 32 packed
+// rows of its 128 columns to bf16 in shared memory (0x4300 | nibble is 128 +
+// nibble in bf16, and one __hsub2 takes 136 off a pair: exact), and its four
+// warps multiply them with mma.sync m16n8k16 products (bf16 in, f32 sums),
+// 32 columns a warp, up to 32 rows of x (two 16-row fragments) a block, all
+// of which share the one unpack. The fragments come from shared memory by
+// ldmatrix (x as stored, the weights transposed on the way); the rows are
+// padded by 16 bytes so that eight of them fall into eight different banks.
+// A thread knows which rows and columns its accumulators hold, so a group's
+// sums are multiplied by the scales and added to the running sums in
+// registers, as in the kernel above. K is split over blocks only; the splits
+// are added by the same finishing pass. A block multiplies 16 rows of x
+// (MF = 1: fewer registers, more blocks on an SM) or 32 (MF = 2).
+
+constexpr int TC_CHUNK = 32;                 // packed rows unpacked per step
+constexpr int TC_ROWS = TC_CHUNK / WARPS;    // of them, rows a warp unpacks
+constexpr int TC_MAX_MF = 2;                 // most 16-row fragments of x per block
+constexpr int TC_NT = 4;                     // 8-column tiles a warp multiplies
+constexpr int W_LD = TILE_N + 8;             // bf16 elements
+constexpr int X_LD = 2 * MAX_GROUP + 8;
+
+// Four nibbles (one per byte of `nib`) as four bf16 integers in [-8, 7].
+__device__ __forceinline__ uint2 nibbles_to_bf16(uint32_t nib) {
+  const __nv_bfloat162 offset = __float2bfloat162_rn(136.0f);
+  uint32_t p01 = __byte_perm(nib, 0x43434343u, 0x4140);  // (128 + n0, 128 + n1)
+  uint32_t p23 = __byte_perm(nib, 0x43434343u, 0x4342);  // (128 + n2, 128 + n3)
+  __nv_bfloat162 v01 = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&p01), offset);
+  __nv_bfloat162 v23 = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&p23), offset);
+  uint2 packed;
+  packed.x = *reinterpret_cast<uint32_t*>(&v01);
+  packed.y = *reinterpret_cast<uint32_t*>(&v23);
+  return packed;
+}
+
+// Four 8 x 8 bf16 matrices from shared memory; lane l gives the address of
+// row l % 8 of matrix l / 8. Plain: a thread gets row lane / 4, columns
+// 2 * (lane % 4) and + 1 of each matrix; transposed: column lane / 4, rows
+// 2 * (lane % 4) and + 1.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const __nv_bfloat16* row) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* row) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+// c (16 x 8, f32) += a (16 x 16, bf16, rows of x) * b (16 x 8, bf16, weights).
+// c[0], c[1]: row lane / 4, columns 2 * (lane % 4) and + 1; c[2], c[3]: row + 8.
+__device__ __forceinline__ void mma_16x8x16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                            uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+template <int MF>
+__global__ void __launch_bounds__(THREADS)
+int4_matmul_tc_kernel(const __nv_bfloat16* __restrict__ x,        // (M, K)
+                      const uint8_t* __restrict__ q4,             // (K/2, N)
+                      const __nv_bfloat16* __restrict__ scale,    // (K/g, N)
+                      __nv_bfloat16* __restrict__ out,            // (M, N) when ksplit == 1
+                      float* __restrict__ partial,                // (ksplit, M, N) otherwise
+                      int m, int k, int n, int group, int ksplit) {
+  __shared__ __align__(16) __nv_bfloat16 w_lo[TC_CHUNK * W_LD];
+  __shared__ __align__(16) __nv_bfloat16 w_hi[TC_CHUNK * W_LD];
+  __shared__ __align__(16) __nv_bfloat16 xs[MF * 16 * X_LD];  // [row][x_lo | x_hi]
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int tile_n0 = blockIdx.x * TILE_N;
+  const int n0 = tile_n0 + lane * COLS;   // columns this thread unpacks
+  const int split = blockIdx.y;
+  const int m0 = blockIdx.z * MF * 16;
+  const int k_half = k / 2;
+  const int half_groups = k_half / group;
+  const int cols_left = n - n0;
+  const bool vec = (n % COLS == 0) && cols_left >= COLS &&
+                   (reinterpret_cast<uintptr_t>(q4) & 3u) == 0;
+  const int warp_n = warp * 8 * TC_NT;    // columns this warp multiplies, within the tile
+  // ldmatrix: this lane's row of its 8 x 8 matrix, and the matrix's offsets.
+  const int ld_row = (lane & 7) + ((lane >> 3) & 1) * 8;  // x row, or weight row (k)
+  const int ld_col = (lane >> 4) * 8;                     // x column (k), or weight column (n)
+  // Accumulators: rows acc_row and acc_row + 8, columns acc_col and acc_col + 1 of a tile.
+  const int acc_row = lane >> 2;
+  const int acc_col = (lane & 3) * 2;
+
+  float total[MF][TC_NT][4];
+#pragma unroll
+  for (int f = 0; f < MF; ++f)
+#pragma unroll
+    for (int t = 0; t < TC_NT; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) total[f][t][e] = 0.f;
+
+  for (int pg = split; pg < half_groups; pg += ksplit) {
+    __syncthreads();  // the previous group's products have read xs
+    // x rows of this block, the group's low rows then its high rows, two values a copy.
+    for (int idx = threadIdx.x; idx < MF * 16 * group; idx += THREADS) {
+      const int row = idx / group;
+      const int col = (idx % group) * 2;
+      const int src = (col < group ? 0 : k_half - group) + pg * group + col;
+      uint32_t pair = 0u;
+      if (m0 + row < m) {
+        pair = *reinterpret_cast<const uint32_t*>(x + static_cast<size_t>(m0 + row) * k + src);
+      }
+      *reinterpret_cast<uint32_t*>(xs + row * X_LD + col) = pair;
+    }
+
+    float lo[MF][TC_NT][4], hi[MF][TC_NT][4];
+#pragma unroll
+    for (int f = 0; f < MF; ++f)
+#pragma unroll
+      for (int t = 0; t < TC_NT; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) lo[f][t][e] = hi[f][t][e] = 0.f;
+
+    // The next chunk's packed rows are loaded before this one's are unpacked.
+    const uint8_t* wp = q4 + (static_cast<size_t>(pg) * group + warp * TC_ROWS) * n + n0;
+    uint32_t w[TC_ROWS], w_next[TC_ROWS];
+#pragma unroll
+    for (int j = 0; j < TC_ROWS; ++j) {
+      w[j] = cols_left > 0 ? load_packed(wp + static_cast<size_t>(j) * n, vec, cols_left)
+                           : 0x88888888u;
+    }
+    for (int r0 = 0; r0 < group; r0 += TC_CHUNK) {
+      const bool more = r0 + TC_CHUNK < group;
+      if (more) {
+#pragma unroll
+        for (int j = 0; j < TC_ROWS; ++j) {
+          w_next[j] = cols_left > 0
+                          ? load_packed(wp + static_cast<size_t>(r0 + TC_CHUNK + j) * n, vec,
+                                        cols_left)
+                          : 0x88888888u;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < TC_ROWS; ++j) {
+        const int at = (warp * TC_ROWS + j) * W_LD + lane * COLS;
+        *reinterpret_cast<uint2*>(w_lo + at) = nibbles_to_bf16(w[j] & 0x0F0F0F0Fu);
+        *reinterpret_cast<uint2*>(w_hi + at) = nibbles_to_bf16((w[j] >> 4) & 0x0F0F0F0Fu);
+      }
+      __syncthreads();  // the chunk is unpacked (and, the first time, xs is staged)
+
+#pragma unroll
+      for (int ks = 0; ks < TC_CHUNK; ks += 16) {
+        uint32_t a_lo[MF][4], a_hi[MF][4];
+#pragma unroll
+        for (int f = 0; f < MF; ++f) {
+          const __nv_bfloat16* row = xs + (f * 16 + ld_row) * X_LD + r0 + ks + ld_col;
+          ldmatrix_x4(a_lo[f], row);
+          ldmatrix_x4(a_hi[f], row + group);
+        }
+#pragma unroll
+        for (int t = 0; t < TC_NT; t += 2) {  // two 8-column tiles per load
+          uint32_t b_lo[4], b_hi[4];
+          const int at = (ks + ld_row) * W_LD + warp_n + t * 8 + ld_col;
+          ldmatrix_x4_trans(b_lo, w_lo + at);
+          ldmatrix_x4_trans(b_hi, w_hi + at);
+#pragma unroll
+          for (int f = 0; f < MF; ++f) {
+            mma_16x8x16(lo[f][t], a_lo[f], b_lo[0], b_lo[1]);
+            mma_16x8x16(lo[f][t + 1], a_lo[f], b_lo[2], b_lo[3]);
+            mma_16x8x16(hi[f][t], a_hi[f], b_hi[0], b_hi[1]);
+            mma_16x8x16(hi[f][t + 1], a_hi[f], b_hi[2], b_hi[3]);
+          }
+        }
+      }
+      __syncthreads();  // the chunk has been read: the next may overwrite it
+      if (more) {
+#pragma unroll
+        for (int j = 0; j < TC_ROWS; ++j) w[j] = w_next[j];
+      }
+    }
+
+    // The group's sums times its scales, into the running sums.
+#pragma unroll
+    for (int t = 0; t < TC_NT; ++t) {
+      const int col = tile_n0 + warp_n + t * 8 + acc_col;
+      float s_lo[2], s_hi[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const bool live = col + e < n;
+        s_lo[e] = live ? __bfloat162float(scale[static_cast<size_t>(pg) * n + col + e]) : 0.f;
+        s_hi[e] = live ? __bfloat162float(
+                             scale[static_cast<size_t>(pg + half_groups) * n + col + e])
+                       : 0.f;
+      }
+#pragma unroll
+      for (int f = 0; f < MF; ++f)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          total[f][t][e] = __fadd_rn(total[f][t][e], __fmul_rn(lo[f][t][e], s_lo[e & 1]));
+          total[f][t][e] = __fadd_rn(total[f][t][e], __fmul_rn(hi[f][t][e], s_hi[e & 1]));
+        }
+    }
+  }
+
+#pragma unroll
+  for (int f = 0; f < MF; ++f)
+#pragma unroll
+    for (int t = 0; t < TC_NT; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = m0 + f * 16 + acc_row + (e >> 1) * 8;
+        const int col = tile_n0 + warp_n + t * 8 + acc_col + (e & 1);
+        if (row >= m || col >= n) continue;
+        const size_t at = static_cast<size_t>(row) * n + col;
+        if (ksplit == 1) {
+          from_float(total[f][t][e], out + at);
+        } else {
+          partial[static_cast<size_t>(split) * m * n + at] = total[f][t][e];
+        }
+      }
+}
+
 // Adds the K splits in split order and casts.
 template <typename T>
 __global__ void int4_matmul_finish_kernel(const float* __restrict__ partial, T* __restrict__ out,
@@ -233,11 +463,21 @@ int pick_mt(int m) {
   return mt;
 }
 
-int pick_ksplit(int m, int k, int n, int group) {
+// 16-row fragments of x per block of the tensor-core kernel.
+int pick_mf(int m) { return m > 16 ? TC_MAX_MF : 1; }
+
+// The tensor-core kernel takes bf16 activations and groups of whole chunks.
+bool use_tensor_cores(int m, int group, bool x_is_bf16) {
+  return x_is_bf16 && group % TC_CHUNK == 0 && m >= TC_MIN_M;
+}
+
+int pick_ksplit(int m, int k, int n, int group, bool x_is_bf16) {
   const int half_groups = k / 2 / group;
-  const int mt = pick_mt(m);
-  const int blocks = ((n + TILE_N - 1) / TILE_N) * ((m + mt - 1) / mt);
-  const int max_split = half_groups / WARPS;  // every warp keeps at least one packed group
+  const bool tc = use_tensor_cores(m, group, x_is_bf16);
+  const int rows = tc ? 16 * pick_mf(m) : pick_mt(m);
+  const int blocks = ((n + TILE_N - 1) / TILE_N) * ((m + rows - 1) / rows);
+  // Every block (tensor cores) or every warp (FMAs) keeps at least one packed group.
+  const int max_split = tc ? half_groups : half_groups / WARPS;
   int ksplit = 1;
   while (blocks * ksplit < TARGET_BLOCKS && ksplit * 2 <= max_split) ksplit *= 2;
   return ksplit;
@@ -261,14 +501,24 @@ void launch_tile(const void* x, const void* q4, const void* scale, void* out, vo
 
 template <typename T>
 int launch(const void* x, const void* q4, const void* scale, void* out, void* partial, int m,
-           int k, int n, int group, cudaStream_t stream) {
-  const int ksplit = pick_ksplit(m, k, n, group);
+           int k, int n, int group, bool x_is_bf16, cudaStream_t stream) {
+  const int ksplit = pick_ksplit(m, k, n, group, x_is_bf16);
   if (ksplit > 1 && partial == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  switch (pick_mt(m)) {
-    case 1: launch_tile<T, 1>(x, q4, scale, out, partial, m, k, n, group, ksplit, stream); break;
-    case 2: launch_tile<T, 2>(x, q4, scale, out, partial, m, k, n, group, ksplit, stream); break;
-    case 4: launch_tile<T, 4>(x, q4, scale, out, partial, m, k, n, group, ksplit, stream); break;
-    default: launch_tile<T, 8>(x, q4, scale, out, partial, m, k, n, group, ksplit, stream);
+  if (use_tensor_cores(m, group, x_is_bf16)) {
+    const int rows = 16 * pick_mf(m);
+    const dim3 grid((n + TILE_N - 1) / TILE_N, ksplit, (m + rows - 1) / rows);
+    auto kernel = pick_mf(m) == 1 ? int4_matmul_tc_kernel<1> : int4_matmul_tc_kernel<2>;
+    kernel<<<grid, THREADS, 0, stream>>>(
+        static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(q4),
+        static_cast<const __nv_bfloat16*>(scale), static_cast<__nv_bfloat16*>(out),
+        static_cast<float*>(partial), m, k, n, group, ksplit);
+  } else {
+    switch (pick_mt(m)) {
+      case 1: launch_tile<T, 1>(x, q4, scale, out, partial, m, k, n, group, ksplit, stream); break;
+      case 2: launch_tile<T, 2>(x, q4, scale, out, partial, m, k, n, group, ksplit, stream); break;
+      case 4: launch_tile<T, 4>(x, q4, scale, out, partial, m, k, n, group, ksplit, stream); break;
+      default: launch_tile<T, 8>(x, q4, scale, out, partial, m, k, n, group, ksplit, stream);
+    }
   }
   int err = static_cast<int>(cudaGetLastError());
   if (err != 0 || ksplit == 1) return err;
@@ -282,21 +532,21 @@ int launch(const void* x, const void* q4, const void* scale, void* out, void* pa
 
 // Number of K splits the launch will use: the caller allocates the
 // (ksplit, M, N) f32 scratch when it is above 1.
-extern "C" int int4_matmul_ksplit(int m, int k, int n, int group) {
-  return pick_ksplit(m, k, n, group);
+extern "C" int int4_matmul_ksplit(int m, int k, int n, int group, int x_is_bf16) {
+  return pick_ksplit(m, k, n, group, x_is_bf16 != 0);
 }
 
 // x (M, K) bf16 (x_is_bf16) or f32; q4 (K/2, N) uint8; scale (K/g, N) bf16;
 // out (M, N) in x's type; partial (ksplit, M, N) f32 or null when ksplit == 1.
-// g is a multiple of 16, at most 128, and divides K/2.
+// g is a multiple of 16, at most 128, and divides K/2; x is 4-byte aligned.
 extern "C" int int4_matmul(const void* x, const void* q4, const void* scale, void* out,
                            void* partial, int m, int k, int n, int group, int x_is_bf16,
                            void* stream) {
   if (m < 1 || k < 2 || n < 1 || group < UNROLL || group % UNROLL != 0 || group > MAX_GROUP ||
-      k % 2 != 0 || (k / 2) % group != 0) {
+      k % 2 != 0 || (k / 2) % group != 0 || (reinterpret_cast<uintptr_t>(x) & 3u) != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return x_is_bf16 ? launch<__nv_bfloat16>(x, q4, scale, out, partial, m, k, n, group, s)
-                   : launch<float>(x, q4, scale, out, partial, m, k, n, group, s);
+  return x_is_bf16 ? launch<__nv_bfloat16>(x, q4, scale, out, partial, m, k, n, group, true, s)
+                   : launch<float>(x, q4, scale, out, partial, m, k, n, group, false, s);
 }

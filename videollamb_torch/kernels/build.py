@@ -44,7 +44,7 @@ SIGNATURES = {
     "paged_fresh_write_int8": (_I, (_P,) * 6 + (_I,) * 5 + (_P,)),
     "paged_attention_stats_bf16": (_I, (_P,) * 8 + (_I,) * 6 + (_P,)),
     "int4_matmul": (_I, (_P,) * 5 + (_I,) * 5 + (_P,)),
-    "int4_matmul_ksplit": (_I, (_I,) * 4),
+    "int4_matmul_ksplit": (_I, (_I,) * 5),
 }
 
 _lock = threading.Lock()

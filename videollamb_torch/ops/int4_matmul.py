@@ -12,7 +12,10 @@ consecutive rows of one output column share ``scale[row // group, n]`` (bf16).
 - :func:`int4_matmul` replaces the Pallas kernel of the same name: on a CUDA
   tensor it launches ``csrc/int4_matmul.cu``, on a CPU tensor it runs
   :func:`int4_matmul_reference`. It serves the small-M products of decode and
-  of a speculative verify step (M <= 64).
+  of a speculative verify step (M <= 64). The source holds two kernels of the
+  same arithmetic and picks by what it is given: tensor-core products for
+  bf16 activations from M = 2 on (groups of whole 32-row chunks), f32 FMAs
+  for f32 activations, other group sizes and M = 1.
 - :func:`int4_matmul_reference` is the plain statement, group by group:
   ``acc += (x_g @ nibbles_g) * scale_g`` in f32, one cast at the end. The
   scale multiplies the group's sum, not the weight.
@@ -102,9 +105,9 @@ def int4_matmul_reference(x: torch.Tensor, q4: torch.Tensor,
 
 
 @functools.lru_cache(maxsize=None)
-def _ksplit(m: int, k: int, n: int, g: int) -> int:
-    """How many ways the launch splits K (a pure function of the shape)."""
-    return kb.kernels().int4_matmul_ksplit(m, k, n, g)
+def _ksplit(m: int, k: int, n: int, g: int, bf16: bool) -> int:
+    """How many ways the launch splits K (a pure function of shape and type)."""
+    return kb.kernels().int4_matmul_ksplit(m, k, n, g, int(bf16))
 
 
 def int4_matmul(x: torch.Tensor, q4: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -127,9 +130,11 @@ def int4_matmul(x: torch.Tensor, q4: torch.Tensor, scale: torch.Tensor) -> torch
             f"dividing K/2; got x {x.dtype} {tuple(x.shape)} on {x.device}, q4 {q4.dtype} "
             f"{tuple(q4.shape)}, scale {scale.dtype} {tuple(scale.shape)}")
     x = x.contiguous()
+    if x.data_ptr() % 4:  # the kernels copy x two bf16 values at a time
+        x = x.clone()
     lib = kb.kernels()
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    ksplit = _ksplit(m, k, n, g)
+    ksplit = _ksplit(m, k, n, g, x.dtype == torch.bfloat16)
     partial = (torch.empty((ksplit, m, n), dtype=torch.float32, device=x.device)
                if ksplit > 1 else None)
     kb.check(lib.int4_matmul(

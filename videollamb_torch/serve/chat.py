@@ -5,8 +5,8 @@ Port of ``Chat.generate_text`` and ``Chat.ask_about_video`` of
 conversation template -> ``tokenizer_x_token`` -> multimodal generate ->
 stop-string trim, and of ``Chat.generate_speculative`` (prompt-lookup or
 draft-model speculation, greedy-exact). Text lengths are padded to bucket
-multiples, as in the JAX package. KV reuse across turns (``KVChatSession``),
-streaming and mixed-modality turns are not ported yet.
+multiples, as in the JAX package. KV reuse across turns, streaming and
+mixed-modality turns are not ported yet.
 """
 
 from __future__ import annotations

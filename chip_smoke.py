@@ -7,6 +7,20 @@
    plain PyTorch version at the shapes the main paths give it, with
    CUDA-event times of both, of one PyTorch library call computing the same
    function where there is one, and the least time the card could take.
+   K1 and K2 also at the encode path's 256 frames; K8-K11 at that path's
+   shapes (K11 also causal at (4, 32, 512, 128)).
+1a. The tower's encode-throughput path (``encoder_phase``): ViT-L/14 at
+   full width and depth (23 layers run, seeded random bf16 weights) encodes
+   32 videos x 8 frames through ``vision_encode`` in bf16 and then int8
+   (K1 and K2 must launch 23 times per encode); the (b, n, t, d) temporal
+   branch (K9), K10 in K2's place and K11 in K1's run the same encode and
+   are held against the live tower's features; the split-layout core (K8)
+   runs 23 times.
+1b. Gradients (``gradient_phase``): a 2-layer tower at full width computes
+   ``sum(features^2).backward()`` on the card (the forward launches K1 and
+   K2, the backward no kernel) and on a host copy in f32 (the plain route);
+   the gradients of the pixels and of two weights must agree. A forward-only
+   kernel wrapper given an input that wants a gradient must raise.
 2. Offline video QA: answers four requests with VideoLLaMB-7B at full width
    and depth (``ModelConfig()`` defaults, seeded random bf16 weights)
    through ``videollamb_torch.models.engine.generate``: B=1 with 16, 32 and
@@ -79,6 +93,18 @@ INT8_TOWER_REL_L2 = 0.1
 # Kernel path (bf16, card) vs plain path (f32, host) on the depth-cut model:
 # relative L2 error of the tower features and of the logits.
 PATH_REL_L2 = 5e-2
+# The encode path: 32 videos x 8 frames through the full-depth tower. Its
+# ablation stacks (the (b, n, t, d) temporal branch through K9, K10 for K2,
+# K11 for K1) against the live tower's features, all bf16 on the card:
+# relative L2 over 23 layers of bf16 rounding at other places.
+ENC_VIDEOS, ENC_T = 32, 8
+ENC_FRAMES = ENC_VIDEOS * ENC_T
+ENC_LAYERS = 23
+ENCODER_REL_L2 = 5e-2
+# Gradients of sum(features^2) through a 2-layer full-width tower, kernels in
+# bf16 on the card against the plain route in f32 on the host: relative L2 of
+# each gradient (bf16 activations and weight gradients).
+GRAD_REL_L2 = 5e-2
 
 # H100 SXM peaks (NVIDIA data sheet, dense): device memory and the
 # operation rates of the inputs' types.
@@ -180,7 +206,12 @@ def _paged_table(lengths, seed: int):
 def kernel_phase(g: torch.Generator) -> dict:
     import torch.nn.functional as F
 
-    from videollamb_torch.ops.flash_attention import flash_attention, flash_attention_reference
+    from videollamb_torch.ops.flash_attention import (
+        block_attention,
+        block_attention_reference,
+        flash_attention,
+        flash_attention_reference,
+    )
     from videollamb_torch.ops.gathered_paged_attention import (
         _pick_ppb,
         gathered_paged_attention_int8,
@@ -198,9 +229,11 @@ def kernel_phase(g: torch.Generator) -> dict:
     )
     from videollamb_torch.ops.paged_fresh_write import paged_fresh_write, paged_fresh_write_xla
     from videollamb_torch.ops.spatial_attention import (
-        fused_spatial_core_packed, spatial_core_packed_reference)
+        fused_spatial_core, fused_spatial_core_packed, spatial_core_packed_reference,
+        spatial_core_reference)
     from videollamb_torch.ops.temporal_attention import (
-        fused_temporal_core_fm3, temporal_core_fm3_reference)
+        fused_temporal_core, fused_temporal_core_fm, fused_temporal_core_fm3,
+        temporal_core_fm3_reference, temporal_core_fm_reference, temporal_core_reference)
 
     dev, bf = "cuda", torch.bfloat16
     results = {}
@@ -239,6 +272,84 @@ def kernel_phase(g: torch.Generator) -> dict:
         library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(tq, tk, tv, scale=1.0)),
         bound=bound(qkv.numel() * 2 + qkv.numel() // 3 * 2, 4 * 8 * 257 * 16 * 8 * 8 * 64,
                     "bf16"))
+
+    # K1 and K2 at the encode path's 256 frames (32 videos x 8), and K8-K11 at
+    # that path's shapes: (256, 16, 257, 64) split heads for K8 and K11,
+    # (32, 257, 8, 1024) for K9, three (32, 8, 257, 1024) operands for K10.
+    f, n, d, h, e = ENC_FRAMES, 257, 1024, 16, 64
+    tower_ops = 4 * f * h * n * n * e  # the two products of every (frame, head)
+    q, k, v = randn(f, n, d, scale=0.125), randn(f, n, d), randn(f, n, d)
+    err = compare(f"spatial ({f}, {n}, {d})", fused_spatial_core_packed(q, k, v, heads=h),
+                  spatial_core_packed_reference(q, k, v, h))
+    q4, k4, v4 = (heads(x, h) for x in (q, k, v))
+    results["spatial_attention"]["shapes"] = [dict(
+        shape=[f, n, d], max_abs_err=err,
+        ms=cuda_ms(lambda: fused_spatial_core_packed(q, k, v, heads=h)),
+        plain_ms=cuda_ms(lambda: spatial_core_packed_reference(q, k, v, h), iters=5),
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=1.0)),
+        bound=bound(4 * q.numel() * 2, tower_ops, "bf16"))]
+    del q, k, v
+    err = compare(f"split-layout spatial {tuple(q4.shape)}", fused_spatial_core(q4, k4, v4),
+                  spatial_core_reference(q4, k4, v4))
+    results["spatial_core"] = dict(
+        max_abs_err=err, ms=cuda_ms(lambda: fused_spatial_core(q4, k4, v4)),
+        plain_ms=cuda_ms(lambda: spatial_core_reference(q4, k4, v4), iters=5),
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=1.0)),
+        bound=bound(4 * q4.numel() * 2, tower_ops, "bf16"))
+    # K11, non-causal on the same operands with the scale on the scores, then
+    # causal at (4, 32, 512, 128) (pairs counted from position 0).
+    k11 = []
+    qs = (q4.float() * 8).to(bf)  # undo the 1/8 pre-scale: the kernel scales the scores
+    for args, causal in (((qs, k4, v4), False),
+                         (tuple(randn(4, 32, 512, 128) for _ in range(3)), True)):
+        b_, h_, sq, dh = args[0].shape
+        err = compare(f"block attention {tuple(args[0].shape)} causal={causal}",
+                      block_attention(*args, causal=causal),
+                      block_attention_reference(*args, causal=causal))
+        pairs = sum(min(i + 1, sq) for i in range(sq)) if causal else sq * sq
+        k11.append(dict(
+            shape=[b_, h_, sq, dh], causal=causal, max_abs_err=err,
+            ms=cuda_ms(lambda: block_attention(*args, causal=causal)),
+            plain_ms=cuda_ms(lambda: block_attention_reference(*args, causal=causal), iters=5),
+            library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(*args, is_causal=causal)),
+            bound=bound(4 * args[0].numel() * 2, 4 * b_ * h_ * dh * pairs, "bf16")))
+    results["block_attention"] = dict(k11[0], max_abs_err=max(r["max_abs_err"] for r in k11),
+                                      shapes=k11)
+    del q4, k4, v4, qs
+
+    b, t = ENC_FRAMES // 8, 8
+    temporal_ops = 4 * b * n * h * t * t * e
+    qkv = torch.cat([randn(b, t, n, d, scale=0.125), randn(b, t, n, 2 * d)], dim=-1)
+    err = compare(f"temporal {tuple(qkv.shape)}", fused_temporal_core_fm3(qkv, num_heads=h),
+                  temporal_core_fm3_reference(qkv, h))
+    tq, tk, tv = (heads(qkv[..., i * d:(i + 1) * d].permute(0, 2, 1, 3).reshape(b * n, t, d), h)
+                  for i in range(3))
+    results["temporal_attention"]["shapes"] = [dict(
+        shape=list(qkv.shape), max_abs_err=err,
+        ms=cuda_ms(lambda: fused_temporal_core_fm3(qkv, num_heads=h)),
+        plain_ms=cuda_ms(lambda: temporal_core_fm3_reference(qkv, h), iters=5),
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(tq, tk, tv, scale=1.0)),
+        bound=bound(qkv.numel() * 2 + qkv.numel() // 3 * 2, temporal_ops, "bf16"))]
+    del qkv
+    # K9 on (b, n, t, d) and K10 on three frame-major operands; SDPA over the
+    # frames of each (b * n, head) is the library call for both.
+    for name, shape, kernel, plain in (
+            ("temporal_core", (b, n, t, d), fused_temporal_core, temporal_core_reference),
+            ("temporal_core_fm", (b, t, n, d), fused_temporal_core_fm,
+             temporal_core_fm_reference)):
+        q, k, v = randn(*shape, scale=0.125), randn(*shape), randn(*shape)
+        err = compare(f"{name} {shape}", kernel(q, k, v, num_heads=h), plain(q, k, v, h))
+        by_pos = (lambda x: x) if kernel is fused_temporal_core else (
+            lambda x: x.transpose(1, 2))
+        sq_, sk_, sv_ = (heads(by_pos(x).reshape(b * n, t, d), h) for x in (q, k, v))
+        results[name] = dict(
+            max_abs_err=err, ms=cuda_ms(lambda: kernel(q, k, v, num_heads=h)),
+            plain_ms=cuda_ms(lambda: plain(q, k, v, h), iters=5),
+            library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(sq_, sk_, sv_,
+                                                                       scale=1.0)),
+            bound=bound(4 * q.numel() * 2, temporal_ops, "bf16"))
+        del q, k, v, sq_, sk_, sv_
+    torch.cuda.empty_cache()
 
     # K3: LM prefill (B, 32, 2048, 128), causal, padded key tails.
     errs = []
@@ -420,13 +531,14 @@ def make_batch(cfg, g: torch.Generator, prompt_lens, frames: int):
 
 
 def counters():
-    from videollamb_torch.ops.flash_attention import flash_attention
+    from videollamb_torch.ops.flash_attention import block_attention, flash_attention
     from videollamb_torch.ops.gathered_paged_attention import gathered_paged_attention_int8
     from videollamb_torch.ops.int4_matmul import int4_matmul
     from videollamb_torch.ops.paged_attention_stats import paged_attention_with_stats
     from videollamb_torch.ops.paged_fresh_write import paged_fresh_write
-    from videollamb_torch.ops.spatial_attention import fused_spatial_core_packed
-    from videollamb_torch.ops.temporal_attention import fused_temporal_core_fm3
+    from videollamb_torch.ops.spatial_attention import fused_spatial_core, fused_spatial_core_packed
+    from videollamb_torch.ops.temporal_attention import (
+        fused_temporal_core, fused_temporal_core_fm, fused_temporal_core_fm3)
 
     return {"spatial_attention": fused_spatial_core_packed,
             "temporal_attention": fused_temporal_core_fm3,
@@ -434,7 +546,11 @@ def counters():
             "gathered_paged_attention": gathered_paged_attention_int8,
             "paged_fresh_write": paged_fresh_write,
             "paged_attention_stats": paged_attention_with_stats,
-            "int4_matmul": int4_matmul}
+            "int4_matmul": int4_matmul,
+            "spatial_core": fused_spatial_core,
+            "temporal_core": fused_temporal_core,
+            "temporal_core_fm": fused_temporal_core_fm,
+            "block_attention": block_attention}
 
 
 def zero_counters() -> None:
@@ -843,6 +959,160 @@ def reference_phase(g: torch.Generator, seed: int) -> None:
     speculative_reference(cpu, cfg)
 
 
+def encoder_phase(g: torch.Generator, seed: int) -> dict:
+    """The tower's encode-throughput path at full width and depth: 256 frames
+    through ``vision_encode`` in bf16, then int8 (K1 and K2, 23 launches each
+    per encode); the (b, n, t, d) temporal branch through K9, K10 in K2's place
+    and K11 in K1's, each held against the live tower's features; the
+    isolated split-layout core (K8) x 23."""
+    from scripts.profile_torch_encoder import encode_with, layer_variant
+    from videollamb_torch.config import VisionConfig
+    from videollamb_torch.models.vision.clip_vit import init_vision_params, vision_encode
+    from videollamb_torch.models.vision.quant import quantize_vision_params
+    from videollamb_torch.ops.spatial_attention import fused_spatial_core
+
+    cfg = VisionConfig()
+    tower = init_vision_params(cfg, seed=seed + 20, dtype=torch.bfloat16, device="cuda")
+    img = cfg.image_size
+    pixels = torch.randn((ENC_VIDEOS, ENC_T, 3, img, img), generator=g,
+                         device="cuda").to(torch.bfloat16)
+    out, launches = {}, {}
+
+    def rel_l2(a, b):
+        return float((a.float() - b.float()).norm() / b.float().norm())
+
+    def counted(label, fn):
+        torch.cuda.synchronize()
+        zero_counters()
+        res = fn()
+        torch.cuda.synchronize()
+        launches[label] = read_counters()
+        return res
+
+    ref = counted("encode bf16", lambda: vision_encode(tower, pixels, cfg))
+    ms = cuda_ms(lambda: vision_encode(tower, pixels, cfg), iters=3, warmup=1)
+    out["bf16"] = dict(ms=ms, frames_per_s=ENC_FRAMES / ms * 1e3)
+    n_layers = ENC_LAYERS
+    variants = {}
+    for label, mode, kernel in (("old_temporal (K9)", "old_temporal", "temporal_core"),
+                                ("K10 for K2", "fm_three", "temporal_core_fm"),
+                                ("K11 for K1", "block_spatial", "block_attention")):
+        layer = layer_variant(cfg, mode, ENC_T)
+        feats = counted(label, lambda: encode_with(tower, pixels, cfg, layer, n_layers))
+        ms = cuda_ms(lambda: encode_with(tower, pixels, cfg, layer, n_layers), iters=2, warmup=1)
+        err = rel_l2(feats.reshape(ref.shape), ref)
+        variants[label] = dict(ms=ms, frames_per_s=ENC_FRAMES / ms * 1e3, rel_l2=err,
+                               launches=launches[label][kernel])
+        print(f"[encoder] {label}: {ms:.1f} ms ({ENC_FRAMES / ms * 1e3:.1f} f/s), rel_l2 vs the "
+              f"live tower {err:.3e} (tol {ENCODER_REL_L2}), {kernel} launched "
+              f"{launches[label][kernel]} times")
+        if not torch.isfinite(feats).all() or err > ENCODER_REL_L2:
+            raise AssertionError(f"encoder variant {label} disagrees with the live tower")
+        if launches[label][kernel] != n_layers:
+            raise AssertionError(f"encoder variant {label}: {kernel} launched "
+                                 f"{launches[label][kernel]} times, want {n_layers}")
+        del feats
+    out["variants"] = variants
+
+    x = [torch.randn((ENC_FRAMES, 16, 257, 64), generator=g, device="cuda").to(torch.bfloat16)
+         for _ in range(3)]
+    x[0] *= 0.125
+
+    def core_x23():
+        for _ in range(n_layers):
+            fused_spatial_core(*x)
+
+    counted("spatial core x23", core_x23)
+    out["spatial_core_x23_ms"] = cuda_ms(core_x23, iters=2, warmup=1)
+    del x
+
+    tower8 = quantize_vision_params(tower)  # in place: the bf16 runs are done
+    got = counted("encode int8", lambda: vision_encode(tower8, pixels, cfg))
+    ms = cuda_ms(lambda: vision_encode(tower8, pixels, cfg), iters=3, warmup=1)
+    mean_rel = float((got.float() - ref.float()).abs().mean() / ref.float().abs().mean())
+    out["int8"] = dict(ms=ms, frames_per_s=ENC_FRAMES / ms * 1e3, rel_err_vs_bf16=mean_rel,
+                       rel_l2_vs_bf16=rel_l2(got, ref))
+    del tower8, got, ref
+    torch.cuda.empty_cache()
+    for label in ("encode bf16", "encode int8"):
+        k1, k2 = launches[label]["spatial_attention"], launches[label]["temporal_attention"]
+        if (k1, k2) != (n_layers, n_layers):
+            raise AssertionError(f"{label}: K1 launched {k1} and K2 {k2} times, want {n_layers}")
+    if launches["spatial core x23"]["spatial_core"] != n_layers:
+        raise AssertionError("the isolated split-layout core did not launch K8 23 times")
+    ok = (out["int8"]["rel_l2_vs_bf16"] <= INT8_TOWER_REL_L2)
+    print(f"[encoder] {ENC_VIDEOS} videos x {ENC_T} frames, {n_layers} layers: bf16 "
+          f"{out['bf16']['ms']:.1f} ms ({out['bf16']['frames_per_s']:.1f} f/s), int8 "
+          f"{out['int8']['ms']:.1f} ms ({out['int8']['frames_per_s']:.1f} f/s), int8 error "
+          f"mean|d|/mean|bf16| {mean_rel:.4f}, rel_l2 {out['int8']['rel_l2_vs_bf16']:.3e} (tol "
+          f"{INT8_TOWER_REL_L2}); K8 x{n_layers} {out['spatial_core_x23_ms']:.2f} ms; K1 / K2 "
+          f"launches per encode {n_layers} / {n_layers} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the int8 tower disagrees with the bf16 tower at 256 frames")
+    out["launches"] = launches
+    return out
+
+
+def gradient_phase(g: torch.Generator, seed: int) -> dict:
+    """Gradients through the tower: a 2-layer tower at full width on the card
+    (the forward launches K1 and K2, the backward no kernel) against the plain
+    route on a host copy in f32; then a forward-only wrapper refuses an input
+    that wants a gradient."""
+    from videollamb_torch.config import VisionConfig
+    from videollamb_torch.models.vision.clip_vit import init_vision_params, vision_encode
+    from videollamb_torch.ops.flash_attention import block_attention
+
+    cfg = VisionConfig(num_hidden_layers=3)  # select layer -2: two layers run
+    tower = init_vision_params(cfg, seed=seed + 30, dtype=torch.bfloat16, device="cuda")
+    host = copy.deepcopy(tower).float().cpu()
+    img = cfg.image_size
+    pixels = torch.randn((2, 8, 3, img, img), generator=g, device="cuda").to(torch.bfloat16)
+    names = ("vision_model.encoder.layers.0.temporal_attn.q_proj.weight",
+             "vision_model.encoder.layers.0.self_attn.k_proj.weight")
+    grads = []
+    with torch.enable_grad():
+        for model, px in ((tower, pixels), (host, pixels.float().cpu())):
+            px = px.clone().requires_grad_(True)
+            torch.cuda.synchronize()
+            zero_counters()
+            feats = vision_encode(model, px, cfg)
+            torch.cuda.synchronize()
+            forward = read_counters()
+            (feats.float() ** 2).sum().backward()
+            torch.cuda.synchronize()
+            backward = {k: v - forward[k] for k, v in read_counters().items()}
+            params = dict(model.named_parameters())
+            grads.append([px.grad] + [params[n].grad for n in names])
+            if model is tower:
+                launched = (forward, backward)
+    errs = {name: float((a.float().cpu() - b).norm() / b.norm())
+            for name, a, b in zip(("pixels",) + names, *grads)}
+    forward, backward = launched
+    ok = (all(e <= GRAD_REL_L2 for e in errs.values())
+          and all(torch.isfinite(x).all() for x in grads[0])
+          and forward["spatial_attention"] == 2 and forward["temporal_attention"] == 2
+          and not any(backward.values()))
+    print(f"[grad] 2-layer tower, 2 videos x 8 frames, kernels bf16 vs plain f32 host, rel_l2 "
+          f"{ {k.split('.', 3)[-1]: f'{v:.3e}' for k, v in errs.items()} } (tol {GRAD_REL_L2}); "
+          f"forward launches K1 {forward['spatial_attention']}, K2 "
+          f"{forward['temporal_attention']}; backward launches {sum(backward.values())} "
+          f"-> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("gradients through the tower disagree, or the backward launched "
+                             "a kernel")
+    x = torch.randn((1, 2, 16, 64), device="cuda").to(torch.bfloat16).requires_grad_(True)
+    with torch.enable_grad():
+        try:
+            block_attention(x, x, x)
+        except RuntimeError as exc:
+            print(f"[grad] a forward-only wrapper refuses an input that wants a gradient: {exc}")
+        else:
+            raise AssertionError("block_attention took a requires_grad input without raising")
+    del tower, host
+    torch.cuda.empty_cache()
+    return dict(rel_l2=errs, forward_launches=forward, backward_launches=backward)
+
+
 SOURCES = {  # name -> (source, TPU kernel it replaces)
     "spatial_attention": ("videollamb_torch/csrc/spatial_attention.cu",
                           "videollamb_tpu/ops/spatial_attention.py:122"),
@@ -858,6 +1128,14 @@ SOURCES = {  # name -> (source, TPU kernel it replaces)
                               "videollamb_tpu/ops/paged_attention_stats.py:36"),
     "int4_matmul": ("videollamb_torch/csrc/int4_matmul.cu",
                     "videollamb_tpu/ops/int4_matmul.py:147"),
+    "spatial_core": ("videollamb_torch/csrc/spatial_attention.cu",
+                     "videollamb_tpu/ops/spatial_attention.py:160"),
+    "temporal_core": ("videollamb_torch/csrc/temporal_attention.cu",
+                      "videollamb_tpu/ops/temporal_attention.py:86"),
+    "temporal_core_fm": ("videollamb_torch/csrc/temporal_attention.cu",
+                         "videollamb_tpu/ops/temporal_attention.py:240"),
+    "block_attention": ("videollamb_torch/csrc/block_attention.cu",
+                        "videollamb_tpu/ops/flash_attention.py:213"),
 }
 
 
@@ -887,6 +1165,8 @@ def main() -> int:
 
     g = torch.Generator(device="cuda").manual_seed(args.seed)
     kernels = kernel_phase(g)
+    encoded = encoder_phase(g, args.seed)
+    graded = gradient_phase(g, args.seed)
     cfg = ModelConfig()
     t0 = time.perf_counter()
     model = build_model(cfg, args.seed, "cuda", torch.bfloat16)
@@ -911,6 +1191,11 @@ def main() -> int:
                 **{k: served["launches"][k] for k in
                    ("gathered_paged_attention", "paged_fresh_write", "paged_attention_stats")},
                 "int4_matmul": quantized["launches"]["int4_matmul"]}
+    enc = encoded["launches"]
+    launches.update(spatial_core=enc["spatial core x23"]["spatial_core"],
+                    temporal_core=enc["old_temporal (K9)"]["temporal_core"],
+                    temporal_core_fm=enc["K10 for K2"]["temporal_core_fm"],
+                    block_attention=enc["K11 for K1"]["block_attention"])
     rows = []
     for name, (source, replaces) in SOURCES.items():
         r = kernels[name]
@@ -918,16 +1203,21 @@ def main() -> int:
                      "launches": launches[name], "max_abs_err": r["max_abs_err"],
                      "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
                      "bound_by": r["bound"][1], "library_ms": r["library_ms"]})
-        if "shapes" in r:  # K7: every main-path shape, beside the first one's numbers above
+        if name in ("spatial_attention", "temporal_attention"):
+            rows[-1]["encode_launches"] = enc["encode bf16"][name]
+        if "shapes" in r:  # every further main-path shape, beside the first one's numbers
             rows[-1]["shapes"] = [
                 {"shape": x["shape"], "max_abs_err": x["max_abs_err"], "ms": x["ms"],
-                 "host_enqueue_ms": x["host_ms"], "graph_replay_ms": x["device_ms"],
-                 "library_graph_replay_ms": x["library_device_ms"], "plain_ms": x["plain_ms"],
-                 "bound_ms": x["bound"][0], "bound_by": x["bound"][1],
-                 "library_ms": x["library_ms"]} for x in r["shapes"]]
+                 "plain_ms": x["plain_ms"], "bound_ms": x["bound"][0],
+                 "bound_by": x["bound"][1], "library_ms": x["library_ms"],
+                 **({"host_enqueue_ms": x["host_ms"], "graph_replay_ms": x["device_ms"],
+                     "library_graph_replay_ms": x["library_device_ms"]} if "host_ms" in x else {}),
+                 **({"causal": x["causal"]} if "causal" in x else {})} for x in r["shapes"]]
     print(json.dumps({"requests": sliced["stats"] + served["stats"] + quantized["stats"],
                       "speculative": speculated, "weight_gib": quantized["weight_gib"],
-                      "int8_tower": quantized["int8_tower"]}))
+                      "int8_tower": quantized["int8_tower"],
+                      "encode": {k: v for k, v in encoded.items() if k != "launches"},
+                      "gradients": graded}))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -17,7 +17,10 @@ is a copy: exact outside the trash page. K7 sums each group in f32 in
 another order than its plain version and rounds once: 2e-5 in f32, one
 bf16 step (2^-7 relative) plus 1e-3 absolute in bf16; its cases reach both
 of its kernels (f32 FMAs: f32, M = 1, groups of 16; tensor cores: bf16 from
-M = 2 on) with ragged N and M on each.
+M = 2 on) with ragged N and M on each. K8-K11 round to bf16 like K1-K3 and
+take their tolerance. The differentiable tower ops launch K1 / K2 / K8 / K9
+in their forward and none in their backward; every kernel wrapper refuses a
+CUDA input that wants a gradient.
 """
 
 from __future__ import annotations
@@ -25,7 +28,12 @@ from __future__ import annotations
 import pytest
 import torch
 
-from videollamb_torch.ops.flash_attention import flash_attention, flash_attention_reference
+from videollamb_torch.ops.flash_attention import (
+    block_attention,
+    block_attention_reference,
+    flash_attention,
+    flash_attention_reference,
+)
 from videollamb_torch.ops.int4_matmul import (
     dequantize_int4,
     int4_matmul,
@@ -42,12 +50,22 @@ from videollamb_torch.ops.paged_attention_stats import (
 )
 from videollamb_torch.ops.paged_fresh_write import paged_fresh_write, paged_fresh_write_xla
 from videollamb_torch.ops.spatial_attention import (
+    fused_spatial_core,
     fused_spatial_core_packed,
+    spatial_core,
+    spatial_core_packed,
     spatial_core_packed_reference,
+    spatial_core_reference,
 )
 from videollamb_torch.ops.temporal_attention import (
+    fused_temporal_core,
+    fused_temporal_core_fm,
     fused_temporal_core_fm3,
+    temporal_core,
+    temporal_core_fm3,
     temporal_core_fm3_reference,
+    temporal_core_fm_reference,
+    temporal_core_reference,
 )
 
 TOL = dict(rtol=2e-2, atol=1e-2)
@@ -253,3 +271,117 @@ def test_int4_matmul_kernel_refuses_other_operands(dev):
                 lambda: int4_matmul(x[:4], qk["q4"], qk["scale"].float())):          # scales
         with pytest.raises(ValueError):
             bad()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frames,n", [(16, 257), (3, 5)])
+def test_split_spatial_kernel_matches_plain(dev, frames, n):
+    q = _randn(dev, frames, 16, n, 64, scale=0.125, seed=21)
+    k, v = _randn(dev, frames, 16, n, 64, seed=22), _randn(dev, frames, 16, n, 64, seed=23)
+    before = fused_spatial_core.launches
+    got = fused_spatial_core(q, k, v)
+    torch.cuda.synchronize()
+    assert fused_spatial_core.launches == before + 1
+    torch.testing.assert_close(got.float(), spatial_core_reference(q, k, v).float(), **TOL)
+    with pytest.raises(ValueError):
+        fused_spatial_core(q[..., :32].contiguous(), k[..., :32].contiguous(),
+                           v[..., :32].contiguous())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout,b,t,n", [("bntd", 2, 8, 257), ("bntd", 1, 4, 3),
+                                          ("fm", 2, 8, 257), ("fm", 1, 3, 5)])
+def test_three_operand_temporal_kernels_match_plain(dev, layout, b, t, n):
+    shape = (b, n, t, 1024) if layout == "bntd" else (b, t, n, 1024)
+    q = _randn(dev, *shape, scale=0.125, seed=24)
+    k, v = _randn(dev, *shape, seed=25), _randn(dev, *shape, seed=26)
+    kernel, plain = ((fused_temporal_core, temporal_core_reference) if layout == "bntd"
+                     else (fused_temporal_core_fm, temporal_core_fm_reference))
+    before = kernel.launches
+    got = kernel(q, k, v, num_heads=16)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    torch.testing.assert_close(got.float(), plain(q, k, v, 16).float(), **TOL)
+    with pytest.raises(ValueError):
+        kernel(q.float(), k.float(), v.float(), num_heads=16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,sq,skv,dh,causal", [
+    (8, 16, 257, 257, 64, False),
+    (2, 32, 512, 512, 128, True),
+    (1, 4, 37, 300, 64, True),    # Sq < Skv, causal from position 0
+    (1, 2, 90, 20, 128, True),    # Sq > Skv
+    (2, 3, 1, 7, 64, False),
+])
+def test_block_kernel_matches_plain(dev, b, h, sq, skv, dh, causal):
+    q = _randn(dev, b, h, sq, dh, seed=27)
+    k, v = _randn(dev, b, h, skv, dh, seed=28), _randn(dev, b, h, skv, dh, seed=29)
+    before = block_attention.launches
+    got = block_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert block_attention.launches == before + 1
+    want = block_attention_reference(q, k, v, causal=causal)
+    torch.testing.assert_close(got.float(), want.float(), **TOL)
+
+
+@pytest.mark.cuda
+def test_block_kernel_refuses_other_operands(dev):
+    q = _randn(dev, 1, 2, 16, 64)
+    long_kv = _randn(dev, 1, 2, 513, 64)
+    for bad in (lambda: block_attention(q, long_kv, long_kv),               # Skv > 512
+                lambda: block_attention(q[..., :32], q[..., :32], q[..., :32]),  # dh 32
+                lambda: block_attention(q.float(), q.float(), q.float())):  # f32
+        with pytest.raises(ValueError):
+            bad()
+
+
+@pytest.mark.cuda
+def test_differentiable_ops_launch_forward_only_and_match_plain_grads(dev):
+    """Kernel forward (one launch each), plain-recompute backward (no launch);
+    the gradients equal those of the plain statements on the same inputs."""
+    q4 = _randn(dev, 4, 16, 257, 64, scale=0.125, seed=30)
+    k4, v4 = _randn(dev, 4, 16, 257, 64, seed=31), _randn(dev, 4, 16, 257, 64, seed=32)
+    packed = [x.transpose(1, 2).reshape(4, 257, 1024).contiguous() for x in (q4, k4, v4)]
+    bntd = [_randn(dev, 2, 257, 8, 1024, scale=0.125, seed=33),
+            _randn(dev, 2, 257, 8, 1024, seed=34), _randn(dev, 2, 257, 8, 1024, seed=35)]
+    qkv = torch.cat([_randn(dev, 2, 8, 257, 1024, scale=0.125, seed=36),
+                     _randn(dev, 2, 8, 257, 2048, seed=37)], dim=-1)
+    cases = [(spatial_core, spatial_core_reference, (q4, k4, v4), fused_spatial_core),
+             (lambda *a: spatial_core_packed(*a, 16),
+              lambda *a: spatial_core_packed_reference(*a, 16), packed,
+              fused_spatial_core_packed),
+             (lambda *a: temporal_core(*a, 16), lambda *a: temporal_core_reference(*a, 16),
+              bntd, fused_temporal_core),
+             (lambda x: temporal_core_fm3(x, 16), lambda x: temporal_core_fm3_reference(x, 16),
+              [qkv], fused_temporal_core_fm3)]
+    for op, plain, inputs, kernel in cases:
+        g = torch.randn_like(inputs[0][..., :1024] if kernel is fused_temporal_core_fm3
+                             else inputs[0])
+        leaves = [x.clone().requires_grad_(True) for x in inputs]
+        before = kernel.launches
+        out = op(*leaves)
+        assert kernel.launches == before + 1 and out.grad_fn is not None
+        out.backward(g)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        ref_leaves = [x.clone().requires_grad_(True) for x in inputs]
+        plain(*ref_leaves).backward(g)
+        for got, want in zip(leaves, ref_leaves):
+            torch.testing.assert_close(got.grad.float(), want.grad.float(), **TOL)
+
+
+@pytest.mark.cuda
+def test_kernel_wrappers_refuse_inputs_that_want_a_gradient(dev):
+    x = _randn(dev, 1, 2, 16, 64).requires_grad_(True)
+    xt = _randn(dev, 1, 8, 3, 1024).requires_grad_(True)
+    calls = [lambda: fused_spatial_core(x, x, x),
+             lambda: fused_temporal_core_fm(xt, xt, xt, num_heads=16),
+             lambda: fused_temporal_core(xt, xt, xt, num_heads=16),
+             lambda: block_attention(x, x, x),
+             lambda: flash_attention(x, x, x)]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="forward-only"):
+            call()
+        with torch.no_grad():
+            call()  # no graph wanted: it launches

@@ -1,13 +1,17 @@
 """Kernel K3 (flash attention for the LM prefill): the port's plain version
 against the JAX package's XLA and chunked statements, through the port's
-``multihead_attention`` dispatcher. The CUDA kernel is held against the
-plain version in test_torch_cuda_kernels.py.
+``multihead_attention`` dispatcher. Kernel K11 (whole-row block attention):
+the port's plain version against the JAX ``block_attention`` run in
+interpret mode. The CUDA kernels are held against the plain versions in
+test_torch_cuda_kernels.py.
 
 The JAX flash kernel has no interpret flag, so its XLA statement is the
 oracle, on every row: a query row with no valid key gives the mean of v in
 both packages."""
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import pytest
@@ -19,7 +23,10 @@ import jax.numpy as jnp  # noqa: E402
 
 from videollamb_tpu.ops.attention import _chunked_attention, _xla_attention  # noqa: E402
 from videollamb_torch.ops.attention import multihead_attention  # noqa: E402
+from videollamb_tpu.ops import flash_attention as jax_fa  # noqa: E402
 from videollamb_torch.ops.flash_attention import (  # noqa: E402
+    block_attention,
+    block_attention_reference,
     flash_attention,
     flash_attention_reference,
 )
@@ -84,3 +91,36 @@ def test_wrapper_matches_xla_when_a_whole_row_is_masked(causal):
                           torch.from_numpy(mask), causal=causal).transpose(1, 2).numpy()
     np.testing.assert_allclose(got, xla, **F32_TOL)
 
+
+
+@pytest.mark.parametrize("b,h,sq,skv,dh,causal", [
+    (2, 2, 37, 37, 16, True),     # lengths off the 16 / 128 paddings
+    (1, 2, 20, 20, 8, False),
+    (1, 2, 19, 45, 16, True),     # Sq < Skv: causal still counted from position 0
+    (1, 1, 50, 30, 8, True),      # Sq > Skv
+    (1, 2, 257, 257, 64, False),  # the tower's sequence
+    (1, 1, 130, 200, 32, False),
+])
+def test_block_plain_matches_pallas_interpret(monkeypatch, b, h, sq, skv, dh, causal):
+    """``block_attention`` has no interpret flag: its ``pl.pallas_call`` is run
+    in interpret mode for the test, the JAX package itself unchanged."""
+    monkeypatch.setattr(jax_fa.pl, "pallas_call",
+                        functools.partial(jax_fa.pl.pallas_call, interpret=True))
+    rng = np.random.default_rng(sq + skv)
+    q = rng.normal(size=(b, h, sq, dh)).astype(np.float32)
+    k, v = (rng.normal(size=(b, h, skv, dh)).astype(np.float32) for _ in range(2))
+    want = np.asarray(jax_fa.block_attention(*map(jnp.asarray, (q, k, v)), causal=causal))
+    got = block_attention(*map(torch.from_numpy, (q, k, v)), causal=causal).numpy()
+    assert got.shape == (b, h, sq, dh)
+    np.testing.assert_allclose(got, want, **F32_TOL)
+    np.testing.assert_allclose(
+        block_attention_reference(*map(torch.from_numpy, (q, k, v)), causal=causal,
+                                  scale=0.5).numpy(),
+        np.asarray(jax_fa.block_attention(*map(jnp.asarray, (q, k, v)), causal=causal,
+                                          scale=0.5)), **F32_TOL)
+
+
+def test_block_wrapper_refuses_devices_without_a_kernel():
+    q = torch.empty(1, 1, 4, 64, device="meta")
+    with pytest.raises(ValueError, match="bf16 CUDA"):
+        block_attention(q, q, q)

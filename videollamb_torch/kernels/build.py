@@ -11,7 +11,8 @@ fallback on the card.
 
 Each C entry point takes device pointers and the CUDA stream as
 ``c_void_p`` and returns ``cudaGetLastError()`` after its launch;
-:func:`check` turns a non-zero code into an exception.
+:func:`check` turns a non-zero code into an exception. The wrappers of
+forward-only kernels call :func:`refuse_grad` before they launch.
 """
 
 from __future__ import annotations
@@ -36,7 +37,12 @@ _I = ctypes.c_int
 SIGNATURES = {
     "spatial_attention_bf16": (_I, (_P, _P, _P, _P, _I, _I, _I, _I, _P)),
     "spatial_attention_smem_bytes": (ctypes.c_size_t, (_I,)),
+    "spatial_core_bf16": (_I, (_P,) * 4 + (_I,) * 3 + (_P,)),
     "temporal_attention_bf16": (_I, (_P, _P, _I, _I, _I, _I, _I, _P)),
+    "temporal_core_bntd_bf16": (_I, (_P,) * 4 + (_I,) * 5 + (_P,)),
+    "temporal_core_fm_bf16": (_I, (_P,) * 4 + (_I,) * 5 + (_P,)),
+    "block_attention_bf16": (_I, (_P,) * 4 + (_I,) * 5 + (ctypes.c_float, _I, _P)),
+    "block_attention_smem_bytes": (ctypes.c_size_t, (_I, _I)),
     "flash_attention_bf16": (_I, (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                   ctypes.c_float, _I, _P)),
     "gathered_paged_attention_int8": (_I, (_P,) * 10 + (_I,) * 6 + (_P,)),
@@ -129,6 +135,17 @@ def kernels() -> ctypes.CDLL:
 def check(code: int, name: str) -> None:
     if code != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {code}")
+
+
+def refuse_grad(name: str, *tensors, route: str = "it has no VJP in the JAX package "
+                "either; call it under torch.no_grad()") -> None:
+    """A forward-only kernel's output has no ``grad_fn``: raise where autograd
+    would want one, instead of cutting the graph silently."""
+    import torch
+
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name} is a forward-only CUDA kernel and its output has no "
+                           f"gradient; {route}")
 
 
 def current_stream(device) -> ctypes.c_void_p:

@@ -10,7 +10,10 @@ by name. Linear weights keep the (out, in) orientation.
   as in the JAX package; cuDNN would run an f32 convolution in TF32.
 - Temporal attention runs over fixed windows of ``cfg.num_frames`` frames
   on the frame-major residual stream (kernel K2), spatial attention over
-  the patches of each frame with heads packed (kernel K1).
+  the patches of each frame with heads packed (kernel K1). Both go through
+  the differentiable ops (``temporal_attention_fm``, ``spatial_core_packed``:
+  kernel forward, plain-recompute backward), so gradients reach the pixels
+  and every weight, as through the JAX package's ``custom_vjp`` rules.
 - After ``models/vision/quant.quantize_vision_params`` the dense layers and
   the patch embedding are ``Int8Dense`` modules (int8 x int8 products with
   per-row activation scales); the attention cores are unchanged.
@@ -28,7 +31,7 @@ from torch import nn
 from videollamb_torch.config import VisionConfig
 from videollamb_torch.models.bridge.layers import _act
 from videollamb_torch.models.seeded import empty_module, fill_dense_, generator
-from videollamb_torch.ops.spatial_attention import fused_spatial_core_packed
+from videollamb_torch.ops.spatial_attention import spatial_core_packed
 from videollamb_torch.ops.temporal_attention import _layer_norm, temporal_attention_fm
 
 
@@ -105,7 +108,7 @@ def _clip_attention(attn: CLIPAttention, x: torch.Tensor, num_heads: int) -> tor
     """CLIPAttention with the packed spatial core (kernel K1)."""
     scale = (x.shape[-1] // num_heads) ** -0.5
     q = attn.q_proj(x) * scale
-    out = fused_spatial_core_packed(q, attn.k_proj(x), attn.v_proj(x), heads=num_heads)
+    out = spatial_core_packed(q, attn.k_proj(x), attn.v_proj(x), num_heads)
     return attn.out_proj(out)
 
 

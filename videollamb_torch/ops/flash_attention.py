@@ -1,4 +1,5 @@
-"""Flash attention forward for the LM prefill (kernel K3).
+"""Flash attention forward for the LM prefill (kernel K3) and whole-row
+block attention for short sequences (kernel K11).
 
 Port of ``videollamb_tpu/ops/flash_attention.py::flash_attention``:
 attention on (B, H, S, Dh) with an optional causal mask (``q_pos >=
@@ -21,6 +22,18 @@ has no such row.
 On the H100 the op is bound by tensor-core throughput at the prefill shape
 (1, 32, 2048, 128); the kernel skips key tiles above the causal diagonal
 and keeps its online softmax in f32.
+
+:func:`block_attention` (K11) ports the JAX package's ``block_attention``:
+all keys at once (no online softmax), causal from position 0 even when
+Sq != Skv, no key mask, the scale applied to the f32 scores, and the
+NORMALISED probabilities rounded to the value dtype before the product
+with V (K3 rounds the unnormalised ones and divides at the end). On a CUDA
+tensor it launches ``csrc/block_attention.cu`` (Skv <= 512, head dim 64 or
+128, bf16); on a CPU tensor it runs :func:`block_attention_reference`.
+
+Both kernels are forward only, as in the JAX package: their wrappers
+refuse inputs that want a gradient. Training attention is the chunked
+route of the JAX ``ops/attention.py``, not yet ported.
 """
 
 from __future__ import annotations
@@ -33,6 +46,7 @@ import torch
 from videollamb_torch.kernels import build as kb
 
 NEG_INF = -1e30
+_NO_GRAD_ATTENTION = "the differentiable (chunked) attention route is not ported yet"
 
 
 def _fill_rows_without_keys(out: torch.Tensor, v: torch.Tensor,
@@ -92,6 +106,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             "flash attention kernel takes bf16 CUDA (B, H, S, 64|128) q/k/v with "
             f"equal heads; got q {q.dtype} {tuple(q.shape)}, k {tuple(k.shape)}, "
             f"v {tuple(v.shape)} on {q.device}")
+    kb.refuse_grad("flash_attention", q, k, v, route=_NO_GRAD_ATTENTION)
     if scale is None:
         scale = 1.0 / math.sqrt(dh)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
@@ -110,3 +125,52 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention.launches = 0
+
+
+BLOCK_MAX_SKV = 512
+
+
+def block_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                              causal: bool = False,
+                              scale: Optional[float] = None) -> torch.Tensor:
+    """(B, H, Sq, Dh) q, (B, H, Skv, Dh) k/v whole-row attention in plain PyTorch."""
+    sq, skv = q.shape[2], k.shape[2]
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    s = (q.float() @ k.float().transpose(-1, -2)) * scale
+    if causal:
+        pos_q = torch.arange(sq, device=q.device)[:, None]
+        s = s.masked_fill(pos_q < torch.arange(skv, device=q.device)[None], NEG_INF)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1, keepdim=True)
+    p = p / torch.where(l == 0, 1.0, l)
+    return (p.to(v.dtype).float() @ v.float()).to(q.dtype)
+
+
+def block_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = False, scale: Optional[float] = None) -> torch.Tensor:
+    """K11: whole-row attention for short sequences, (B, H, Sq, Dh) -> (B, H, Sq, Dh)."""
+    if q.device.type == "cpu":
+        return block_attention_reference(q, k, v, causal=causal, scale=scale)
+    b, h, sq, dh = q.shape
+    skv = k.shape[2]
+    if (q.device.type != "cuda" or q.dtype != torch.bfloat16 or dh not in (64, 128)
+            or k.dtype != q.dtype or v.dtype != q.dtype or not 1 <= skv <= BLOCK_MAX_SKV
+            or k.shape != (b, h, skv, dh) or v.shape != k.shape):
+        raise ValueError(
+            "block attention kernel takes bf16 CUDA (B, H, S, 64|128) q/k/v with "
+            f"Skv <= {BLOCK_MAX_SKV}; got q {q.dtype} {tuple(q.shape)}, k {tuple(k.shape)}, "
+            f"v {tuple(v.shape)} on {q.device}")
+    kb.refuse_grad("block_attention", q, k, v, route=_NO_GRAD_ATTENTION)
+    if scale is None:
+        scale = 1.0 / math.sqrt(dh)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    out = torch.empty_like(q)
+    kb.check(kb.kernels().block_attention_bf16(
+        kb.ptr(q), kb.ptr(k), kb.ptr(v), kb.ptr(out), b, h, sq, skv, dh, float(scale),
+        int(causal), kb.current_stream(q.device)), "block_attention_bf16")
+    block_attention.launches += 1
+    return out
+
+
+block_attention.launches = 0

@@ -131,6 +131,7 @@ def gathered_paged_attention_int8(
             f"q {q.dtype} {tuple(q.shape)}, pool {k_pool.dtype} {tuple(k_pool.shape)}, "
             f"scales {k_scales.dtype} {tuple(k_scales.shape)}, {pps} pages per slot, "
             f"{pages_per_block} per block, on {q.device}")
+    kb.refuse_grad("gathered_paged_attention_int8", q, k_pool, v_pool, k_scales, v_scales)
     qf = q.float().contiguous()
     k_pool, v_pool = k_pool.contiguous(), v_pool.contiguous()
     k_scales, v_scales = k_scales.contiguous(), v_scales.contiguous()

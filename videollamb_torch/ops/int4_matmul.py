@@ -129,6 +129,7 @@ def int4_matmul(x: torch.Tensor, q4: torch.Tensor, scale: torch.Tensor) -> torch
             "(K/2, N) nibbles and bf16 (K/g, N) scales with g a multiple of 16, at most 128, "
             f"dividing K/2; got x {x.dtype} {tuple(x.shape)} on {x.device}, q4 {q4.dtype} "
             f"{tuple(q4.shape)}, scale {scale.dtype} {tuple(scale.shape)}")
+    kb.refuse_grad("int4_matmul", x, scale)
     x = x.contiguous()
     if x.data_ptr() % 4:  # the kernels copy x two bf16 values at a time
         x = x.clone()

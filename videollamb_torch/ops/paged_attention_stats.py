@@ -47,6 +47,7 @@ def paged_attention_with_stats(q: torch.Tensor, k_pages: torch.Tensor, v_pages: 
             "paged attention kernel takes CUDA q (B, H, 128) and bf16 (H_kv, P, page, 128) "
             f"pages with H / H_kv <= 8; got q {q.dtype} {tuple(q.shape)}, pages "
             f"{k_pages.dtype} {tuple(k_pages.shape)} on {q.device}")
+    kb.refuse_grad("paged_attention_with_stats", q, k_pages, v_pages)
     qf = q.float().contiguous()
     k_pages, v_pages = k_pages.contiguous(), v_pages.contiguous()
     table = page_indices.to(torch.int32).contiguous()

@@ -54,6 +54,7 @@ def paged_fresh_write(k_pool: torch.Tensor, v_pool: torch.Tensor, fresh_k: torch
             f"multiple of 16 and (L, B, KD) rows; got pools {k_pool.dtype} "
             f"{tuple(k_pool.shape)}, rows {fresh_k.dtype} {tuple(fresh_k.shape)} on "
             f"{k_pool.device}")
+    kb.refuse_grad("paged_fresh_write", k_pool, v_pool, fresh_k, fresh_v)
     fk, fv = fresh_k.contiguous(), fresh_v.contiguous()
     page_ids = write_page.to(torch.int32).contiguous()
     offs = write_off.to(torch.int32).contiguous()

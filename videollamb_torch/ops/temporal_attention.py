@@ -1,21 +1,32 @@
-"""Temporal attention branch of the video tower (kernel K2).
+"""Temporal attention branch of the video tower (kernels K2, K9 and K10).
 
-Port of ``videollamb_tpu/ops/temporal_attention.py:339-411`` and of its
-plain statement ``temporal_attention_reference``. Each encoder layer adds
-the temporal embedding into the residual stream, applies LayerNorm, and
-runs CLIP attention across the t (= 8) frames of every patch position.
+Port of ``videollamb_tpu/ops/temporal_attention.py``. Each encoder layer
+adds the temporal embedding into the residual stream, applies LayerNorm,
+and runs CLIP attention across the t (= 8) frames of every patch position.
 
 - :func:`temporal_attention_fm` is the live branch: frame-major
   (b, t, n, d) residual stream, one fused 3d-wide qkv projection with q's
-  scale folded into its weight rows, then the core, then out_proj.
-- :func:`fused_temporal_core_fm3` replaces the Pallas kernel of the same
-  name. On a CUDA tensor it launches ``csrc/temporal_attention.cu``; on a
-  CPU tensor it runs :func:`temporal_core_fm3_reference`.
+  scale folded into its weight rows, then the core (K2), then out_proj.
+- :func:`temporal_attention` is the older (b, n, t, d) branch: three
+  projections, q scaled after its projection, then the core (K9).
+- The core kernels, each replacing the Pallas kernel of the same name: on
+  a CUDA tensor they launch ``csrc/temporal_attention.cu``, on a CPU
+  tensor they run their plain version. :func:`fused_temporal_core_fm3`
+  (K2) reads one packed (b, t, n, 3d) [q*scale | k | v] operand,
+  :func:`fused_temporal_core` (K9) three (b, n, t, d) operands and
+  :func:`fused_temporal_core_fm` (K10) three frame-major (b, t, n, d) ones.
+- Both branches are differentiable, as the JAX ``custom_vjp`` rules
+  ``_ta_bwd`` and ``_ta_fm_bwd`` make them. The rules recompute the whole
+  branch through ``temporal_attention_reference``; here only the core
+  (q, k, v -> o) is a kernel-forward, plain-recompute-backward op
+  (``ops/recompute.py``), and LayerNorm, the projections and out_proj
+  differentiate natively. The gradients are the same up to rounding. K10
+  has no VJP in the JAX package and refuses inputs that want a gradient.
 
 On the H100 the core is bound by device memory (about 4 FLOPs per byte):
-it reads the packed qkv operand once and writes the output once, with each
-(b, n, head) solved by one warp; the TPU kernel's (t * block_n)-row
-same-position pack is not carried over (see the .cu file).
+it reads its operands once and writes the output once, with each
+(b, n, head) solved by one warp; the TPU kernels' same-position and
+same-head row packs are not carried over (see the .cu file).
 """
 
 from __future__ import annotations
@@ -25,35 +36,57 @@ import torch.nn.functional as F
 from torch import nn
 
 from videollamb_torch.kernels import build as kb
+from videollamb_torch.ops.recompute import kernel_forward
+
+E = 64  # the kernel's head dim
+T_MAX = 8  # frames per window the kernel takes
 
 
-def temporal_core_fm3_reference(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
-    """(b, t, n, 3d) packed [q*scale | k | v] -> (b, t, n, d); plain PyTorch."""
-    b, t, n, d3 = qkv.shape
-    d = d3 // 3
+def temporal_core_fm_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                               num_heads: int) -> torch.Tensor:
+    """Three frame-major (b, t, n, d) operands, q pre-scaled -> (b, t, n, d); plain PyTorch."""
+    b, t, n, d = q.shape
     e = d // num_heads
 
     def split(x):  # (b, t, n, d) -> (b, n, h, t, e)
         return x.reshape(b, t, n, num_heads, e).permute(0, 2, 3, 1, 4).float()
 
-    q, k, v = (split(x) for x in qkv.split(d, dim=-1))
-    p = torch.softmax(q @ k.transpose(-1, -2), dim=-1).to(qkv.dtype).float()
-    o = (p @ v).to(qkv.dtype)  # (b, n, h, t, e)
+    p = torch.softmax(split(q) @ split(k).transpose(-1, -2), dim=-1).to(v.dtype).float()
+    o = (p @ split(v)).to(q.dtype)  # (b, n, h, t, e)
     return o.permute(0, 3, 1, 2, 4).reshape(b, t, n, d)
 
 
+def temporal_core_fm3_reference(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """(b, t, n, 3d) packed [q*scale | k | v] -> (b, t, n, d); plain PyTorch."""
+    return temporal_core_fm_reference(*qkv.split(qkv.shape[-1] // 3, dim=-1), num_heads)
+
+
+def temporal_core_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            num_heads: int) -> torch.Tensor:
+    """Three (b, n, t, d) operands, q pre-scaled -> (b, n, t, d); plain PyTorch."""
+    out = temporal_core_fm_reference(*(x.transpose(1, 2) for x in (q, k, v)), num_heads)
+    return out.transpose(1, 2)
+
+
+def _check_core(name: str, tensors, t: int, d: int, num_heads: int) -> None:
+    q = tensors[0]
+    if (q.device.type != "cuda" or q.ndim != 4 or d != num_heads * E or not 1 <= t <= T_MAX
+            or any(x.dtype != torch.bfloat16 or x.device != q.device for x in tensors)):
+        raise ValueError(
+            f"{name} takes bf16 CUDA operands with t <= 8 frames and heads of 64; got "
+            f"{[(x.dtype, tuple(x.shape)) for x in tensors]} on {q.device}, heads={num_heads}")
+
+
 def fused_temporal_core_fm3(qkv: torch.Tensor, *, num_heads: int) -> torch.Tensor:
-    """Per-(b, n, head) softmax attention over t frames: (b, t, n, 3d) -> (b, t, n, d)."""
+    """K2: per-(b, n, head) softmax attention over t frames, (b, t, n, 3d) -> (b, t, n, d)."""
     if qkv.device.type == "cpu":
         return temporal_core_fm3_reference(qkv, num_heads)
     b, t, n, d3 = qkv.shape
     d = d3 // 3
-    if (qkv.device.type != "cuda" or qkv.dtype != torch.bfloat16
-            or d3 != 3 * d or d != num_heads * 64 or not 1 <= t <= 8):
-        raise ValueError(
-            "temporal attention kernel takes a bf16 CUDA (b, t<=8, n, 3*heads*64) "
-            f"operand; got {qkv.dtype} {tuple(qkv.shape)} on {qkv.device}, "
-            f"heads={num_heads}")
+    _check_core("temporal attention kernel", [qkv], t, d, num_heads)
+    if d3 != 3 * d:
+        raise ValueError(f"temporal attention kernel: last dim {d3} is not 3 * d")
+    kb.refuse_grad("fused_temporal_core_fm3", qkv, route="use temporal_attention_fm")
     qkv = qkv.contiguous()
     out = torch.empty((b, t, n, d), dtype=qkv.dtype, device=qkv.device)
     kb.check(kb.kernels().temporal_attention_bf16(
@@ -64,6 +97,67 @@ def fused_temporal_core_fm3(qkv: torch.Tensor, *, num_heads: int) -> torch.Tenso
 
 
 fused_temporal_core_fm3.launches = 0
+
+
+def _launch_three(entry: str, q, k, v, dims, d: int, num_heads: int) -> torch.Tensor:
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    out = torch.empty_like(q)
+    kb.check(getattr(kb.kernels(), entry)(
+        kb.ptr(q), kb.ptr(k), kb.ptr(v), kb.ptr(out), *dims, d, num_heads,
+        kb.current_stream(q.device)), entry)
+    return out
+
+
+def fused_temporal_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        num_heads: int) -> torch.Tensor:
+    """K9: the same attention on three (b, n, t, d) operands -> (b, n, t, d)."""
+    if q.device.type == "cpu":
+        return temporal_core_reference(q, k, v, num_heads)
+    b, n, t, d = q.shape
+    _check_core("(b, n, t, d) temporal attention kernel", [q, k, v], t, d, num_heads)
+    if k.shape != q.shape or v.shape != q.shape:
+        raise ValueError("(b, n, t, d) temporal attention kernel: q, k, v differ in shape")
+    kb.refuse_grad("fused_temporal_core", q, k, v, route="use temporal_attention")
+    out = _launch_three("temporal_core_bntd_bf16", q, k, v, (b, n, t), d, num_heads)
+    fused_temporal_core.launches += 1
+    return out
+
+
+fused_temporal_core.launches = 0
+
+
+def fused_temporal_core_fm(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                           num_heads: int) -> torch.Tensor:
+    """K10: the same attention on three frame-major (b, t, n, d) operands -> (b, t, n, d).
+
+    Forward only, as in the JAX package (no caller there differentiates it)."""
+    if q.device.type == "cpu":
+        return temporal_core_fm_reference(q, k, v, num_heads)
+    b, t, n, d = q.shape
+    _check_core("frame-major temporal attention kernel", [q, k, v], t, d, num_heads)
+    if k.shape != q.shape or v.shape != q.shape:
+        raise ValueError("frame-major temporal attention kernel: q, k, v differ in shape")
+    kb.refuse_grad("fused_temporal_core_fm", q, k, v,
+                   route="temporal_attention_fm is the differentiable frame-major branch")
+    out = _launch_three("temporal_core_fm_bf16", q, k, v, (b, t, n), d, num_heads)
+    fused_temporal_core_fm.launches += 1
+    return out
+
+
+fused_temporal_core_fm.launches = 0
+
+
+def temporal_core_fm3(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """Differentiable K2 core: kernel forward, plain-recompute backward."""
+    return kernel_forward(lambda x: fused_temporal_core_fm3(x, num_heads=num_heads),
+                          lambda x: temporal_core_fm3_reference(x, num_heads), qkv)
+
+
+def temporal_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  num_heads: int) -> torch.Tensor:
+    """Differentiable K9 core: kernel forward, plain-recompute backward."""
+    return kernel_forward(lambda *a: fused_temporal_core(*a, num_heads=num_heads),
+                          lambda *a: temporal_core_reference(*a, num_heads), q, k, v)
 
 
 def _layer_norm(ln: nn.LayerNorm, x: torch.Tensor, eps: float) -> torch.Tensor:
@@ -82,6 +176,24 @@ def _ln_fm(x: torch.Tensor, temporal_embedding: torch.Tensor, ln: nn.LayerNorm,
     t, d = x.shape[1], x.shape[-1]
     xt = x + _temb(temporal_embedding, t, d).to(x.dtype)[None, :, None]
     return xt, _layer_norm(ln, xt, eps)
+
+
+def _ln_qkv(x: torch.Tensor, temporal_embedding: torch.Tensor, ln: nn.LayerNorm,
+            attn: nn.Module, eps: float):
+    """(b, n, t, d) temb add, LayerNorm and the three projections: (xt, q, k, v).
+
+    q is not scaled here: both callers scale it after its projection."""
+    t, d = x.shape[2], x.shape[-1]
+    xt = x + _temb(temporal_embedding, t, d).to(x.dtype)[None, None]
+    normed = _layer_norm(ln, xt, eps)
+    return xt, attn.q_proj(normed), attn.k_proj(normed), attn.v_proj(normed)
+
+
+def _ln_qkv_fm(x: torch.Tensor, temporal_embedding: torch.Tensor, ln: nn.LayerNorm,
+               attn: nn.Module, eps: float):
+    """:func:`_ln_fm` and the three separate projections (the operands of K10)."""
+    xt, normed = _ln_fm(x, temporal_embedding, ln, eps)
+    return xt, attn.q_proj(normed), attn.k_proj(normed), attn.v_proj(normed)
 
 
 def _qkv_fused(attn: nn.Module, normed: torch.Tensor, q_scale: float) -> torch.Tensor:
@@ -110,31 +222,28 @@ def _qkv_fused(attn: nn.Module, normed: torch.Tensor, q_scale: float) -> torch.T
 def temporal_attention_fm(x: torch.Tensor, temporal_embedding: torch.Tensor,
                           ln: nn.LayerNorm, attn: nn.Module, num_heads: int,
                           eps: float = 1e-5) -> torch.Tensor:
-    """x + temb + CLIPAttention(LN(x + temb)) across frames, frame-major.
+    """x + temb + CLIPAttention(LN(x + temb)) across frames, frame-major (K2).
 
     x: (b, t, n, d), the residual stream viewed frame-major.
     """
     e = x.shape[-1] // num_heads
     xt, normed = _ln_fm(x, temporal_embedding, ln, eps)
-    qkv = _qkv_fused(attn, normed, e ** -0.5)
-    o = fused_temporal_core_fm3(qkv, num_heads=num_heads)
+    o = temporal_core_fm3(_qkv_fused(attn, normed, e ** -0.5), num_heads)
     return xt + attn.out_proj(o)
+
+
+def temporal_attention(x: torch.Tensor, temporal_embedding: torch.Tensor, ln: nn.LayerNorm,
+                       attn: nn.Module, num_heads: int, eps: float = 1e-5) -> torch.Tensor:
+    """The same branch on the token-major (b, n, t, d) layout, through K9."""
+    e = x.shape[-1] // num_heads
+    xt, q, k, v = _ln_qkv(x, temporal_embedding, ln, attn, eps)
+    return xt + attn.out_proj(temporal_core(q * (e ** -0.5), k, v, num_heads))
 
 
 def temporal_attention_reference(x: torch.Tensor, temporal_embedding: torch.Tensor,
                                  ln: nn.LayerNorm, attn: nn.Module, *,
                                  num_heads: int, eps: float = 1e-5) -> torch.Tensor:
     """Plain statement of the same branch on the token-major (b, n, t, d) layout."""
-    b, n, t, d = x.shape
-    h = num_heads
-    e = d // h
-    xt = x + _temb(temporal_embedding, t, d).to(x.dtype)[None, None]
-    normed = _layer_norm(ln, xt, eps)
-    q = attn.q_proj(normed).reshape(b, n, t, h, e) * (e ** -0.5)
-    k = attn.k_proj(normed).reshape(b, n, t, h, e)
-    v = attn.v_proj(normed).reshape(b, n, t, h, e)
-    s = torch.einsum("bnqhe,bnkhe->bnhqk", q.float(), k.float())
-    p = torch.softmax(s, dim=-1).to(v.dtype)
-    o = torch.einsum("bnhqk,bnkhe->bnqhe", p.float(), v.float())
-    o = o.to(x.dtype).reshape(b, n, t, d)
-    return xt + attn.out_proj(o)
+    e = x.shape[-1] // num_heads
+    xt, q, k, v = _ln_qkv(x, temporal_embedding, ln, attn, eps)
+    return xt + attn.out_proj(temporal_core_reference(q * (e ** -0.5), k, v, num_heads))

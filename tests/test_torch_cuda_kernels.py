@@ -83,8 +83,13 @@ def _randn(dev, *shape, scale=1.0, seed=0):
     return (torch.randn(shape, generator=g, device=dev) * scale).to(torch.bfloat16)
 
 
+# Token counts: the tower's 257 and a ragged 5 (one block stages the whole
+# head), the largest such head (272), and past it (the streamed route).
+SPATIAL_SHAPES = [(16, 257), (3, 5), (2, 272), (2, 300)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("frames,n", [(16, 257), (3, 5)])
+@pytest.mark.parametrize("frames,n", SPATIAL_SHAPES)
 def test_spatial_kernel_matches_plain(dev, frames, n):
     q = _randn(dev, frames, n, 1024, scale=0.125, seed=1)
     k, v = _randn(dev, frames, n, 1024, seed=2), _randn(dev, frames, n, 1024, seed=3)
@@ -274,7 +279,7 @@ def test_int4_matmul_kernel_refuses_other_operands(dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("frames,n", [(16, 257), (3, 5)])
+@pytest.mark.parametrize("frames,n", SPATIAL_SHAPES)
 def test_split_spatial_kernel_matches_plain(dev, frames, n):
     q = _randn(dev, frames, 16, n, 64, scale=0.125, seed=21)
     k, v = _randn(dev, frames, 16, n, 64, seed=22), _randn(dev, frames, 16, n, 64, seed=23)
@@ -308,11 +313,17 @@ def test_three_operand_temporal_kernels_match_plain(dev, layout, b, t, n):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,h,sq,skv,dh,causal", [
-    (8, 16, 257, 257, 64, False),
-    (2, 32, 512, 512, 128, True),
-    (1, 4, 37, 300, 64, True),    # Sq < Skv, causal from position 0
-    (1, 2, 90, 20, 128, True),    # Sq > Skv
-    (2, 3, 1, 7, 64, False),
+    (8, 16, 257, 257, 64, False),   # the tower's shape: K and V staged once per head
+    (2, 32, 512, 512, 128, True),   # dh 128: K and V streamed in 64-key tiles
+    (1, 4, 37, 300, 64, True),      # Sq < Skv, causal from position 0; streamed
+    (1, 4, 37, 200, 64, True),      # the same with the head's K and V staged once
+    (1, 2, 90, 20, 128, True),      # Sq > Skv
+    (1, 3, 700, 250, 64, True),     # Sq > Skv over several row blocks of one head
+    (2, 3, 1, 7, 64, False),        # one query row
+    (1, 2, 1, 1000, 128, True),     # one query row sees one key of many
+    (1, 2, 45, 130, 128, False),    # Sq off 16, Skv off 64
+    (2, 2, 100, 1024, 64, True),    # Skv = 1024: no length cap
+    (1, 2, 33, 1024, 128, False),
 ])
 def test_block_kernel_matches_plain(dev, b, h, sq, skv, dh, causal):
     q = _randn(dev, b, h, sq, dh, seed=27)
@@ -323,13 +334,17 @@ def test_block_kernel_matches_plain(dev, b, h, sq, skv, dh, causal):
     assert block_attention.launches == before + 1
     want = block_attention_reference(q, k, v, causal=causal)
     torch.testing.assert_close(got.float(), want.float(), **TOL)
+    for scale in (0.3, -0.2, 0.0):  # the kernel takes scale > 0; the wrapper maps the others
+        got = block_attention(q, k, v, causal=causal, scale=scale)
+        want = block_attention_reference(q, k, v, causal=causal, scale=scale)
+        torch.testing.assert_close(got.float(), want.float(), **TOL)
 
 
 @pytest.mark.cuda
 def test_block_kernel_refuses_other_operands(dev):
     q = _randn(dev, 1, 2, 16, 64)
-    long_kv = _randn(dev, 1, 2, 513, 64)
-    for bad in (lambda: block_attention(q, long_kv, long_kv),               # Skv > 512
+    no_kv = q[:, :, :0]
+    for bad in (lambda: block_attention(q, no_kv, no_kv),                   # Skv = 0
                 lambda: block_attention(q[..., :32], q[..., :32], q[..., :32]),  # dh 32
                 lambda: block_attention(q.float(), q.float(), q.float())):  # f32
         with pytest.raises(ValueError):

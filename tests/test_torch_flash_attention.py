@@ -100,6 +100,7 @@ def test_wrapper_matches_xla_when_a_whole_row_is_masked(causal):
     (1, 1, 50, 30, 8, True),      # Sq > Skv
     (1, 2, 257, 257, 64, False),  # the tower's sequence
     (1, 1, 130, 200, 32, False),
+    (1, 2, 40, 700, 16, True),    # Skv > 512: the port's kernel has no length cap either
 ])
 def test_block_plain_matches_pallas_interpret(monkeypatch, b, h, sq, skv, dh, causal):
     """``block_attention`` has no interpret flag: its ``pl.pallas_call`` is run

@@ -4,8 +4,9 @@ Every ``videollamb_torch/csrc/*.cu`` file is compiled for Hopper
 (``sm_90a``) by its own ``nvcc`` process, all started together, and the
 objects are linked into one shared library with a plain C interface. The
 build runs at first use, goes into ``build/kernels/`` at the root of the
-checkout and is keyed by a hash of the sources and flags, so an edited
-source rebuilds and an unchanged one loads the cached library. No binary is
+checkout and is keyed by a hash of the sources, their shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header rebuilds and
+an unchanged tree loads the cached library. No binary is
 committed. Without ``nvcc`` a CUDA run raises: the kernels have no
 fallback on the card.
 
@@ -36,13 +37,11 @@ _I = ctypes.c_int
 # returns its cudaError_t as an int.
 SIGNATURES = {
     "spatial_attention_bf16": (_I, (_P, _P, _P, _P, _I, _I, _I, _I, _P)),
-    "spatial_attention_smem_bytes": (ctypes.c_size_t, (_I,)),
     "spatial_core_bf16": (_I, (_P,) * 4 + (_I,) * 3 + (_P,)),
     "temporal_attention_bf16": (_I, (_P, _P, _I, _I, _I, _I, _I, _P)),
     "temporal_core_bntd_bf16": (_I, (_P,) * 4 + (_I,) * 5 + (_P,)),
     "temporal_core_fm_bf16": (_I, (_P,) * 4 + (_I,) * 5 + (_P,)),
     "block_attention_bf16": (_I, (_P,) * 4 + (_I,) * 5 + (ctypes.c_float, _I, _P)),
-    "block_attention_smem_bytes": (ctypes.c_size_t, (_I, _I)),
     "flash_attention_bf16": (_I, (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                   ctypes.c_float, _I, _P)),
     "gathered_paged_attention_int8": (_I, (_P,) * 10 + (_I,) * 6 + (_P,)),
@@ -74,8 +73,10 @@ def _sources() -> list:
 
 
 def library_path() -> Path:
+    """The library for the current sources: the hash covers every ``.cu`` and
+    every header they share (``*.cuh``), so an edited header rebuilds too."""
     digest = hashlib.sha256()
-    for src in _sources():
+    for src in sorted(_sources() + list(CSRC_DIR.glob("*.cuh"))):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())

@@ -28,7 +28,7 @@ all keys at once (no online softmax), causal from position 0 even when
 Sq != Skv, no key mask, the scale applied to the f32 scores, and the
 NORMALISED probabilities rounded to the value dtype before the product
 with V (K3 rounds the unnormalised ones and divides at the end). On a CUDA
-tensor it launches ``csrc/block_attention.cu`` (Skv <= 512, head dim 64 or
+tensor it launches ``csrc/block_attention.cu`` (any Skv, head dim 64 or
 128, bf16); on a CPU tensor it runs :func:`block_attention_reference`.
 
 Both kernels are forward only, as in the JAX package: their wrappers
@@ -127,9 +127,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attention.launches = 0
 
 
-BLOCK_MAX_SKV = 512
-
-
 def block_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                               causal: bool = False,
                               scale: Optional[float] = None) -> torch.Tensor:
@@ -155,15 +152,19 @@ def block_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     b, h, sq, dh = q.shape
     skv = k.shape[2]
     if (q.device.type != "cuda" or q.dtype != torch.bfloat16 or dh not in (64, 128)
-            or k.dtype != q.dtype or v.dtype != q.dtype or not 1 <= skv <= BLOCK_MAX_SKV
+            or k.dtype != q.dtype or v.dtype != q.dtype or sq < 1 or skv < 1
             or k.shape != (b, h, skv, dh) or v.shape != k.shape):
         raise ValueError(
             "block attention kernel takes bf16 CUDA (B, H, S, 64|128) q/k/v with "
-            f"Skv <= {BLOCK_MAX_SKV}; got q {q.dtype} {tuple(q.shape)}, k {tuple(k.shape)}, "
+            f"Sq, Skv >= 1; got q {q.dtype} {tuple(q.shape)}, k {tuple(k.shape)}, "
             f"v {tuple(v.shape)} on {q.device}")
     kb.refuse_grad("block_attention", q, k, v, route=_NO_GRAD_ATTENTION)
     if scale is None:
         scale = 1.0 / math.sqrt(dh)
+    if scale < 0:  # the kernel takes the max of the unscaled scores: (-q . k) = -(q . k)
+        q, scale = -q, -scale
+    elif scale == 0:  # every visible key weighs the same, as with zero scores
+        q, scale = torch.zeros_like(q), 1.0
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
     kb.check(kb.kernels().block_attention_bf16(

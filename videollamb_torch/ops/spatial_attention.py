@@ -22,8 +22,10 @@ the N (= 257) patch tokens of each frame, q pre-scaled, in two layouts.
 On the H100 the op is bound by device memory at the tower's shapes (see
 the note at the top of the .cu file): the TPU kernel kept a (257, 257) f32
 score tile per head, which is larger than a block's shared memory, so the
-CUDA kernel stages one head's K and V per block and cuts the score tile
-into 16-row strips per warp.
+CUDA kernel stages one head's K and V per block and each warp keeps the
+scores of 16 query rows in registers (``csrc/whole_row_attention.cuh``,
+shared with K11). N has no limit: past 272 tokens the kernel streams K and
+V in tiles.
 """
 
 from __future__ import annotations
@@ -34,7 +36,6 @@ from videollamb_torch.kernels import build as kb
 from videollamb_torch.ops.recompute import kernel_forward
 
 E = 64  # the kernel's head dim
-SMEM_LIMIT = 232448  # bytes of shared memory a block may use on the H100
 
 
 def spatial_core_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -60,11 +61,6 @@ def spatial_core_packed_reference(q: torch.Tensor, k: torch.Tensor,
     return _merge(spatial_core_reference(*(_split(t, heads) for t in (q, k, v))))
 
 
-def _check_smem(name: str, n: int) -> None:
-    if kb.kernels().spatial_attention_smem_bytes(n) > SMEM_LIMIT:
-        raise ValueError(f"{name}: N={n} needs more shared memory than a block has")
-
-
 def fused_spatial_core_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                               *, heads: int) -> torch.Tensor:
     """Spatial attention core over packed heads (K1): (B, N, D) -> (B, N, D)."""
@@ -79,7 +75,6 @@ def fused_spatial_core_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             f"one shape; got {q.dtype} {tuple(q.shape)} on {q.device}, "
             f"heads={heads}")
     kb.refuse_grad("fused_spatial_core_packed", q, k, v, route="use spatial_core_packed")
-    _check_smem("spatial attention kernel", n)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
     kb.check(kb.kernels().spatial_attention_bf16(
@@ -104,7 +99,6 @@ def fused_spatial_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tor
             f"of one shape; got {q.dtype} {tuple(q.shape)} on {q.device}")
     kb.refuse_grad("fused_spatial_core", q, k, v, route="use spatial_core")
     b, h, n, _ = q.shape
-    _check_smem("split-layout spatial attention kernel", n)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
     kb.check(kb.kernels().spatial_core_bf16(

@@ -8,7 +8,12 @@
    CUDA-event times of both, of one PyTorch library call computing the same
    function where there is one, and the least time the card could take.
    K1 and K2 also at the encode path's 256 frames; K8-K11 at that path's
-   shapes (K11 also causal at (4, 32, 512, 128)).
+   shapes (K11 also causal at (4, 32, 512, 128)); K3 also through
+   ``multihead_attention`` on the (B, S, H, Dh) projections the prefill
+   hands it, beside SDPA on the same views; K6 also with the paged step's
+   bf16 query, at the lengths where its 256-token key splits meet, twice
+   each, with its host enqueue and CUDA-graph replay times. The build's
+   ``ptxas`` registers and spills are echoed, one line per kernel.
 1a. The tower's encode-throughput path (``encoder_phase``): ViT-L/14 at
    full width and depth (23 layers run, seeded random bf16 weights) encodes
    32 videos x 8 frames through ``vision_encode`` in bf16 and then int8
@@ -206,6 +211,7 @@ def _paged_table(lengths, seed: int):
 def kernel_phase(g: torch.Generator) -> dict:
     import torch.nn.functional as F
 
+    from videollamb_torch.ops.attention import multihead_attention
     from videollamb_torch.ops.flash_attention import (
         block_attention,
         block_attention_reference,
@@ -369,6 +375,28 @@ def kernel_phase(g: torch.Generator) -> dict:
                 library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
                     q, k, v, attn_mask=sdpa_mask)),
                 bound=bound(4 * q.numel() * 2 + 2048, 4 * 32 * 128 * pairs, "bf16"))
+    # The same call as the prefill makes it: multihead_attention on the
+    # (B, S, H, Dh) projections, whose transposed views K3 takes without a
+    # copy; SDPA on the same views with the bool mask beside it.
+    q, k, v = (randn(1, 2048, 32, 128) for _ in range(3))
+    mask = torch.arange(2048, device=dev)[None] < 1400
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    sdpa_mask = (causal & mask[:, None, :])[:, None]
+    got = multihead_attention(q, k, v, causal=True, k_mask=mask)
+    errs.append(compare("flash through multihead_attention (1, 2048, 32, 128), valid keys "
+                        "[1400]", got, flash_attention_reference(qt, kt, vt, mask, causal=True)
+                        .transpose(1, 2)))
+    if not got.is_contiguous():
+        raise AssertionError("multihead_attention: the kernel's output is not (B, S, H, Dh)")
+    results["flash_attention"]["shapes"] = [dict(
+        shape=[1, 2048, 32, 128], layout="(B, S, H, Dh) projections through "
+        "multihead_attention", max_abs_err=errs[-1],
+        ms=cuda_ms(lambda: multihead_attention(q, k, v, causal=True, k_mask=mask)),
+        plain_ms=cuda_ms(lambda: flash_attention_reference(qt, kt, vt, mask, causal=True)),
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                                  attn_mask=sdpa_mask)),
+        bound=results["flash_attention"]["bound"])]
+    del q, k, v, qt, kt, vt
     results["flash_attention"]["max_abs_err"] = max(errs)
 
     # K4-K6: one decode step's attention and install at 7B, 8 slots, ragged
@@ -442,7 +470,55 @@ def kernel_phase(g: torch.Generator) -> dict:
         library_ms=None,
         bound=bound(tokens * h * dh * 2 * 2 + 2 * q.numel() * 4 + 2 * n_slots * h * 4
                     + table.numel() * 4, 4 * tokens * h * dh, "bf16"))
+    # Its event time can be the host's enqueue time: also the enqueue alone,
+    # and the device time of calls replayed from a CUDA graph (the merge
+    # counters are reset by each launch, so a replay starts from zero).
+    results["paged_attention_stats"].update(
+        host_ms=host_ms(lambda: paged_attention_with_stats(q, *k6, lens, table)),
+        device_ms=graph_ms(lambda: paged_attention_with_stats(q, *k6, lens, table)))
+    # The paged step's own call: a bf16 query, int32 lengths.
+    qb = q.to(bf)
+    results["paged_attention_stats"]["shapes"] = [dict(
+        shape=[n_slots, h, dh], q_dtype="bfloat16", max_abs_err=compare(
+            "paged bf16 out, bf16 q", paged_attention_with_stats(qb, *k6, lens, table)[0],
+            attend_paged_with_stats_xla(qb, *k6, table, lens)[0]),
+        ms=cuda_ms(lambda: paged_attention_with_stats(qb, *k6, lens, table)),
+        host_ms=host_ms(lambda: paged_attention_with_stats(qb, *k6, lens, table)),
+        device_ms=graph_ms(lambda: paged_attention_with_stats(qb, *k6, lens, table)),
+        plain_ms=cuda_ms(lambda: attend_paged_with_stats_xla(qb, *k6, table, lens)),
+        library_ms=None, bound=results["paged_attention_stats"]["bound"])]
+    for r in (results["paged_attention_stats"], *results["paged_attention_stats"]["shapes"]):
+        print(f"[kernel] paged_attention_stats q {'bf16' if 'q_dtype' in r else 'f32'}: kernel "
+              f"{r['ms']:.4f} ms (host enqueue {r['host_ms']:.4f} ms; replayed from a CUDA "
+              f"graph {r['device_ms']:.4f} ms), bound {r['bound'][0]:.4f} ms ({r['bound'][1]})")
     del k6
+    # K6 where its splits meet (256 tokens): lengths on, just under and just
+    # over a boundary, one token, none, a table not a multiple of the split,
+    # G = 8 on pages of 16; twice each, the merge counters reset in between.
+    for hh, hkv, pg, pps, lengths in ((32, 32, 64, 9, [256, 255, 257, 512, 513, 1, 0, 576]),
+                                      (32, 4, 16, 40, [640, 1, 0, 257, 639, 300])):
+        bt, pt = len(lengths), 1 + len(lengths) * pps
+        kv = [torch.randn((hkv, pt, pg, dh), generator=g, device=dev).to(bf)
+              for _ in range(2)]
+        qq = torch.randn((bt, hh, dh), generator=g, device=dev) * dh ** -0.5
+        gen = torch.Generator(device="cpu").manual_seed(pps)
+        perm = torch.randperm(pt - 1, generator=gen) + 1
+        tb = torch.zeros((bt, pps), dtype=torch.int32)
+        for i, n in enumerate(lengths):
+            tb[i, :-(-n // pg)] = perm[i * pps:i * pps + -(-n // pg)]
+        tb, ln = tb.to(dev), torch.tensor(lengths, dtype=torch.int32, device=dev)
+        want = attend_paged_with_stats_xla(qq, *kv, tb, ln)
+        for rep in range(2):
+            got = paged_attention_with_stats(qq, *kv, ln, tb)
+            label = f"paged bf16 G={hh // hkv} page {pg} lengths {lengths} (call {rep + 1})"
+            errs.append(compare(f"{label} m", got[1], want[1], STATS_TOL, STATS_TOL))
+            errs.append(compare(f"{label} l", got[2], want[2], STATS_TOL, STATS_TOL))
+            errs.append(compare(f"{label} out", got[0], want[0],
+                                K6_OUT_TOL * float(want[0].abs().max()), 0.0))
+            zero = ln == 0
+            if got[0][zero].any() or not torch.isneginf(got[1][zero]).all() or got[2][zero].any():
+                raise AssertionError("paged bf16: a zero-length slot is not (0, -inf, 0)")
+    results["paged_attention_stats"]["max_abs_err"] = max(errs)
 
     # K7: bf16 activations by int4 weights (groups of 128) at the LM's shapes.
     # library_ms is the bf16 torch.matmul of x with the dequantised weight:
@@ -1139,6 +1215,32 @@ SOURCES = {  # name -> (source, TPU kernel it replaces)
 }
 
 
+def ptxas_summary(log: str) -> list:
+    """(kernel, registers, spill store + load bytes) of each entry function in
+    nvcc's -Xptxas -v output, names demangled where c++filt is found."""
+    import re
+
+    rows, name, spills = [], None, 0
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '([^']+)'", line)
+        if entry:
+            name, spills = entry.group(1), 0
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spill:
+            spills = int(spill.group(1)) + int(spill.group(2))
+        used = re.search(r"Used (\d+) registers", line)
+        if used and name:
+            rows.append((name, int(used.group(1)), spills))
+            name = None
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(r[0] for r in rows),
+                               capture_output=True, text=True, timeout=60).stdout.split("\n")
+        rows = [(n or r[0], *r[1:]) for r, n in zip(rows, names)]
+    except OSError:
+        pass
+    return list(dict.fromkeys(rows))
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1159,9 +1261,8 @@ def main() -> int:
     lib_path = kb.build()
     kb.kernels()
     print(f"[build] {lib_path.name} ready in {time.perf_counter() - t0:.1f} s")
-    for line in lib_path.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            print(f"[build] {line.strip()}")
+    for name, regs, spills in ptxas_summary(lib_path.with_suffix(".log").read_text()):
+        print(f"[build] ptxas: {name}: {regs} registers, {spills} bytes spilled")
 
     g = torch.Generator(device="cuda").manual_seed(args.seed)
     kernels = kernel_phase(g)
@@ -1205,13 +1306,18 @@ def main() -> int:
                      "bound_by": r["bound"][1], "library_ms": r["library_ms"]})
         if name in ("spatial_attention", "temporal_attention"):
             rows[-1]["encode_launches"] = enc["encode bf16"][name]
+        if "host_ms" in r:
+            rows[-1].update(host_enqueue_ms=r["host_ms"], graph_replay_ms=r["device_ms"])
         if "shapes" in r:  # every further main-path shape, beside the first one's numbers
             rows[-1]["shapes"] = [
                 {"shape": x["shape"], "max_abs_err": x["max_abs_err"], "ms": x["ms"],
                  "plain_ms": x["plain_ms"], "bound_ms": x["bound"][0],
                  "bound_by": x["bound"][1], "library_ms": x["library_ms"],
-                 **({"host_enqueue_ms": x["host_ms"], "graph_replay_ms": x["device_ms"],
-                     "library_graph_replay_ms": x["library_device_ms"]} if "host_ms" in x else {}),
+                 **({"host_enqueue_ms": x["host_ms"], "graph_replay_ms": x["device_ms"]}
+                    if "host_ms" in x else {}),
+                 **({"library_graph_replay_ms": x["library_device_ms"]}
+                    if "library_device_ms" in x else {}),
+                 **({k: x[k] for k in ("layout", "q_dtype") if k in x}),
                  **({"causal": x["causal"]} if "causal" in x else {})} for x in r["shapes"]]
     print(json.dumps({"requests": sliced["stats"] + served["stats"] + quantized["stats"],
                       "speculative": speculated, "weight_gib": quantized["weight_gib"],

@@ -8,8 +8,9 @@ so it also runs where jax is absent:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_kernels.py
 
 Shapes are the main path's: 257 tokens x 16 heads of 64 in the tower,
-(B, 32, 2048, 128) in the LM prefill, the paged decode step's pools at 7B
-(plus small GQA cases). Tolerances: K1-K3 have bf16 outputs (relative step
+(B, 32, 2048, 128) in the LM prefill (and the transposed (B, S, H, Dh)
+views it takes there), the paged decode step's pools at 7B (plus small GQA
+cases and K6's split boundaries). Tolerances: K1-K3 have bf16 outputs (relative step
 2^-8) and f32 sums taken in other orders, atol 1e-2 + rtol 2e-2. K4 and K6
 return f32 statistics (m, l) within 1e-5 and outputs within 2e-3 (K4: one
 int8 step of the probability requantisation) or 1e-4 (K6) of max|out|. K5
@@ -146,6 +147,63 @@ def test_flash_kernel_gives_mean_of_v_on_rows_without_a_valid_key(dev):
                                **TOL)
 
 
+def _key_mask(dev, b, s, kind, seed=0):
+    """(B, Skv) bool key masks: right or left padding, a wholly masked batch
+    row, or random keys (tiles that the mask crosses element by element)."""
+    pos = torch.arange(s, device=dev)[None]
+    if kind == "right":
+        return pos < torch.tensor([s, (2 * s) // 3][:b], device=dev)[:, None]
+    if kind == "left":
+        return pos >= torch.tensor([70, 5][:b], device=dev)[:, None]
+    if kind == "row":
+        return (pos < s) & (torch.arange(b, device=dev)[:, None] != 1)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.rand((b, s), generator=g, device=dev) < 0.5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,s,dh,kind,causal", [
+    (2, 4, 300, 128, "left", True),     # rows before a row's first key take the mean of v
+    (2, 4, 300, 64, "left", False),
+    (2, 4, 300, 64, "row", True),       # a batch row with no valid key, through the epilogue
+    (2, 3, 300, 128, "row", False),
+    (1, 3, 100, 128, "right", True),    # Sq off 64
+    (2, 2, 77, 64, "right", False),     # Sq off 64 at Dh 64
+    (2, 2, 333, 64, "random", True),    # tiles the mask crosses element by element
+    (1, 2, 1, 128, "right", True),      # one query row
+])
+def test_flash_kernel_on_projection_views_matches_plain(dev, b, h, s, dh, kind, causal):
+    """K3 on the transposed (B, S, H, Dh) views the LM hands it: no copy in,
+    the output in the projections' layout, rows without a valid key set in
+    the kernel's epilogue to the mean of v."""
+    q, k, v = (_randn(dev, b, s, h, dh, seed=40 + i).transpose(1, 2) for i in range(3))
+    mask = _key_mask(dev, b, s, kind, seed=s)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, mask, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.stride() == q.stride() and got.transpose(1, 2).is_contiguous()
+    want = flash_attention_reference(q, k, v, mask, causal=causal)
+    torch.testing.assert_close(got.float(), want.float(), **TOL)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_on_projection_views_is_one_launch(dev):
+    """The prefill's call (transposed bf16 views, a bool key mask) launches
+    the kernel and nothing else: no copy, no post-pass."""
+    q, k, v = (_randn(dev, 2, 300, 4, 128, seed=50 + i).transpose(1, 2) for i in range(3))
+    mask = _key_mask(dev, 2, 300, "right")
+    flash_attention(q, k, v, mask, causal=True)  # the build, outside the trace
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        got = flash_attention(q, k, v, mask, causal=True)
+        torch.cuda.synchronize()
+    on_card = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(on_card) == 1 and "flash" in on_card[0], on_card
+    torch.testing.assert_close(
+        got.float(), flash_attention_reference(q, k, v, mask, causal=True).float(), **TOL)
+
+
 def _paged_case(dev, b, lengths, page, pps, p_total, seed):
     """A page table of disjoint random pages (from page 1 on) per slot."""
     g = torch.Generator(device="cpu").manual_seed(seed)
@@ -211,6 +269,86 @@ def test_paged_stats_kernel_matches_plain(dev, h, h_kv, page, pps, lengths):
     torch.cuda.synchronize()
     assert paged_attention_with_stats.launches == before + 1
     _assert_stats_close(got, attend_paged_with_stats_xla(q, k, v, table, lens), 1e-4)
+
+
+def _paged_bf16(dev, h, h_kv, page, pps, lengths, seed, q_dtype=torch.float32):
+    b, p_total = len(lengths), 1 + len(lengths) * pps
+    g = torch.Generator(device=dev).manual_seed(seed)
+    shape = (h_kv, p_total, page, 128)
+    k = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+    v = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+    q = (torch.randn((b, h, 128), generator=g, device=dev) * 128 ** -0.5).to(q_dtype)
+    table, lens = _paged_case(dev, b, lengths, page, pps, p_total, seed=seed + 1)
+    return q, k, v, table, lens
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,h_kv,page,pps,lengths,q_dtype", [
+    # On, just under and just over the 256-token split; one token; none; a
+    # table of 576 tokens, not a multiple of the split.
+    (32, 32, 64, 9, [256, 255, 257, 512, 513, 1, 0, 576], torch.float32),
+    (32, 4, 16, 40, [640, 1, 0, 257, 639, 300], torch.float32),  # G = 8, page 16
+    (16, 16, 64, 7, [448, 447, 0, 256, 1], torch.float32),       # table width 448 tokens
+    (32, 32, 64, 9, [576, 0, 300, 17], torch.bfloat16),          # the paged step's bf16 q
+])
+def test_paged_stats_kernel_split_boundaries(dev, h, h_kv, page, pps, lengths, q_dtype):
+    q, k, v, table, lens = _paged_bf16(dev, h, h_kv, page, pps, lengths, seed=60,
+                                       q_dtype=q_dtype)
+    before = paged_attention_with_stats.launches
+    got = paged_attention_with_stats(q, k, v, lens, table)
+    torch.cuda.synchronize()
+    assert paged_attention_with_stats.launches == before + 1
+    want = attend_paged_with_stats_xla(q, k, v, table, lens)
+    assert got[0].dtype == q_dtype
+    if q_dtype == torch.float32:
+        _assert_stats_close(got, want, 1e-4)
+    else:  # out rounded to bf16 (relative step 2^-8) in both
+        _assert_stats_close((want[0], *got[1:]), want, 1e-4)
+        torch.testing.assert_close(got[0].float(), want[0].float(), **TOL)
+    zero = lens == 0
+    assert not got[0][zero].any() and torch.isneginf(got[1][zero]).all()
+    assert not got[2][zero].any()
+
+
+@pytest.mark.cuda
+def test_paged_stats_kernel_is_one_launch(dev):
+    """The paged step's call (bf16 q, int32 lengths and table): the split
+    attention and the merge of the splits are one kernel, nothing else runs."""
+    q, k, v, table, lens = _paged_bf16(dev, 32, 32, 64, 40, [2560, 0, 1500, 300], seed=80,
+                                       q_dtype=torch.bfloat16)
+    paged_attention_with_stats(q, k, v, lens, table)  # build and scratch, outside the trace
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        got = paged_attention_with_stats(q, k, v, lens, table)
+        torch.cuda.synchronize()
+    on_card = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(on_card) == 1 and "paged_attention_stats" in on_card[0], on_card
+    want = attend_paged_with_stats_xla(q, k, v, table, lens)
+    _assert_stats_close((want[0], *got[1:]), want, 1e-4)
+    torch.testing.assert_close(got[0].float(), want[0].float(), **TOL)
+
+
+@pytest.mark.cuda
+def test_paged_stats_kernel_resets_its_merge_counters(dev):
+    """The block that merges a (slot, kv head) sets its counter back to 0: a
+    repeated call gives the same bits, and a call with other lengths after it
+    is right."""
+    from videollamb_torch.ops import paged_attention_stats as pas
+
+    q, k, v, table, lens = _paged_bf16(dev, 32, 32, 64, 40,
+                                       [2560, 0, 1500, 700, 2047, 1, 256, 999], seed=70)
+    first = paged_attention_with_stats(q, k, v, lens, table)
+    for _ in range(3):
+        again = paged_attention_with_stats(q, k, v, lens, table)
+        for a, b in zip(first, again):
+            assert torch.equal(a, b)
+    torch.cuda.synchronize()
+    assert not pas._SCRATCH[q.device][0].any()
+    lens2 = (lens * 3 // 4).int()
+    _assert_stats_close(paged_attention_with_stats(q, k, v, lens2, table),
+                        attend_paged_with_stats_xla(q, k, v, table, lens2), 1e-4)
+    torch.cuda.synchronize()
+    assert not pas._SCRATCH[q.device][0].any()
 
 
 @pytest.mark.cuda

@@ -1,13 +1,15 @@
 """Kernel K3 (flash attention for the LM prefill): the port's plain version
 against the JAX package's XLA and chunked statements, through the port's
-``multihead_attention`` dispatcher. Kernel K11 (whole-row block attention):
-the port's plain version against the JAX ``block_attention`` run in
-interpret mode. The CUDA kernels are held against the plain versions in
-test_torch_cuda_kernels.py.
+``multihead_attention`` dispatcher, and against the JAX flash kernel itself
+(its ``pl.pallas_call`` run in interpret mode for the test). Kernel K11
+(whole-row block attention): the port's plain version against the JAX
+``block_attention`` run in interpret mode. The CUDA kernels are held
+against the plain versions in test_torch_cuda_kernels.py.
 
-The JAX flash kernel has no interpret flag, so its XLA statement is the
-oracle, on every row: a query row with no valid key gives the mean of v in
-both packages."""
+A query row with no valid key gives the mean of v in the port, as the JAX
+XLA statement gives on every row; the JAX flash kernel gives such a row
+another value (its online softmax starts from a finite -1e30 mask), so it
+is compared on the rows that have a valid key."""
 
 from __future__ import annotations
 
@@ -93,6 +95,47 @@ def test_wrapper_matches_xla_when_a_whole_row_is_masked(causal):
 
 
 
+def _interpret_pallas(monkeypatch):
+    """Run the JAX package's ``pl.pallas_call`` in interpret mode on the CPU
+    (the functions have no interpret flag), the package itself unchanged."""
+    monkeypatch.setattr(jax_fa.pl, "pallas_call",
+                        functools.partial(jax_fa.pl.pallas_call, interpret=True))
+
+
+# The port's f32 statement against the Pallas kernel: 5e-7 apart, F32_TOL.
+# In bf16 both round p before PV, the kernel against its running max per
+# 128-key block, the port against the row's max: 2e-3 to 4e-3 apart, within
+# the card tests' tolerance (bf16 outputs, relative step 2^-8).
+BF16_TOL = dict(rtol=2e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,h,s,dh,lengths,causal", [
+    (2, 2, 300, 32, [300, 173], True),    # three 128-key blocks, ragged right padding
+    (2, 2, 300, 32, [211, 0], False),     # a batch row with no valid key
+    (1, 2, 600, 16, [455], True),         # five key blocks
+    (2, 1, 600, 16, [600, 388], False),
+])
+def test_flash_plain_matches_pallas_interpret(monkeypatch, dtype, b, h, s, dh, lengths, causal):
+    """The online softmax of the JAX kernel crosses several 128-key blocks
+    (``block_q=block_kv=128``); the port's plain statement takes one max per row."""
+    _interpret_pallas(monkeypatch)
+    rng = np.random.default_rng(s + dh + int(causal))
+    q, k, v = (rng.normal(size=(b, h, s, dh)).astype(np.float32) for _ in range(3))
+    mask = np.arange(s)[None] < np.asarray(lengths)[:, None]
+    jd = jnp.dtype(dtype)
+    want = np.asarray(jax_fa.flash_attention(
+        *(jnp.asarray(x, jd) for x in (q, k, v)), jnp.asarray(mask), causal=causal,
+        block_q=128, block_kv=128).astype(jnp.float32))
+    td = getattr(torch, dtype)
+    got = flash_attention_reference(*(torch.from_numpy(x).to(td) for x in (q, k, v)),
+                                    torch.from_numpy(mask), causal=causal).float().numpy()
+    # Rows with a valid key: every row of a batch row with a key (right padding).
+    rows = np.asarray(lengths) > 0
+    tol = F32_TOL if dtype == "float32" else BF16_TOL
+    np.testing.assert_allclose(got[rows], want[rows], **tol)
+
+
 @pytest.mark.parametrize("b,h,sq,skv,dh,causal", [
     (2, 2, 37, 37, 16, True),     # lengths off the 16 / 128 paddings
     (1, 2, 20, 20, 8, False),
@@ -105,8 +148,7 @@ def test_wrapper_matches_xla_when_a_whole_row_is_masked(causal):
 def test_block_plain_matches_pallas_interpret(monkeypatch, b, h, sq, skv, dh, causal):
     """``block_attention`` has no interpret flag: its ``pl.pallas_call`` is run
     in interpret mode for the test, the JAX package itself unchanged."""
-    monkeypatch.setattr(jax_fa.pl, "pallas_call",
-                        functools.partial(jax_fa.pl.pallas_call, interpret=True))
+    _interpret_pallas(monkeypatch)
     rng = np.random.default_rng(sq + skv)
     q = rng.normal(size=(b, h, sq, dh)).astype(np.float32)
     k, v = (rng.normal(size=(b, h, skv, dh)).astype(np.float32) for _ in range(2))

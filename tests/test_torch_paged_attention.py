@@ -8,7 +8,9 @@ dh=128, page 16), with partial pages and zero-length slots.
   max|out|, one int8 step of the probability requantisation, which a 1-ulp
   difference in ``exp`` can flip.
 - K6: ``paged_attention_with_stats`` on CPU tensors (its plain version
-  ``attend_paged_with_stats_xla``) against the JAX XLA statement.
+  ``attend_paged_with_stats_xla``) against the JAX XLA statement, and
+  against the stock Pallas kernel that the JAX ``paged_attention_with_stats``
+  launches, its ``pl.pallas_call`` run in interpret mode for the test.
 - The int8 XLA twins (token-major and shared-pool) against the JAX twins,
   and ``merge_one_token``.
 
@@ -17,6 +19,8 @@ test_torch_cuda_kernels.py.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import pytest
@@ -141,6 +145,27 @@ def test_k6_plain_matches_jax_xla(h_kv):
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), **F32_TOL)
     assert not got[0][0].any() and torch.isneginf(got[1][0]).all() and not got[2][0].any()
+
+
+@pytest.mark.parametrize("h_kv", [8, 2])
+def test_k6_plain_matches_pallas_interpret(monkeypatch, h_kv):
+    """The stock kernel rounds f32 pages to bf16 on the way in, so K and V
+    hold bf16 values (f32 pages would part by 6e-3). G = H / H_kv is 1 and 4;
+    slot 0 has no token, slot 1 fills all of its pages. Two pages a compute
+    block: the kernel's online softmax crosses four blocks of a full slot."""
+    monkeypatch.setattr(jpas.pl, "pallas_call",
+                        functools.partial(jpas.pl.pallas_call, interpret=True))
+    q, k, v, table, lengths, _, _ = _head_major(np.random.default_rng(40 + h_kv), 5, h_kv)
+    k, v = (torch.from_numpy(x).to(torch.bfloat16).float().numpy() for x in (k, v))
+    want = jpas.paged_attention_with_stats(*_j(q, k, v, lengths, table),
+                                           pages_per_compute_block=2)
+    got = pas.paged_attention_with_stats(*_t(q, k, v, lengths, table))
+    out, m, l = (np.asarray(x) for x in want)
+    np.testing.assert_allclose(got[1].numpy(), m, **STATS_TOL)
+    np.testing.assert_allclose(got[2].numpy(), l, **STATS_TOL)
+    np.testing.assert_allclose(got[0].numpy(), out, **F32_TOL)
+    assert lengths[0] == 0 and not got[0][0].any() and torch.isneginf(got[1][0]).all()
+    assert not got[2][0].any()
 
 
 @pytest.mark.parametrize("h_kv", [8, 2])

@@ -2,18 +2,20 @@
 
 Port of ``videollamb_tpu/models/builder.py`` (reference
 llava/model/builder.py:26-195): a model dir with ``config.json`` and
-``pytorch_model*.bin`` shards (LM under ``model.*`` / ``lm_head``, bridge
-under ``model.mm_projector.*``), and a LanguageBind tower dir with its own
-``config.json`` and ``vision_model.*`` weights. Shards are read with
-``torch.load(weights_only=True)``. With ``model_base`` the checkpoint is a
-PEFT LoRA dir (``adapter_config.json``; merged into the base at load, with
-``non_lora_trainables.bin`` on top) or a projector-only dir
-(``mm_projector.bin`` over the base). ``load_8bit`` quantises the LM to
-weight-only int8 after the cast (``models/lm/quant.quantize_llama_params``).
+``*.safetensors`` or ``pytorch_model*.bin`` shards (LM under ``model.*`` /
+``lm_head``, bridge under ``model.mm_projector.*``), and a LanguageBind
+tower dir with its own ``config.json`` and ``vision_model.*`` weights.
+Safetensors shards are preferred, as in the JAX package, and read with
+``safetensors.torch.load_file`` (imported only when a dir holds them);
+``.bin`` shards with ``torch.load(weights_only=True)``. With
+``model_base`` the checkpoint is a PEFT LoRA dir (``adapter_config.json``;
+merged into the base at load, with ``non_lora_trainables.bin`` on top) or a
+projector-only dir (``mm_projector.bin`` over the base). ``load_8bit``
+quantises the LM to weight-only int8 after the cast
+(``models/lm/quant.quantize_llama_params``).
 
-Safetensors shards, the image tower and device-side preprocessing are not
-ported yet. The model loads onto the card unless the caller passes
-``device="cpu"``.
+The image tower and device-side preprocessing are not ported yet. The model
+loads onto the card unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -37,13 +39,24 @@ from videollamb_torch.data.processing import VideoProcessor
 
 
 def load_state_dict(model_dir: str) -> Dict[str, torch.Tensor]:
-    """All tensors of the ``pytorch_model*.bin`` shards in ``model_dir``."""
+    """All tensors of the checkpoint shards in ``model_dir``: the
+    ``*.safetensors`` shards when there are any, else the
+    ``pytorch_model*.bin`` shards. Tensors keep their stored dtype."""
+    sd: Dict[str, torch.Tensor] = {}
+    st_files = sorted(glob.glob(os.path.join(model_dir, "*.safetensors")))
+    if st_files:
+        try:
+            from safetensors.torch import load_file
+        except ImportError as exc:
+            raise ImportError(
+                f"{model_dir} holds *.safetensors shards; reading them needs the "
+                "safetensors package") from exc
+        for f in st_files:
+            sd.update(load_file(f, device="cpu"))
+        return sd
     files = sorted(glob.glob(os.path.join(model_dir, "pytorch_model*.bin")))
     if not files:
-        raise FileNotFoundError(
-            f"no pytorch_model*.bin in {model_dir} (safetensors shards are not "
-            "supported by the port yet)")
-    sd: Dict[str, torch.Tensor] = {}
+        raise FileNotFoundError(f"no *.safetensors or pytorch_model*.bin in {model_dir}")
     for f in files:
         sd.update(torch.load(f, map_location="cpu", weights_only=True))
     return sd

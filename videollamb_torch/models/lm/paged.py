@@ -222,6 +222,7 @@ def paged_decode_step(lm: LlamaForCausalLM, cfg: LlamaConfig, token_embeds: torc
     scale = dh ** -0.5
     kp, vp, kp_s, vp_s = cache.k_pages, cache.v_pages, cache.k_scales, cache.v_scales
     ppb = _pick_ppb(pps, page)
+    lens32 = pos.int() if use_stats_kernel else None  # K6 reads int32 lengths as they lie
 
     fresh = []
     x = token_embeds
@@ -239,7 +240,7 @@ def paged_decode_step(lm: LlamaForCausalLM, cfg: LlamaConfig, token_embeds: torc
                 vp_s[layer_idx])
         elif use_stats_kernel:
             o_old, m_old, l_old = paged_attention_with_stats(
-                q, kp[layer_idx], vp[layer_idx], pos, cache.page_table)
+                q, kp[layer_idx], vp[layer_idx], lens32, cache.page_table)
         else:
             o_old, m_old, l_old = attend_paged_with_stats_xla(
                 q, kp[layer_idx], vp[layer_idx], cache.page_table, pos)

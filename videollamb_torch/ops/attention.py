@@ -39,6 +39,8 @@ def multihead_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if hkv != h:
             k = k.repeat_interleave(h // hkv, dim=2)
             v = v.repeat_interleave(h // hkv, dim=2)
+        # The kernel reads the transposed views as they lie and writes out with
+        # q's strides, so the transpose back is the dense (B, Sq, H, Dh).
         out = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                               k_mask, causal=causal, scale=scale)
         return out.transpose(1, 2)

@@ -14,14 +14,16 @@ caller (``ops/attention.py``).
 A query row with no valid key (no key both valid in ``k_mask`` and
 causally visible) gives the mean of v over all Skv keys, as the JAX
 package's ``_xla_attention`` does: its finite -1e30 mask makes such a row's
-softmax uniform. Inside the kernel masked keys contribute exactly nothing
-(``l == 0 -> 0``); :func:`_fill_rows_without_keys` sets those rows
-afterwards, a cheap pass that both versions share. Right-padded prefill
-has no such row.
+softmax uniform. The kernel writes that mean in its epilogue (rows with
+l == 0); the plain version sets those rows with
+:func:`_fill_rows_without_keys`. Right-padded prefill has no such row.
 
-On the H100 the op is bound by tensor-core throughput at the prefill shape
-(1, 32, 2048, 128); the kernel skips key tiles above the causal diagonal
-and keeps its online softmax in f32.
+The kernel takes q / out and k / v with any element strides whose last
+dimension is dense and whose rows are 16-byte aligned, so the transposed
+(B, S, H, Dh) -> (B, H, S, Dh) views of the LM's projections go in without
+a copy, and ``out`` is allocated with q's strides: its transpose back is
+the dense (B, S, H, Dh) the output projection reads. A bool or uint8 key
+mask is read as it is. On the prefill path a call is one launch.
 
 :func:`block_attention` (K11) ports the JAX package's ``block_attention``:
 all keys at once (no online softmax), causal from position 0 even when
@@ -91,37 +93,65 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _fill_rows_without_keys(out.to(q.dtype), v, k_mask, causal)
 
 
+def _strides(x: torch.Tensor):
+    """Element strides of the three leading dims; 0 for a dim of size 1."""
+    return [st if n > 1 else 0 for n, st in zip(x.shape[:-1], x.stride()[:-1])]
+
+
+def _kernel_layout(x: torch.Tensor) -> bool:
+    """Whether the kernels take ``x`` as it lies: dense last dim, 16-byte rows."""
+    return (x.stride(-1) == 1 and x.data_ptr() % 16 == 0
+            and all(st % 8 == 0 for st in _strides(x)))
+
+
+def _scaled(q: torch.Tensor, scale: float):
+    """(q, scale) with scale > 0 giving the same scores: the kernels fold the
+    scale into exp2 and take the max of the unscaled scores."""
+    if scale < 0:  # (-q . k) = -(q . k)
+        return -q, -scale
+    if scale == 0:  # every visible key weighs the same, as with zero scores
+        return torch.zeros_like(q), 1.0
+    return q, scale
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     k_mask: Optional[torch.Tensor] = None, *, causal: bool = False,
                     scale: Optional[float] = None) -> torch.Tensor:
-    """Flash attention forward: (B, H, Sq, Dh) q, (B, H, Skv, Dh) k/v."""
+    """Flash attention forward: (B, H, Sq, Dh) q, (B, H, Skv, Dh) k/v, any
+    strides; returns (B, H, Sq, Dh) with q's strides."""
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, k_mask, causal=causal, scale=scale)
     b, h, sq, dh = q.shape
     skv = k.shape[2]
     if (q.device.type != "cuda" or q.dtype != torch.bfloat16 or dh not in (64, 128)
-            or k.dtype != q.dtype or v.dtype != q.dtype
+            or k.dtype != q.dtype or v.dtype != q.dtype or sq < 1 or skv < 1
             or k.shape != (b, h, skv, dh) or v.shape != k.shape):
         raise ValueError(
             "flash attention kernel takes bf16 CUDA (B, H, S, 64|128) q/k/v with "
             f"equal heads; got q {q.dtype} {tuple(q.shape)}, k {tuple(k.shape)}, "
             f"v {tuple(v.shape)} on {q.device}")
     kb.refuse_grad("flash_attention", q, k, v, route=_NO_GRAD_ATTENTION)
-    if scale is None:
-        scale = 1.0 / math.sqrt(dh)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, scale = _scaled(q, 1.0 / math.sqrt(dh) if scale is None else scale)
+    out = torch.empty_like(q)  # a dense q's strides, which the kernel gives out too
+    if not _kernel_layout(q) or _strides(out) != _strides(q):
+        q = q.contiguous()
+        out = torch.empty_like(q)
+    if not (_kernel_layout(k) and _kernel_layout(v) and _strides(k) == _strides(v)):
+        k, v = k.contiguous(), v.contiguous()
     mask = None
     if k_mask is not None:
         if k_mask.shape != (b, skv):
             raise ValueError(f"k_mask must be (B, Skv)={(b, skv)}, got {tuple(k_mask.shape)}")
-        mask = k_mask.to(device=q.device, dtype=torch.uint8).contiguous()
-    out = torch.empty_like(q)
+        mask = k_mask.to(q.device)
+        if mask.dtype not in (torch.bool, torch.uint8):
+            mask = mask != 0
+        mask = mask.contiguous()
     kb.check(kb.kernels().flash_attention_bf16(
         kb.ptr(q), kb.ptr(k), kb.ptr(v), kb.ptr(mask) if mask is not None else None,
-        kb.ptr(out), b, h, sq, skv, dh, float(scale), int(causal),
-        kb.current_stream(q.device)), "flash_attention_bf16")
+        kb.ptr(out), b, h, sq, skv, dh, float(scale), int(causal), *_strides(q),
+        *_strides(k), kb.current_stream(q.device)), "flash_attention_bf16")
     flash_attention.launches += 1
-    return _fill_rows_without_keys(out, v, mask, causal)
+    return out
 
 
 flash_attention.launches = 0
@@ -159,12 +189,7 @@ def block_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             f"Sq, Skv >= 1; got q {q.dtype} {tuple(q.shape)}, k {tuple(k.shape)}, "
             f"v {tuple(v.shape)} on {q.device}")
     kb.refuse_grad("block_attention", q, k, v, route=_NO_GRAD_ATTENTION)
-    if scale is None:
-        scale = 1.0 / math.sqrt(dh)
-    if scale < 0:  # the kernel takes the max of the unscaled scores: (-q . k) = -(q . k)
-        q, scale = -q, -scale
-    elif scale == 0:  # every visible key weighs the same, as with zero scores
-        q, scale = torch.zeros_like(q), 1.0
+    q, scale = _scaled(q, 1.0 / math.sqrt(dh) if scale is None else scale)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
     kb.check(kb.kernels().block_attention_bf16(

@@ -10,7 +10,12 @@ out = 0, m = -inf, l = 0.
 
 - :func:`paged_attention_with_stats` launches ``csrc/paged_attention_stats.cu``
   on a CUDA tensor (bf16 head-major pages) and runs its plain version,
-  :func:`attend_paged_with_stats_xla`, on a CPU tensor.
+  :func:`attend_paged_with_stats_xla`, on a CPU tensor. The kernel splits
+  each slot's tokens into blocks of :data:`SPLIT_TOKENS` (whole pages) and
+  merges the splits in the same launch; its merge scratch (a counter per
+  (slot, kv head) and the splits' partial results) is allocated once per
+  device and grown when a call needs more. Calls that share a device run
+  on one stream, as the paged decode step's do.
 - :func:`attend_paged_with_stats_xla` is the gather statement (the JAX
   package's XLA twin; its int8 form is not ported: int8 pools are
   token-major and go through the next function).
@@ -31,6 +36,26 @@ from videollamb_torch.ops.quantization import MAX_INT8, exact_div, round_to_int8
 Stats = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 
+SPLIT_TOKENS = 256  # tokens a block of the kernel attends over, rounded to whole pages
+_SCRATCH = {}  # device -> (counters, partials) of the kernel's merge
+
+
+def _split_tokens(page: int) -> int:
+    return max(1, SPLIT_TOKENS // page) * page
+
+
+def _merge_scratch(device: torch.device, n_counters: int, n_partials: int):
+    """The kernel's zeroed counters (the kernel leaves them zero) and its
+    partials' buffer on ``device``, reallocated only to grow."""
+    counters, partials = _SCRATCH.get(device, (None, None))
+    if counters is None or counters.numel() < n_counters:
+        counters = torch.zeros(n_counters, dtype=torch.int32, device=device)
+    if partials is None or partials.numel() < n_partials:
+        partials = torch.empty(n_partials, dtype=torch.float32, device=device)
+    _SCRATCH[device] = (counters, partials)
+    return counters, partials
+
+
 def paged_attention_with_stats(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
                                lengths: torch.Tensor, page_indices: torch.Tensor) -> Stats:
     """q (B, H, Dh) pre-scaled; pages (H_kv, P, page, Dh); lengths (B,);
@@ -41,26 +66,32 @@ def paged_attention_with_stats(q: torch.Tensor, k_pages: torch.Tensor, v_pages: 
     h_kv, p_total, page, _ = k_pages.shape
     pps = page_indices.shape[1]
     if (q.device.type != "cuda" or dh != 128 or h % h_kv or h // h_kv > 8
+            or q.dtype not in (torch.float32, torch.bfloat16)
             or k_pages.dtype != torch.bfloat16 or v_pages.dtype != torch.bfloat16
             or v_pages.shape != k_pages.shape or k_pages.shape[3] != dh):
         raise ValueError(
-            "paged attention kernel takes CUDA q (B, H, 128) and bf16 (H_kv, P, page, 128) "
-            f"pages with H / H_kv <= 8; got q {q.dtype} {tuple(q.shape)}, pages "
-            f"{k_pages.dtype} {tuple(k_pages.shape)} on {q.device}")
+            "paged attention kernel takes CUDA f32 or bf16 q (B, H, 128) and bf16 "
+            "(H_kv, P, page, 128) pages with H / H_kv <= 8; got q "
+            f"{q.dtype} {tuple(q.shape)}, pages {k_pages.dtype} {tuple(k_pages.shape)} "
+            f"on {q.device}")
     kb.refuse_grad("paged_attention_with_stats", q, k_pages, v_pages)
-    qf = q.float().contiguous()
+    q = q.contiguous()
     k_pages, v_pages = k_pages.contiguous(), v_pages.contiguous()
     table = page_indices.to(torch.int32).contiguous()
     lens = lengths.to(torch.int32).contiguous()
-    out = torch.empty((b, h, dh), dtype=torch.float32, device=q.device)
+    split = _split_tokens(page)
+    splits = -(-pps * page // split)
+    counters, partials = _merge_scratch(q.device, b * h_kv, b * h * splits * (dh + 2))
+    out = torch.empty_like(q)
     m = torch.empty((b, h), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
-    kb.check(kb.kernels().paged_attention_stats_bf16(
-        kb.ptr(qf), kb.ptr(k_pages), kb.ptr(v_pages), kb.ptr(table), kb.ptr(lens),
-        kb.ptr(out), kb.ptr(m), kb.ptr(l), b, h, h_kv, p_total, pps, page,
-        kb.current_stream(q.device)), "paged_attention_stats_bf16")
+    kb.check(kb.kernels().paged_attention_stats(
+        kb.ptr(q), int(q.dtype == torch.bfloat16), kb.ptr(k_pages), kb.ptr(v_pages),
+        kb.ptr(table), kb.ptr(lens), kb.ptr(out), kb.ptr(m), kb.ptr(l), kb.ptr(partials),
+        kb.ptr(counters), b, h, h_kv, p_total, pps, page, split,
+        kb.current_stream(q.device)), "paged_attention_stats")
     paged_attention_with_stats.launches += 1
-    return out.to(q.dtype), m, l
+    return out, m, l
 
 
 paged_attention_with_stats.launches = 0

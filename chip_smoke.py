@@ -471,8 +471,8 @@ def kernel_phase(g: torch.Generator) -> dict:
         bound=bound(tokens * h * dh * 2 * 2 + 2 * q.numel() * 4 + 2 * n_slots * h * 4
                     + table.numel() * 4, 4 * tokens * h * dh, "bf16"))
     # Its event time can be the host's enqueue time: also the enqueue alone,
-    # and the device time of calls replayed from a CUDA graph (the merge
-    # counters are reset by each launch, so a replay starts from zero).
+    # and the device time of calls replayed from a CUDA graph (each captured
+    # call zeroes merge counters of its own: a memset node beside the kernel).
     results["paged_attention_stats"].update(
         host_ms=host_ms(lambda: paged_attention_with_stats(q, *k6, lens, table)),
         device_ms=graph_ms(lambda: paged_attention_with_stats(q, *k6, lens, table)))
@@ -494,8 +494,10 @@ def kernel_phase(g: torch.Generator) -> dict:
     del k6
     # K6 where its splits meet (256 tokens): lengths on, just under and just
     # over a boundary, one token, none, a table not a multiple of the split,
-    # G = 8 on pages of 16; twice each, the merge counters reset in between.
-    for hh, hkv, pg, pps, lengths in ((32, 32, 64, 9, [256, 255, 257, 512, 513, 1, 0, 576]),
+    # G = 8 on pages of 16; lengths past the table's 576 tokens, which count
+    # as 576; twice each, the merge counters reset in between.
+    for hh, hkv, pg, pps, lengths in ((32, 32, 64, 9, [700, 576, 5000, 300]),
+                                      (32, 32, 64, 9, [256, 255, 257, 512, 513, 1, 0, 576]),
                                       (32, 4, 16, 40, [640, 1, 0, 257, 639, 300])):
         bt, pt = len(lengths), 1 + len(lengths) * pps
         kv = [torch.randn((hkv, pt, pg, dh), generator=g, device=dev).to(bf)
@@ -505,7 +507,8 @@ def kernel_phase(g: torch.Generator) -> dict:
         perm = torch.randperm(pt - 1, generator=gen) + 1
         tb = torch.zeros((bt, pps), dtype=torch.int32)
         for i, n in enumerate(lengths):
-            tb[i, :-(-n // pg)] = perm[i * pps:i * pps + -(-n // pg)]
+            used = min(-(-n // pg), pps)
+            tb[i, :used] = perm[i * pps:i * pps + used]
         tb, ln = tb.to(dev), torch.tensor(lengths, dtype=torch.int32, device=dev)
         want = attend_paged_with_stats_xla(qq, *kv, tb, ln)
         for rep in range(2):

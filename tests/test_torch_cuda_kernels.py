@@ -211,7 +211,7 @@ def _paged_case(dev, b, lengths, page, pps, p_total, seed):
     table = torch.zeros((b, pps), dtype=torch.int32)
     nxt = 0
     for i, n in enumerate(lengths):
-        used = -(-n // page)
+        used = min(-(-n // page), pps)
         table[i, :used] = perm[nxt:nxt + used]
         nxt += used
     return table.to(dev), torch.tensor(lengths, dtype=torch.int32, device=dev)
@@ -332,8 +332,14 @@ def test_paged_stats_kernel_is_one_launch(dev):
 def test_paged_stats_kernel_resets_its_merge_counters(dev):
     """The block that merges a (slot, kv head) sets its counter back to 0: a
     repeated call gives the same bits, and a call with other lengths after it
-    is right."""
+    is right. A length past the table's width (pps x page) counts as the
+    width, as in the plain version, and leaves the counters at 0 too."""
     from videollamb_torch.ops import paged_attention_stats as pas
+
+    def counters_are_zero():
+        torch.cuda.synchronize()
+        key = (q.device, torch.cuda.current_stream(q.device).cuda_stream)
+        return not pas._COUNTERS[key].any()
 
     q, k, v, table, lens = _paged_bf16(dev, 32, 32, 64, 40,
                                        [2560, 0, 1500, 700, 2047, 1, 256, 999], seed=70)
@@ -342,13 +348,13 @@ def test_paged_stats_kernel_resets_its_merge_counters(dev):
         again = paged_attention_with_stats(q, k, v, lens, table)
         for a, b in zip(first, again):
             assert torch.equal(a, b)
-    torch.cuda.synchronize()
-    assert not pas._SCRATCH[q.device][0].any()
-    lens2 = (lens * 3 // 4).int()
-    _assert_stats_close(paged_attention_with_stats(q, k, v, lens2, table),
-                        attend_paged_with_stats_xla(q, k, v, table, lens2), 1e-4)
-    torch.cuda.synchronize()
-    assert not pas._SCRATCH[q.device][0].any()
+    assert counters_are_zero()
+    over = lens.clone()
+    over[0], over[3] = 2560 + 300, 9000  # the table holds 40 x 64 = 2560 tokens
+    for lens2 in (over, (lens * 3 // 4).int(), lens):
+        _assert_stats_close(paged_attention_with_stats(q, k, v, lens2, table),
+                            attend_paged_with_stats_xla(q, k, v, table, lens2), 1e-4)
+        assert counters_are_zero()
 
 
 @pytest.mark.cuda

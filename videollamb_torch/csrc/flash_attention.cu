@@ -36,12 +36,9 @@
 // keys or a partial mask crosses, keys are masked element by element.
 // Causal row blocks with the most keys start first.
 //
-// Measured on the H100 at the prefill shape by scripts/tune_torch_attention.py
-// (PERF.md, PR 6): this kernel 0.145 ms; the same design with mma.sync on
-// ldmatrix operands (scripts/flash_attention_mma_sync.cu) 0.156 ms, spilling
-// at its 168-register cap. Computing the scores of tile i + 1 during the
-// softmax of tile i (FlashAttention-3's overlap inside a warpgroup) was
-// tried and was not faster.
+// A variant with warp-level mma.sync on ldmatrix operands in place of wgmma
+// was slower on the H100 at the prefill shape and spilled at its register
+// cap (PERF.md, K3's entry).
 //
 // Layouts come as element strides (batch, head, row) of q / out and of k / v,
 // so the (B, S, H, Dh) projections of the LM go through as transposed views,

@@ -34,11 +34,12 @@
 // split's partial and the last block of the (slot, kv head) to arrive merges
 // them (split_merge.cuh), so a call is one launch.
 //
-// Measured on the H100 at 8 slots of Vicuna-7B by
-// scripts/tune_torch_attention.py (PERF.md, PR 6): splits of 64 / 128 / 256 /
-// 512 tokens took 0.099 / 0.078 / 0.072 / 0.071 ms; the wrapper takes 256
-// (SPLIT_TOKENS in ops/paged_attention_stats.py). Rings of 3 or 6 stages and
-// 16-token tiles were tried and were no faster than four stages of 8 tokens.
+// The split is chosen by the wrapper (ops/paged_attention_stats.py); PERF.md
+// records the splits timed on the H100.
+//
+// A length past the table's width (pps x page) is cut to it, as in the plain
+// version, so at most `splits` blocks of a (slot, kv head) are live and each
+// launch brings its counters back to zero.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -118,7 +119,7 @@ paged_attention_stats_kernel(const Params p) {
   const int kh = blockIdx.x, b = blockIdx.y, sp = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int half = lane >> 4, c = lane & 15;  // token parity, 16-byte column chunk
-  const int len = max(p.lengths[b], 0);
+  const int len = min(max(p.lengths[b], 0), p.pps * p.page);
   const long long row0 = static_cast<long long>(b) * p.h + kh * G;  // first query head
   T* out = static_cast<T*>(p.out);
   if (len == 0) {

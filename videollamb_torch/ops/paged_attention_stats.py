@@ -12,10 +12,9 @@ out = 0, m = -inf, l = 0.
   on a CUDA tensor (bf16 head-major pages) and runs its plain version,
   :func:`attend_paged_with_stats_xla`, on a CPU tensor. The kernel splits
   each slot's tokens into blocks of :data:`SPLIT_TOKENS` (whole pages) and
-  merges the splits in the same launch; its merge scratch (a counter per
-  (slot, kv head) and the splits' partial results) is allocated once per
-  device and grown when a call needs more. Calls that share a device run
-  on one stream, as the paged decode step's do.
+  merges the splits in the same launch (see :func:`_merge_counters` for the
+  counters that merge rests on). Lengths past the table's width count as
+  its width, as in the plain version.
 - :func:`attend_paged_with_stats_xla` is the gather statement (the JAX
   package's XLA twin; its int8 form is not ported: int8 pools are
   token-major and go through the next function).
@@ -37,23 +36,31 @@ Stats = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 
 SPLIT_TOKENS = 256  # tokens a block of the kernel attends over, rounded to whole pages
-_SCRATCH = {}  # device -> (counters, partials) of the kernel's merge
+_COUNTERS = {}  # (device, stream handle) -> the kernel's merge counters
 
 
 def _split_tokens(page: int) -> int:
     return max(1, SPLIT_TOKENS // page) * page
 
 
-def _merge_scratch(device: torch.device, n_counters: int, n_partials: int):
-    """The kernel's zeroed counters (the kernel leaves them zero) and its
-    partials' buffer on ``device``, reallocated only to grow."""
-    counters, partials = _SCRATCH.get(device, (None, None))
-    if counters is None or counters.numel() < n_counters:
-        counters = torch.zeros(n_counters, dtype=torch.int32, device=device)
-    if partials is None or partials.numel() < n_partials:
-        partials = torch.empty(n_partials, dtype=torch.float32, device=device)
-    _SCRATCH[device] = (counters, partials)
-    return counters, partials
+def _merge_counters(device: torch.device, n: int) -> torch.Tensor:
+    """``n`` int32 counters, zero, for the kernel's merge: one per (slot, kv
+    head). The last block of a (slot, kv head) to arrive sets its counter
+    back to zero, so every launch leaves them as it found them (a launch
+    that faults ends the CUDA context, counters and all).
+
+    Calls on one stream run in order and share one buffer, kept from call to
+    call so that a call is one launch; calls on another stream get their
+    own. A call captured into a CUDA graph gets counters of its own,
+    zeroed by a memset node of the graph, from the graph's memory pool, so
+    no later call can free or share them under the graph."""
+    if torch.cuda.is_current_stream_capturing():
+        return torch.zeros(n, dtype=torch.int32, device=device)
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    counters = _COUNTERS.get(key)
+    if counters is None or counters.numel() < n:
+        counters = _COUNTERS[key] = torch.zeros(n, dtype=torch.int32, device=device)
+    return counters
 
 
 def paged_attention_with_stats(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
@@ -81,7 +88,8 @@ def paged_attention_with_stats(q: torch.Tensor, k_pages: torch.Tensor, v_pages: 
     lens = lengths.to(torch.int32).contiguous()
     split = _split_tokens(page)
     splits = -(-pps * page // split)
-    counters, partials = _merge_scratch(q.device, b * h_kv, b * h * splits * (dh + 2))
+    counters = _merge_counters(q.device, b * h_kv)
+    partials = torch.empty(b * h * splits * (dh + 2), dtype=torch.float32, device=q.device)
     out = torch.empty_like(q)
     m = torch.empty((b, h), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)

@@ -12,7 +12,10 @@
    ``multihead_attention`` on the (B, S, H, Dh) projections the prefill
    hands it, beside SDPA on the same views; K6 also with the paged step's
    bf16 query, at the lengths where its 256-token key splits meet, twice
-   each, with its host enqueue and CUDA-graph replay times. The build's
+   each, with its host enqueue and CUDA-graph replay times; K4 with its host
+   enqueue and CUDA-graph replay times, also at one slot of 1191 tokens, and
+   with lengths past the table's width followed by normal calls; K5's
+   CUDA-graph replay time. The build's
    ``ptxas`` registers and spills are echoed, one line per kernel.
 1a. The tower's encode-throughput path (``encoder_phase``): ViT-L/14 at
    full width and depth (23 layers run, seeded random bf16 weights) encodes
@@ -417,14 +420,61 @@ def kernel_phase(g: torch.Generator) -> dict:
             compare("gathered int8 l", got[2], want[2], STATS_TOL, STATS_TOL),
             compare("gathered int8 out (8, 32, 128), ragged to 2500 tokens", got[0], want[0],
                     K4_OUT_TOL * float(want[0].abs().max()), 0.0)]
+    k4_bytes = lambda n_tok, n_slots: (n_tok * (2 * kd + 2 * h * 4) + 2 * n_slots * h * dh * 4
+                                       + 2 * n_slots * h * 4 + n_slots * PPS * 4)
     results["gathered_paged_attention"] = dict(
         max_abs_err=max(errs),
         ms=cuda_ms(lambda: gathered_paged_attention_int8(*args, pages_per_block=ppb)),
         plain_ms=cuda_ms(lambda: gathered_paged_attention_int8_reference(
             *args, pages_per_block=ppb)),
         library_ms=None,
-        bound=bound(tokens * (2 * kd + 2 * h * 4) + 2 * q.numel() * 4 + 2 * n_slots * h * 4
-                    + table.numel() * 4, 4 * tokens * h * dh, "int8"))
+        bound=bound(k4_bytes(tokens, n_slots), 4 * tokens * h * dh, "int8"),
+        # The enqueue alone, and the device time of calls replayed from a CUDA
+        # graph (each captured call zeroes merge counters of its own).
+        host_ms=host_ms(lambda: gathered_paged_attention_int8(*args, pages_per_block=ppb)),
+        device_ms=graph_ms(lambda: gathered_paged_attention_int8(*args, pages_per_block=ppb)))
+    # One slot of 1191 tokens (a 16-frame request after admission): three
+    # live blocks a kv head, 96 in all.
+    t1, l1 = _paged_table([1191], seed=6)
+    a1 = (q[:1], pools[0][layer], pools[1][layer], t1, l1, *scales)
+    got = gathered_paged_attention_int8(*a1, pages_per_block=ppb)
+    want = gathered_paged_attention_int8_reference(*a1, pages_per_block=ppb)
+    errs = [compare("gathered int8 m, one slot of 1191", got[1], want[1], STATS_TOL, STATS_TOL),
+            compare("gathered int8 l, one slot of 1191", got[2], want[2], STATS_TOL, STATS_TOL),
+            compare("gathered int8 out (1, 32, 128), 1191 tokens", got[0], want[0],
+                    K4_OUT_TOL * float(want[0].abs().max()), 0.0)]
+    results["gathered_paged_attention"]["shapes"] = [dict(
+        shape=[1, h, dh], lengths=[1191], max_abs_err=max(errs),
+        ms=cuda_ms(lambda: gathered_paged_attention_int8(*a1, pages_per_block=ppb)),
+        plain_ms=cuda_ms(lambda: gathered_paged_attention_int8_reference(
+            *a1, pages_per_block=ppb)),
+        library_ms=None, bound=bound(k4_bytes(1191, 1), 4 * 1191 * h * dh, "int8"),
+        host_ms=host_ms(lambda: gathered_paged_attention_int8(*a1, pages_per_block=ppb)),
+        device_ms=graph_ms(lambda: gathered_paged_attention_int8(*a1, pages_per_block=ppb)))]
+    # Lengths past the table's width (40 x 64 = 2560 tokens) count as the
+    # width; the merge counters come back to 0, so normal calls after them
+    # stay right, twice each.
+    over = lens.clone()
+    over[1], over[6] = PPS * PAGE + 77, 10 ** 6
+    for label, lengths in (("past the table's width", over), ("normal", lens),
+                           ("normal, again", lens)):
+        la = (q, pools[0][layer], pools[1][layer], table, lengths, *scales)
+        got = gathered_paged_attention_int8(*la, pages_per_block=ppb)
+        want = gathered_paged_attention_int8_reference(*la, pages_per_block=ppb)
+        errs.append(compare(f"gathered int8 m, lengths {label}", got[1], want[1], STATS_TOL,
+                            STATS_TOL))
+        errs.append(compare(f"gathered int8 l, lengths {label}", got[2], want[2], STATS_TOL,
+                            STATS_TOL))
+        errs.append(compare(f"gathered int8 out, lengths {label}", got[0], want[0],
+                            K4_OUT_TOL * float(want[0].abs().max()), 0.0))
+    results["gathered_paged_attention"]["max_abs_err"] = max(
+        results["gathered_paged_attention"]["max_abs_err"], *errs)
+    for r in (results["gathered_paged_attention"],
+              *results["gathered_paged_attention"]["shapes"]):
+        print(f"[kernel] gathered_paged_attention lengths {r.get('lengths', PAGED_LENGTHS)}: "
+              f"kernel {r['ms']:.4f} ms (host enqueue {r['host_ms']:.4f} ms; replayed from a "
+              f"CUDA graph {r['device_ms']:.4f} ms), bound {r['bound'][0]:.4f} ms "
+              f"({r['bound'][1]})")
 
     # K5: install 8 slots' rows of all 32 layers; two slots on the trash page.
     fresh = [torch.randint(-128, 128, (layers, n_slots, kd), generator=g, device=dev,
@@ -451,7 +501,13 @@ def kernel_phase(g: torch.Generator) -> dict:
         ms=cuda_ms(lambda: paged_fresh_write(*pools, *fresh, write_page, write_off)),
         plain_ms=cuda_ms(lambda: paged_fresh_write_xla(*pools, *fresh, write_page, write_off)),
         library_ms=cuda_ms(library_write),
-        bound=bound(4 * layers * n_slots * kd + 2 * n_slots * 4, 0, "int8"))
+        bound=bound(4 * layers * n_slots * kd + 2 * n_slots * 4, 0, "int8"),
+        host_ms=host_ms(lambda: paged_fresh_write(*pools, *fresh, write_page, write_off)),
+        device_ms=graph_ms(lambda: paged_fresh_write(*pools, *fresh, write_page, write_off)))
+    r = results["paged_fresh_write"]
+    print(f"[kernel] paged_fresh_write: kernel {r['ms']:.4f} ms (host enqueue "
+          f"{r['host_ms']:.4f} ms; replayed from a CUDA graph {r['device_ms']:.4f} ms), bound "
+          f"{r['bound'][0]:.4f} ms ({r['bound'][1]})")
     del pools, flat, fresh
 
     # K6: one layer of the bf16 head-major pool.
@@ -1320,7 +1376,7 @@ def main() -> int:
                     if "host_ms" in x else {}),
                  **({"library_graph_replay_ms": x["library_device_ms"]}
                     if "library_device_ms" in x else {}),
-                 **({k: x[k] for k in ("layout", "q_dtype") if k in x}),
+                 **({k: x[k] for k in ("layout", "q_dtype", "lengths") if k in x}),
                  **({"causal": x["causal"]} if "causal" in x else {})} for x in r["shapes"]]
     print(json.dumps({"requests": sliced["stats"] + served["stats"] + quantized["stats"],
                       "speculative": speculated, "weight_gib": quantized["weight_gib"],

@@ -10,7 +10,9 @@ so it also runs where jax is absent:
 Shapes are the main path's: 257 tokens x 16 heads of 64 in the tower,
 (B, 32, 2048, 128) in the LM prefill (and the transposed (B, S, H, Dh)
 views it takes there), the paged decode step's pools at 7B (plus small GQA
-cases and K6's split boundaries). Tolerances: K1-K3 have bf16 outputs (relative step
+cases up to 8 query heads a kv head, K6's split boundaries, and K4's and
+K6's merge counters over repeated calls, lengths past the table's width and
+CUDA-graph replay). Tolerances: K1-K3 have bf16 outputs (relative step
 2^-8) and f32 sums taken in other orders, atol 1e-2 + rtol 2e-2. K4 and K6
 return f32 statistics (m, l) within 1e-5 and outputs within 2e-3 (K4: one
 int8 step of the probability requantisation) or 1e-4 (K6) of max|out|. K5
@@ -49,6 +51,7 @@ from videollamb_torch.ops.paged_attention_stats import (
     attend_paged_with_stats_xla,
     paged_attention_with_stats,
 )
+from videollamb_torch.ops import split_merge
 from videollamb_torch.ops.paged_fresh_write import paged_fresh_write, paged_fresh_write_xla
 from videollamb_torch.ops.spatial_attention import (
     fused_spatial_core,
@@ -225,21 +228,27 @@ def _assert_stats_close(got, want, out_tol):
     torch.testing.assert_close(out, w_out, rtol=0, atol=out_tol * float(w_out.abs().max()))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("h,h_kv,page,pps,ppb,lengths", [
-    (32, 32, 64, 40, 8, [0, 300, 517, 1024, 1500, 2047, 2560, 1777]),  # 7B serving shape
-    (8, 2, 16, 8, 2, [5, 0, 128, 77]),                                  # GQA, small pages
-])
-def test_gathered_int8_kernel_matches_plain(dev, h, h_kv, page, pps, ppb, lengths):
+def _gathered_case(dev, h, h_kv, page, pps, lengths, seed):
     b, p_total = len(lengths), 1 + len(lengths) * pps
-    g = torch.Generator(device=dev).manual_seed(11)
+    g = torch.Generator(device=dev).manual_seed(seed)
     kd = h_kv * 128
     k = torch.randint(-128, 128, (p_total, page, kd), generator=g, device=dev, dtype=torch.int8)
     v = torch.randint(-128, 128, (p_total, page, kd), generator=g, device=dev, dtype=torch.int8)
     ks = torch.rand((p_total, page, h_kv), generator=g, device=dev) + 0.05
     vs = torch.rand((p_total, page, h_kv), generator=g, device=dev) + 0.05
     q = torch.randn((b, h, 128), generator=g, device=dev) * 128 ** -0.5
-    table, lens = _paged_case(dev, b, lengths, page, pps, p_total, seed=12)
+    table, lens = _paged_case(dev, b, lengths, page, pps, p_total, seed=seed + 1)
+    return q, k, v, table, lens, ks, vs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,h_kv,page,pps,ppb,lengths", [
+    (32, 32, 64, 40, 8, [0, 300, 517, 1024, 1500, 2047, 2560, 1777]),  # 7B serving shape
+    (8, 2, 16, 8, 2, [5, 0, 128, 77]),                                  # GQA, small pages
+    (8, 1, 16, 8, 2, [5, 0, 128, 77, 33]),                              # G = 8
+])
+def test_gathered_int8_kernel_matches_plain(dev, h, h_kv, page, pps, ppb, lengths):
+    q, k, v, table, lens, ks, vs = _gathered_case(dev, h, h_kv, page, pps, lengths, seed=11)
     before = gathered_paged_attention_int8.launches
     got = gathered_paged_attention_int8(q, k, v, table, lens, ks, vs, pages_per_block=ppb)
     torch.cuda.synchronize()
@@ -249,6 +258,89 @@ def test_gathered_int8_kernel_matches_plain(dev, h, h_kv, page, pps, ppb, length
     _assert_stats_close(got, want, 2e-3)
     zero = lens == 0
     assert not got[0][zero].any() and torch.isneginf(got[1][zero]).all()
+    assert not got[2][zero].any()
+
+
+@pytest.mark.cuda
+def test_gathered_int8_kernel_is_one_launch(dev):
+    """The paged step's call: the blocks of every slot and their merge are
+    one kernel, nothing else runs on the card."""
+    q, k, v, table, lens, ks, vs = _gathered_case(dev, 32, 32, 64, 40, [2560, 0, 1500, 300],
+                                                  seed=81)
+    call = lambda: gathered_paged_attention_int8(q, k, v, table, lens, ks, vs,
+                                                 pages_per_block=8)
+    call()  # build and scratch, outside the trace
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        got = call()
+        torch.cuda.synchronize()
+    on_card = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(on_card) == 1 and "gathered_paged_attention" in on_card[0], on_card
+    _assert_stats_close(got, gathered_paged_attention_int8_reference(
+        q, k, v, table, lens, ks, vs, pages_per_block=8), 2e-3)
+
+
+@pytest.mark.cuda
+def test_gathered_int8_kernel_resets_its_merge_counters(dev):
+    """The block that merges a (slot, kv head) sets its counter back to 0:
+    repeated calls give the same bits, and calls with other lengths after
+    them are right. Lengths past the table's width (pps x page) count as the
+    width, as in the plain version, and leave the counters at 0 too."""
+    def counters_are_zero():
+        torch.cuda.synchronize()
+        key = (q.device, torch.cuda.current_stream(q.device).cuda_stream)
+        return not split_merge._COUNTERS[key].any()
+
+    q, k, v, table, lens, ks, vs = _gathered_case(
+        dev, 32, 32, 64, 40, [2560, 0, 1500, 700, 2047, 1, 512, 999], seed=71)
+
+    def both(lengths):
+        return (gathered_paged_attention_int8(q, k, v, table, lengths, ks, vs,
+                                              pages_per_block=8),
+                gathered_paged_attention_int8_reference(q, k, v, table, lengths, ks, vs,
+                                                        pages_per_block=8))
+
+    first, want = both(lens)
+    _assert_stats_close(first, want, 2e-3)
+    for _ in range(3):
+        again = gathered_paged_attention_int8(q, k, v, table, lens, ks, vs, pages_per_block=8)
+        for a, b in zip(first, again):
+            assert torch.equal(a, b)
+    assert counters_are_zero()
+    over = lens.clone()
+    over[0], over[3] = 2560 + 300, 9000  # the table holds 40 x 64 = 2560 tokens
+    for lens2 in (over, (lens * 3 // 4).int(), lens):
+        got, want = both(lens2)
+        _assert_stats_close(got, want, 2e-3)
+        assert counters_are_zero()
+
+
+@pytest.mark.cuda
+def test_gathered_int8_kernel_in_a_cuda_graph(dev):
+    """A call captured into a CUDA graph (merge counters of its own, zeroed
+    by the graph) replays right, also after the lengths change in place, and
+    leaves the eager calls' counters alone."""
+    q, k, v, table, lens, ks, vs = _gathered_case(
+        dev, 32, 32, 64, 40, [2560, 0, 1500, 700, 2047, 1, 512, 999], seed=72)
+    call = lambda: gathered_paged_attention_int8(q, k, v, table, lens, ks, vs,
+                                                 pages_per_block=8)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = call()
+    for lengths in ([2560, 0, 1500, 700, 2047, 1, 512, 999], [100, 2560, 0, 513, 1, 2000, 9000, 64]):
+        lens.copy_(torch.tensor(lengths, dtype=torch.int32, device=dev))
+        for _ in range(2):
+            graph.replay()
+            torch.cuda.synchronize()
+            want = gathered_paged_attention_int8_reference(q, k, v, table, lens, ks, vs,
+                                                           pages_per_block=8)
+            _assert_stats_close(captured, want, 2e-3)
+        _assert_stats_close(call(), want, 2e-3)  # an eager call between replays
 
 
 @pytest.mark.cuda
@@ -334,12 +426,10 @@ def test_paged_stats_kernel_resets_its_merge_counters(dev):
     repeated call gives the same bits, and a call with other lengths after it
     is right. A length past the table's width (pps x page) counts as the
     width, as in the plain version, and leaves the counters at 0 too."""
-    from videollamb_torch.ops import paged_attention_stats as pas
-
     def counters_are_zero():
         torch.cuda.synchronize()
         key = (q.device, torch.cuda.current_stream(q.device).cuda_stream)
-        return not pas._COUNTERS[key].any()
+        return not split_merge._COUNTERS[key].any()
 
     q, k, v, table, lens = _paged_bf16(dev, 32, 32, 64, 40,
                                        [2560, 0, 1500, 700, 2047, 1, 256, 999], seed=70)
@@ -453,6 +543,36 @@ def test_three_operand_temporal_kernels_match_plain(dev, layout, b, t, n):
     torch.testing.assert_close(got.float(), plain(q, k, v, 16).float(), **TOL)
     with pytest.raises(ValueError):
         kernel(q.float(), k.float(), v.float(), num_heads=16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 3, 8])
+@pytest.mark.parametrize("b", [8, 32])
+@pytest.mark.parametrize("layout", ["fm3", "bntd", "fm"])
+def test_temporal_core_layouts_at_main_path_shapes(dev, layout, b, t):
+    """K2 (packed frame-major), K9 ((b, n, t, d)) and K10 (three frame-major
+    operands) at the tower's 257 positions and 16 heads of 64, at the main
+    path's 8 and 32 windows, with 1, 3 and 8 frames."""
+    n, d = 257, 1024
+    if layout == "fm3":
+        qkv = torch.cat([_randn(dev, b, t, n, d, scale=0.125, seed=90 + t),
+                         _randn(dev, b, t, n, 2 * d, seed=91 + t)], dim=-1)
+        kernel, args, want = (fused_temporal_core_fm3, (qkv,),
+                              temporal_core_fm3_reference(qkv, 16))
+    else:
+        shape = (b, n, t, d) if layout == "bntd" else (b, t, n, d)
+        qkv = [_randn(dev, *shape, scale=0.125, seed=92 + t), _randn(dev, *shape, seed=93 + t),
+               _randn(dev, *shape, seed=94 + t)]
+        kernel, plain = ((fused_temporal_core, temporal_core_reference) if layout == "bntd"
+                         else (fused_temporal_core_fm, temporal_core_fm_reference))
+        args, want = qkv, plain(*qkv, 16)
+    before = kernel.launches
+    got = kernel(*args, num_heads=16)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), **TOL)
+    assert torch.equal(kernel(*args, num_heads=16), got)
 
 
 @pytest.mark.cuda

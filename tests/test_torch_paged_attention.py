@@ -11,6 +11,11 @@ dh=128, page 16), with partial pages and zero-length slots.
   ``attend_paged_with_stats_xla``) against the JAX XLA statement, and
   against the stock Pallas kernel that the JAX ``paged_attention_with_stats``
   launches, its ``pl.pallas_call`` run in interpret mode for the test.
+- K4's split-and-merge decomposition, as the CUDA kernel computes it (each
+  requantisation block against its own max, the blocks merged by the
+  log-sum-exp rule), stated in this file and held against the same Pallas
+  kernel with the same tolerances, including blocks whose max rises from
+  block to block and lengths past the table's width.
 - The int8 XLA twins (token-major and shared-pool) against the JAX twins,
   and ``merge_one_token``.
 
@@ -34,6 +39,11 @@ from videollamb_tpu.ops import gathered_paged_attention as jgpa  # noqa: E402
 from videollamb_tpu.ops import paged_attention_stats as jpas  # noqa: E402
 from videollamb_torch.ops import gathered_paged_attention as gpa  # noqa: E402
 from videollamb_torch.ops import paged_attention_stats as pas  # noqa: E402
+from videollamb_torch.ops.quantization import (  # noqa: E402
+    MAX_INT8,
+    exact_div,
+    round_to_int8,
+)
 
 H, DH, PAGE, PPS = 8, 128, 16, 8
 STATS_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -108,6 +118,95 @@ def test_pick_ppb_blocks_of_512_tokens():
     assert gpa._pick_ppb(8, 16) == 8
     assert gpa._pick_ppb(6, 64) == 6
     assert gpa._pick_ppb(7, 128) == 1
+
+
+def _k4_split_merge(q, k, v, table, lengths, ks, vs, ppb):
+    """The CUDA kernel's algorithm for K4, stated plainly: every
+    (slot, kv head, block of ppb pages) takes exp against its own block's
+    max and requantises its probabilities on their own absmax (the TPU
+    kernel takes the running max); the blocks' normalised partials merge by
+    the log-sum-exp rule in block order, and a slot with one live block
+    keeps its block's result. Lengths are cut to the table's width. Returns
+    (out, m, l) and the (B, H, n_blocks) block maxima."""
+    q, k, v, ks, vs = (torch.from_numpy(np.asarray(x)) for x in (q, k, v, ks, vs))
+    b, h, dh = q.shape
+    page, h_kv = k.shape[1], ks.shape[2]
+    groups, pps = h // h_kv, table.shape[1]
+    t = ppb * page
+    qs = q.abs().amax(-1, keepdim=True).clamp_min(1e-30)
+    q8 = round_to_int8(q * exact_div(MAX_INT8, qs)).double()
+    out = torch.zeros((b, h, dh))
+    m = torch.full((b, h), -torch.inf)
+    l = torch.zeros((b, h))
+    maxima = torch.full((b, h, pps // ppb), -torch.inf)
+    for slot in range(b):
+        n = min(int(lengths[slot]), pps * page)
+        if n == 0:
+            continue
+        pages = torch.from_numpy(table[slot].astype(np.int64))
+        tok = (pages[:, None] * page + torch.arange(page)).reshape(-1)[:n]  # pool rows
+        kt = k.reshape(-1, h_kv, dh)[tok].double()
+        vt = v.reshape(-1, h_kv, dh)[tok].double()
+        kst, vst = ks.reshape(-1, h_kv)[tok], vs.reshape(-1, h_kv)[tok]
+        for head in range(h):
+            kh = head // groups
+            parts = []
+            for s0 in range(0, n, t):
+                sl = slice(s0, min(s0 + t, n))
+                dot = (kt[sl, kh] @ q8[slot, head]).float()
+                s = dot * exact_div(qs[slot, head] * kst[sl, kh], MAX_INT8 * MAX_INT8)
+                m_i = s.max()
+                p = torch.exp(s - m_i)
+                w = p * exact_div(vst[sl, kh], MAX_INT8)
+                wscale = w.abs().max().clamp_min(1e-30)
+                w8 = round_to_int8(w * exact_div(MAX_INT8, wscale)).double()
+                acc = (w8 @ vt[sl, kh]).float() * exact_div(wscale, MAX_INT8)
+                maxima[slot, head, s0 // t] = m_i
+                parts.append((acc, m_i, p.sum()))
+            if len(parts) == 1:
+                acc, m_i, l_i = parts[0]
+                out[slot, head], m[slot, head], l[slot, head] = acc / l_i, m_i, l_i
+                continue
+            m_all = max(m_i for _, m_i, _ in parts)
+            wgt = [l_i * torch.exp(m_i - m_all) for _, m_i, l_i in parts]
+            l_all = sum(wgt)
+            o = sum(w_i * (acc / l_i) for w_i, (acc, _, l_i) in zip(wgt, parts))
+            out[slot, head], m[slot, head], l[slot, head] = o / l_all, m_all, l_all
+    return out, m, l, maxima
+
+
+@pytest.mark.parametrize("case", ["random", "rising", "past-width"])
+@pytest.mark.parametrize("h_kv,ppb", [(8, 2), (2, 2), (2, 4)])
+def test_k4_split_merge_matches_pallas_interpret(case, h_kv, ppb):
+    """K4's CUDA decomposition (block-local maxima, log-sum-exp merge)
+    against the Pallas kernel in interpret mode: m and l within 1e-5, out
+    within 1e-3 of max|out|. "rising": the k-scales grow page by page, so a
+    later block's max exceeds an earlier one's and the merge must rescale
+    the earlier blocks. "past-width": lengths past the table's 128 tokens
+    count as 128, as the Pallas grid sees only the table's pages."""
+    rng = np.random.default_rng(50 + h_kv + ppb)
+    q, k, v, table, lengths, ks, vs = _token_major(rng, 5, h_kv)
+    if case == "rising":  # k-scales of a slot's j-th page times 1 + j
+        ks = ks.copy()
+        for j in range(1, PPS):
+            ks[table[:, j]] *= np.float32(1 + j)
+    want = jgpa.gathered_paged_attention_int8(*_j(q, k, v, table, lengths, ks, vs),
+                                              pages_per_block=ppb, interpret=True)
+    if case == "past-width":
+        lengths = lengths.copy()
+        lengths[1], lengths[3] = PPS * PAGE + 5, 10 ** 6
+        lengths[2] = PPS * PAGE
+        want = jgpa.gathered_paged_attention_int8(
+            *_j(q, k, v, table, np.minimum(lengths, PPS * PAGE), ks, vs),
+            pages_per_block=ppb, interpret=True)
+    out, m, l, maxima = _k4_split_merge(q, k, v, table, lengths, ks, vs, ppb)
+    if case == "rising":  # heads of the full slot whose last block's max beats the first's
+        assert (maxima[1, :, -1] > maxima[1, :, 0]).sum() >= h_kv
+    w_out, w_m, w_l = (np.asarray(x) for x in want)
+    np.testing.assert_allclose(m.numpy(), w_m, **STATS_TOL)
+    np.testing.assert_allclose(l.numpy(), w_l, **STATS_TOL)
+    np.testing.assert_allclose(out.numpy(), w_out, rtol=0, atol=1e-3 * np.abs(w_out).max())
+    assert lengths[0] == 0 and not out[0].any() and torch.isneginf(m[0]).all()
 
 
 @pytest.mark.parametrize("h_kv", [8, 2])

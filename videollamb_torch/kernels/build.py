@@ -44,8 +44,7 @@ SIGNATURES = {
     "block_attention_bf16": (_I, (_P,) * 4 + (_I,) * 5 + (ctypes.c_float, _I, _P)),
     "flash_attention_bf16": (_I, (_P,) * 5 + (_I,) * 5 + (ctypes.c_float, _I)
                              + (ctypes.c_longlong,) * 6 + (_P,)),
-    "gathered_paged_attention_int8": (_I, (_P,) * 10 + (_I,) * 6 + (_P,)),
-    "gathered_paged_attention_smem_bytes": (ctypes.c_size_t, (_I,)),
+    "gathered_paged_attention_int8": (_I, (_P,) * 12 + (_I,) * 6 + (_P,)),
     "paged_fresh_write_int8": (_I, (_P,) * 6 + (_I,) * 5 + (_P,)),
     "paged_attention_stats": (_I, (_P, _I) + (_P,) * 9 + (_I,) * 7 + (_P,)),
     "int4_matmul": (_I, (_P,) * 5 + (_I,) * 5 + (_P,)),

@@ -10,7 +10,10 @@ m = -inf, l = 0.
 
 - :func:`gathered_paged_attention_int8` launches
   ``csrc/gathered_paged_attention.cu`` on a CUDA tensor and runs
-  :func:`gathered_paged_attention_int8_reference` on a CPU tensor.
+  :func:`gathered_paged_attention_int8_reference` on a CPU tensor. The
+  kernel gives each requantisation block of a slot its own block of the
+  grid and merges them in the same launch; lengths past the table's width
+  count as its width.
 - :func:`gathered_paged_attention_int8_reference` states the TPU kernel's
   numerics: the query quantised per head, exact integer Q.K, a flash
   (m, l) over blocks of ``pages_per_block * page`` tokens with tokens past
@@ -31,6 +34,7 @@ import torch
 from videollamb_torch.kernels import build as kb
 from videollamb_torch.ops.paged_attention_stats import attend_pool_int8_stats
 from videollamb_torch.ops.quantization import MAX_INT8, exact_div, round_to_int8
+from videollamb_torch.ops.split_merge import merge_counters
 
 MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
 TARGET_BLOCK_TOKENS = 512
@@ -109,7 +113,15 @@ def gathered_paged_attention_int8(
     """Decode attention over one layer of the token-major int8 pool.
 
     The pools are (P, page, H_kv * Dh), or (L, P, page, H_kv * Dh) with
-    ``layer`` naming the layer; the scales are one layer's (P, page, H_kv)."""
+    ``layer`` naming the layer; the scales are one layer's (P, page, H_kv).
+    A length past the table's width (pps x page tokens) counts as that
+    width: the kernel cuts it before it reads a page, as the plain version
+    and the TPU kernel's grid see only the table's tokens.
+
+    The kernel splits each slot into its requantisation blocks of
+    ``pages_per_block * page`` tokens (one block of the grid each, for all
+    query heads of a kv head) and merges them in the same launch, through
+    the counters of ``ops/split_merge.py``."""
     if k_pool.ndim == 4:
         k_pool, v_pool = k_pool[layer or 0], v_pool[layer or 0]
     if q.device.type == "cpu":
@@ -121,29 +133,35 @@ def gathered_paged_attention_int8(
     h_kv = k_scales.shape[2]
     pps = page_table.shape[1]
     t = pages_per_block * page
-    if (q.device.type != "cuda" or dh != 128 or kd != h_kv * dh or h % h_kv
+    if (q.device.type != "cuda" or dh != 128 or kd != h_kv * dh or h % h_kv or h // h_kv > 8
             or k_pool.dtype != torch.int8 or v_pool.dtype != torch.int8
             or k_scales.dtype != torch.float32 or v_scales.dtype != torch.float32
-            or pps % pages_per_block or t % 16):
+            or pps % pages_per_block or t % 16 or t > 1024):
         raise ValueError(
             "gathered int8 kernel takes CUDA q (B, H, 128), int8 (P, page, H_kv * 128) pools, "
-            "f32 (P, page, H_kv) scales and a 16-token multiple block dividing the table; got "
+            "f32 (P, page, H_kv) scales, H / H_kv <= 8 and a block of at most 1024 tokens, a "
+            "multiple of 16, dividing the table; got "
             f"q {q.dtype} {tuple(q.shape)}, pool {k_pool.dtype} {tuple(k_pool.shape)}, "
             f"scales {k_scales.dtype} {tuple(k_scales.shape)}, {pps} pages per slot, "
             f"{pages_per_block} per block, on {q.device}")
     kb.refuse_grad("gathered_paged_attention_int8", q, k_pool, v_pool, k_scales, v_scales)
     qf = q.float().contiguous()
+    if qf.data_ptr() % 16:  # the kernel reads q rows as 16-byte vectors
+        qf = qf.clone()
     k_pool, v_pool = k_pool.contiguous(), v_pool.contiguous()
     k_scales, v_scales = k_scales.contiguous(), v_scales.contiguous()
     table = page_table.to(torch.int32).contiguous()
     lens = lengths.to(torch.int32).contiguous()
+    n_blocks = pps // pages_per_block
+    counters = merge_counters(q.device, b * h_kv)
+    partials = torch.empty(b * h * n_blocks * (dh + 2), dtype=torch.float32, device=q.device)
     out = torch.empty((b, h, dh), dtype=torch.float32, device=q.device)
     m = torch.empty((b, h), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
     kb.check(kb.kernels().gathered_paged_attention_int8(
         kb.ptr(qf), kb.ptr(k_pool), kb.ptr(v_pool), kb.ptr(k_scales), kb.ptr(v_scales),
-        kb.ptr(table), kb.ptr(lens), kb.ptr(out), kb.ptr(m), kb.ptr(l),
-        b, h, h_kv, pps, page, t, kb.current_stream(q.device)),
+        kb.ptr(table), kb.ptr(lens), kb.ptr(out), kb.ptr(m), kb.ptr(l), kb.ptr(partials),
+        kb.ptr(counters), b, h, h_kv, pps, page, t, kb.current_stream(q.device)),
         "gathered_paged_attention_int8")
     gathered_paged_attention_int8.launches += 1
     return out.to(q.dtype), m, l

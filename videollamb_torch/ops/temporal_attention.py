@@ -24,9 +24,10 @@ and runs CLIP attention across the t (= 8) frames of every patch position.
   has no VJP in the JAX package and refuses inputs that want a gradient.
 
 On the H100 the core is bound by device memory (about 4 FLOPs per byte):
-it reads its operands once and writes the output once, with each
-(b, n, head) solved by one warp; the TPU kernels' same-position and
-same-head row packs are not carried over (see the .cu file).
+it reads its operands once and writes the output once. A warp packs two
+(b, n, head) problems into one 16-row mma.sync tile, staged through a
+cp.async ring; the TPU kernels' same-position and same-head row packs are
+not carried over (see the .cu file).
 """
 
 from __future__ import annotations
@@ -68,6 +69,12 @@ def temporal_core_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.transpose(1, 2)
 
 
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """Contiguous, at a 16-byte boundary: the kernel copies 16-byte chunks."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
 def _check_core(name: str, tensors, t: int, d: int, num_heads: int) -> None:
     q = tensors[0]
     if (q.device.type != "cuda" or q.ndim != 4 or d != num_heads * E or not 1 <= t <= T_MAX
@@ -87,7 +94,7 @@ def fused_temporal_core_fm3(qkv: torch.Tensor, *, num_heads: int) -> torch.Tenso
     if d3 != 3 * d:
         raise ValueError(f"temporal attention kernel: last dim {d3} is not 3 * d")
     kb.refuse_grad("fused_temporal_core_fm3", qkv, route="use temporal_attention_fm")
-    qkv = qkv.contiguous()
+    qkv = _aligned(qkv)
     out = torch.empty((b, t, n, d), dtype=qkv.dtype, device=qkv.device)
     kb.check(kb.kernels().temporal_attention_bf16(
         kb.ptr(qkv), kb.ptr(out), b, t, n, d, num_heads,
@@ -100,7 +107,7 @@ fused_temporal_core_fm3.launches = 0
 
 
 def _launch_three(entry: str, q, k, v, dims, d: int, num_heads: int) -> torch.Tensor:
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
     out = torch.empty_like(q)
     kb.check(getattr(kb.kernels(), entry)(
         kb.ptr(q), kb.ptr(k), kb.ptr(v), kb.ptr(out), *dims, d, num_heads,

@@ -77,6 +77,7 @@ constexpr int T_MAX = 1024;      // tokens a requantisation block
 constexpr int G_MAX = 8;         // query heads a kv head
 constexpr int RING_BYTES = STAGES * TT * DH;
 constexpr float MAX_INT8 = 127.5f;
+static_assert(WARPS == 4, "the block reductions below combine four warps");
 
 struct Params {
   const float* q;          // (B, H, DH), pre-scaled
@@ -134,7 +135,7 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 // Bytes of dynamic shared memory: V slice, K ring (later the P.V partial
 // sums), k- and v-scales, scores (later w), int8 w, int8 q, page ids.
-__host__ __device__ inline size_t smem_bytes(int t, int g, int page) {
+inline size_t smem_bytes(int t, int g, int page) {
   return static_cast<size_t>(t) * DH + RING_BYTES + 8 * static_cast<size_t>(t) +
          5 * static_cast<size_t>(g) * t + static_cast<size_t>(g) * DH +
          4 * static_cast<size_t>(t / page);

@@ -72,9 +72,9 @@ constexpr size_t SMEM = static_cast<size_t>(WARPS) * STAGES * PAIR * 2;
 // x / d for 0 <= x < 2^31 by a multiply and a shift (d >= 1): s = ceil(log2 d),
 // m = floor(2^32 (2^s - d) / d) + 1.
 struct FastDiv {
-  uint32_t d, m, s;
+  uint32_t m, s;
   FastDiv() = default;
-  explicit FastDiv(uint32_t div) : d(div), m(0), s(0) {
+  explicit FastDiv(uint32_t div) : m(0), s(0) {
     while ((1ull << s) < div) ++s;
     m = static_cast<uint32_t>(((1ull << 32) * ((1ull << s) - div)) / div + 1);
   }
@@ -91,6 +91,7 @@ struct Params {
   int items;  // b * n * heads
   int pairs;
   int t, n, heads, in_stride, out_stride;
+  int frame_step;  // rows from one frame of an item to the next
   FastDiv by_heads, by_n;
   bool frame_major;
 };
@@ -134,18 +135,16 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // Element offset of 16-byte chunk c of row r in a 16 x 64 tile.
 __device__ __forceinline__ int swz(int r, int c) { return r * E + ((c ^ (r & 7)) << 3); }
 
-// First row of an item and the row step from one frame to the next:
-// frame-major layouts keep the n positions of a frame together, the
-// (b, n, t, d) layout the t frames of a position.
-__device__ __forceinline__ void item_rows(const Params& p, int item, long long& row0,
-                                          long long& step, int& head) {
+// First row of an item (frame 0) and its head: frame-major layouts keep the
+// n positions of a frame together, the (b, n, t, d) layout the t frames of a
+// position.
+__device__ __forceinline__ long long item_row0(const Params& p, int item, int& head) {
   const int bn = p.by_heads(item);  // bi * n + pos
   head = item - bn * p.heads;
   const int bi = p.by_n(bn);
   const int pos = bn - bi * p.n;
-  row0 = p.frame_major ? static_cast<long long>(bi) * p.t * p.n + pos
+  return p.frame_major ? static_cast<long long>(bi) * p.t * p.n + pos
                        : static_cast<long long>(bn) * p.t;
-  step = p.frame_major ? p.n : 1;
 }
 
 __global__ void __launch_bounds__(WARPS * 32)
@@ -167,15 +166,14 @@ temporal_attention_kernel(const Params p) {
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int item = 2 * pair + half;
-        long long row0 = 0, step = 0;
         int head = 0;
-        if (item < p.items) item_rows(p, item, row0, step, head);
+        const long long row0 = item < p.items ? item_row0(p, item, head) : 0;
 #pragma unroll
         for (int ff = 0; ff < 2; ++ff) {
           const int fr = f + 4 * ff, r = half * 8 + fr;
           const bool ok = item < p.items && fr < p.t;
           const long long off =
-              ok ? (row0 + fr * step) * p.in_stride + head * E + c * 8 : 0;
+              ok ? (row0 + fr * p.frame_step) * p.in_stride + head * E + c * 8 : 0;
           const uint32_t dst = slot + swz(r, c) * 2;
           cp_async16(dst, p.q + off, ok);
           cp_async16(dst + TILE * 2, p.k + off, ok);
@@ -255,14 +253,14 @@ temporal_attention_kernel(const Params p) {
     for (int half = 0; half < 2; ++half) {
       const int item = 2 * pair + half;
       if (item >= p.items) continue;
-      long long row0, step;
       int head;
-      item_rows(p, item, row0, step, head);
+      const long long row0 = item_row0(p, item, head);
 #pragma unroll
       for (int ff = 0; ff < 2; ++ff) {
         const int fr = f + 4 * ff;
         if (fr < p.t)
-          *reinterpret_cast<uint4*>(p.out + (row0 + fr * step) * p.out_stride + head * E + c * 8) =
+          *reinterpret_cast<uint4*>(p.out + (row0 + fr * p.frame_step) * p.out_stride +
+                                    head * E + c * 8) =
               *reinterpret_cast<const uint4*>(tile + swz(half * 8 + fr, c));
       }
     }
@@ -307,6 +305,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int b, int t,
   p.in_stride = in_stride;
   p.out_stride = d;
   p.frame_major = frame_major;
+  p.frame_step = frame_major ? n : 1;
   const int blocks = std::min((p.pairs + WARPS - 1) / WARPS, sms * blocks_per_sm);
   temporal_attention_kernel<<<blocks, WARPS * 32, SMEM,
                               static_cast<cudaStream_t>(stream)>>>(p);

@@ -10,10 +10,7 @@ m = -inf, l = 0.
 
 - :func:`gathered_paged_attention_int8` launches
   ``csrc/gathered_paged_attention.cu`` on a CUDA tensor and runs
-  :func:`gathered_paged_attention_int8_reference` on a CPU tensor. The
-  kernel gives each requantisation block of a slot its own block of the
-  grid and merges them in the same launch; lengths past the table's width
-  count as its width.
+  :func:`gathered_paged_attention_int8_reference` on a CPU tensor.
 - :func:`gathered_paged_attention_int8_reference` states the TPU kernel's
   numerics: the query quantised per head, exact integer Q.K, a flash
   (m, l) over blocks of ``pages_per_block * page`` tokens with tokens past

@@ -40,6 +40,18 @@
    prompt lengths, greedy, 32 new tokens, 8 decode steps per host sync),
    then one with bf16 pages serves 4. K4 and K5 must launch in the first
    run and K6 in the second.
+3a. Streaming, on the same model: ``StreamingSession`` over a seeded 1-fps
+   stream of 104 still-scene frames at 224x224 with three queries (tick
+   latency p50 / p99 of plain, fold and response ticks; folds,
+   compactions, prefetch hits; one state shape; K1 and K3 must launch),
+   32 frames with the prefetch and at the live edge (no encode can be
+   prefetched), in turns, then the same
+   stream with K1-K3 patched to their plain versions on the card: the
+   boundaries must be equal (the smallest depth margin and the bridge
+   memory's error are printed). One ``LiveInfer`` pass (two scenes, one
+   query, a sampled answer over all 16 frames: K1, K2, K3) and two
+   ``KVChatSession``s (greedy, then prompt-lookup speculation; the first
+   turn prefills, the second extends the cache).
 4. Speculative decoding at full depth in bf16: ``Chat.generate_speculative``
    with prompt lookup and with an int8 copy of the LM as the draft, beside
    plain greedy (accepted lengths, rounds, rates, and where the chains part,
@@ -68,6 +80,7 @@ non-zero, with no result line, if there is no CUDA device or a check fails.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import dataclasses
 import json
@@ -325,6 +338,20 @@ def kernel_phase(g: torch.Generator) -> dict:
     results["block_attention"] = dict(k11[0], max_abs_err=max(r["max_abs_err"] for r in k11),
                                       shapes=k11)
     del q4, k4, v4, qs
+    # K1 at the stream's per-tick encodes (``serve/incremental.py``): one frame
+    # a tick, and a catch-up window of 4 frames.
+    for frames in (1, 4):
+        q, k, v = randn(frames, n, d, scale=0.125), randn(frames, n, d), randn(frames, n, d)
+        err = compare(f"spatial ({frames}, {n}, {d})", fused_spatial_core_packed(q, k, v, heads=h),
+                      spatial_core_packed_reference(q, k, v, h))
+        q4, k4, v4 = (heads(x, h) for x in (q, k, v))
+        results["spatial_attention"]["shapes"].append(dict(
+            shape=[frames, n, d], max_abs_err=err,
+            ms=cuda_ms(lambda: fused_spatial_core_packed(q, k, v, heads=h)),
+            plain_ms=cuda_ms(lambda: spatial_core_packed_reference(q, k, v, h)),
+            library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=1.0)),
+            bound=bound(4 * q.numel() * 2, 4 * frames * h * n * n * e, "bf16")))
+    del q, k, v, q4, k4, v4
 
     b, t = ENC_FRAMES // 8, 8
     temporal_ops = 4 * b * n * h * t * t * e
@@ -817,7 +844,9 @@ def serving_phase(model, cfg, g: torch.Generator) -> dict:
 
 class SmokeTokenizer:
     """A stand-in tokenizer for ``Chat`` (the smoke run has no tokenizer files):
-    whitespace words hashed into the vocabulary, reversible ``decode``."""
+    whitespace words hashed into the vocabulary; ``decode`` writes each id as
+    its number, which encodes back to the id (so an answer re-tokenizes to the
+    ids that produced it, as ``KVChatSession``'s cache diff wants)."""
 
     bos_token_id, eos_token_id, pad_token_id = 1, 2, 0
 
@@ -829,9 +858,13 @@ class SmokeTokenizer:
         import zlib
 
         ids = [self.bos_token_id]
-        for word in text.split():
-            ids.append(self.eos_token_id if word == "</s>"
-                       else 4 + zlib.crc32(word.encode()) % (self.vocab_size - 4))
+        for word in text.replace("</s>", " </s> ").split():
+            if word == "</s>":
+                ids.append(self.eos_token_id)
+            elif word.isdigit() and int(word) < self.vocab_size:
+                ids.append(int(word))
+            else:
+                ids.append(4 + zlib.crc32(word.encode()) % (self.vocab_size - 4))
         return types.SimpleNamespace(input_ids=ids)
 
     def decode(self, tokens, skip_special_tokens: bool = True) -> str:
@@ -937,6 +970,304 @@ def speculative_phase(model, cfg, int8_lm, g: torch.Generator) -> dict:
                 runs={m: dict(tokens=len(t), seconds=s, stats=st)
                       for m, (t, s, st) in runs.items()},
                 engine=dict(wall_s=wall))
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """K1, K2 and K3 replaced by their plain PyTorch versions where the tower
+    and the prefill call them, on the card (read the launch counters outside)."""
+    from videollamb_torch.ops import attention
+    from videollamb_torch.ops import spatial_attention as sa
+    from videollamb_torch.ops import temporal_attention as ta
+    from videollamb_torch.ops.flash_attention import flash_attention_reference
+
+    saved = sa.fused_spatial_core_packed, ta.fused_temporal_core_fm3, attention.flash_attention
+    sa.fused_spatial_core_packed = (
+        lambda q, k, v, *, heads: sa.spatial_core_packed_reference(q, k, v, heads))
+    ta.fused_temporal_core_fm3 = (
+        lambda qkv, *, num_heads: ta.temporal_core_fm3_reference(qkv, num_heads))
+    attention.flash_attention = flash_attention_reference
+    try:
+        yield
+    finally:
+        sa.fused_spatial_core_packed, ta.fused_temporal_core_fm3, attention.flash_attention = saved
+
+
+def scene_clip(g: torch.Generator, img: int, scenes, noise: float):
+    """Processed (T, 3, img, img) pixels: one seeded image a scene, repeated for
+    its frames with seeded noise of std ``noise`` (0: identical frames)."""
+    frames = []
+    for length in scenes:
+        base = torch.randn((1, 3, img, img), generator=g, device=g.device)
+        frames.append(base + noise * torch.randn((length, 3, img, img), generator=g,
+                                                 device=g.device))
+    return torch.cat(frames).cpu().numpy()
+
+
+def _pct(xs, q: float) -> float:
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(round(q * (len(xs) - 1))))] if xs else float("nan")
+
+
+def depth_margins(cls: torch.Tensor):
+    """The detector's rule over every prefix of the stream's CLS embeddings
+    (each fits its window): (the smallest |depth - threshold| over the
+    prefixes whose depths are not all equal (equal depths fire nothing,
+    exactly), the largest depth, the depths of each prefix)."""
+    from videollamb_torch.ops.scene_tilling import _frame_sims, depth_scores
+
+    sims = _frame_sims(cls.float())
+    margin, depths = float("inf"), []
+    for m in range(2, sims.shape[0] + 1):  # m similarities: m + 1 >= 3 frames
+        d = depth_scores(sims[:m])
+        mean = d.sum() / m
+        std = torch.sqrt(((d - mean) ** 2).sum() / (m - 1))
+        if float(std) > 0:
+            margin = min(margin, float((d - (mean + 0.5 * std)).abs().min()))
+        depths.append(d)
+    return margin, float(depths[-1].max()), depths
+
+
+# 104 frames at 1 fps, each scene one still image. Still frames give equal
+# similarities, so a depth is 0 inside a scene and large at a cut: every
+# depth lies far from the threshold. Past the second cut the response rule
+# fires every other frame (boundaries [cuts..., current frame]), so the later
+# scenes are short.
+STREAM_SCENES = [44, 44, 8, 8]
+STREAM_QUERIES = {20: "what is the person doing", 60: "what changed in the scene",
+                  90: "describe the last scene"}
+STREAM_NEW = 24
+
+
+def drive_stream(chat, frames, queries, new: int, label: str, live_edge: bool = False):
+    """A ``StreamingSession`` over ``frames`` at 1 fps without pacing; per tick
+    (host seconds, kind, prefetch hit). The tick ends when its calls return
+    (answers are host strings); device work it left queued, such as the next
+    tick's prefetched encode, is not waited for. ``live_edge``: the session
+    sees only the frames up to the current one, as from a camera, so no encode
+    can be prefetched."""
+    from videollamb_torch.serve.incremental import StreamingSession
+
+    sess = StreamingSession(chat, max_seq_len=chat.cfg.max_length, max_new_tokens=new)
+    sess.video_tensor, sess.num_video_frames = frames, frames.shape[0]
+    ticks, responses, bounds, shapes, max_open = [], [], [], set(), 0
+    for i in range(frames.shape[0]):
+        if i in queries:
+            sess.input_query_stream(queries[i], video_time=float(i))
+        if live_edge:
+            sess.num_video_frames = i + 1
+        folded, hits = sess.closed_upto, sess.prefetch_hits
+        t0 = time.perf_counter()
+        sess.input_video_stream(float(i))
+        q, r = sess()
+        dt = time.perf_counter() - t0
+        kind = "response" if r is not None else (
+            "fold" if sess.closed_upto != folded else "plain")
+        ticks.append((dt, kind, sess.prefetch_hits > hits))
+        if r is not None:
+            responses.append((q, r))
+        bounds.append(list(sess._segment_boundaries()))
+        max_open = max(max_open, sess.hbm_resident_frames)
+        shapes.add((tuple(sess.kv.k.shape), tuple(sess.bridge_state.cache.shape),
+                    sess._detector.state_shapes))
+        if sess.context_length + sess.max_new_tokens > sess.max_seq_len:
+            raise AssertionError(f"{label} tick {i}: context {sess.context_length} + "
+                                 f"{sess.max_new_tokens} past the cap {sess.max_seq_len}")
+    return dict(sess=sess, ticks=ticks, responses=responses, bounds=bounds, shapes=shapes,
+                max_open=max_open)
+
+
+def _tick_stats(ticks, select) -> dict:
+    ms = [dt * 1e3 for dt, kind, hit in ticks if select(kind, hit)]
+    return dict(n=len(ms), p50_ms=_pct(ms, 0.5), p99_ms=_pct(ms, 0.99))
+
+
+def _answer(response: str):
+    return _answer_tokens(response.split("Assistant:", 1)[1])
+
+
+def stream_phase(model, cfg, g: torch.Generator) -> dict:
+    """The carried-state streaming engine at full width: a seeded 104-frame
+    scene stream at 224^2, three queries, 24 new tokens an answer, with the
+    kernels (K1 per tick, K3 in every system prefill) and then again with
+    their plain versions on the card: equal boundaries, the bridge memory's
+    error, where the answers' tokens part. Between the two, 32-frame streams
+    with the prefetch and at the live edge, in turns, time plain ticks with
+    and without a prefetched encode."""
+    from videollamb_torch.serve.chat import Chat
+
+    chat = Chat(SmokeTokenizer(cfg.lm.vocab_size), model, cfg, {})
+    frames = scene_clip(g, cfg.vision.image_size, STREAM_SCENES, noise=0.0)
+    drive_stream(chat, frames[:12], {4: "warm up"}, 4, "warm-up")  # first launches, allocator
+    torch.cuda.synchronize()
+    zero_counters()
+    run = drive_stream(chat, frames, STREAM_QUERIES, STREAM_NEW, "kernels")
+    torch.cuda.synchronize()
+    launches = read_counters()
+    sess = run["sess"]
+    ticks = run["ticks"]
+    for q, r in run["responses"]:
+        toks = _answer(r)
+        if any(t < 0 or t >= cfg.lm.vocab_size for t in toks):
+            raise AssertionError(f"stream: bad answer {r}")
+    if launches["spatial_attention"] == 0 or launches["flash_attention"] == 0:
+        raise AssertionError(f"stream: K1 or K3 was never launched: {launches}")
+    if len(run["shapes"]) != 1:
+        raise AssertionError(f"stream: state shapes changed: {run['shapes']}")
+    answered = [q for q, _ in run["responses"] if "User: None" not in q]
+    if len(answered) != len(STREAM_QUERIES) or run["max_open"] > sess.max_open_frames:
+        raise AssertionError(f"stream: queries answered {answered}, open frames "
+                             f"{run['max_open']}")
+
+    # Prefetch against the live edge (every encode a miss) on the first 32
+    # frames (plain ticks only), in turns: the host's speed drifts between
+    # calls, so the two compare only inside one call.
+    turns = {"prefetch": [], "live_edge": []}
+    for name in ("prefetch", "live_edge", "live_edge", "prefetch"):
+        short = drive_stream(chat, frames[:32], {}, STREAM_NEW, name,
+                             live_edge=name == "live_edge")
+        turns[name].append(_tick_stats(short["ticks"], lambda k, h: k == "plain")["p50_ms"])
+
+    zero_counters()
+    with plain_kernels():
+        plain = drive_stream(chat, frames, STREAM_QUERIES, STREAM_NEW, "plain")
+    torch.cuda.synchronize()
+    if any(v for k, v in read_counters().items()
+           if k in ("spatial_attention", "temporal_attention", "flash_attention")):
+        raise AssertionError("the plain run launched a kernel")
+    margin, max_depth, depths = depth_margins(sess._detector.cls_buf[: sess._detector.n])
+    plain_margin, _, plain_depths = depth_margins(
+        plain["sess"]._detector.cls_buf[: plain["sess"]._detector.n])
+    depth_err = max(float((a - b).abs().max()) for a, b in zip(depths, plain_depths))
+    mem_err = float((sess.bridge_state.memory.float()
+                     - plain["sess"].bridge_state.memory.float()).abs().max())
+    splits = [_first_split(_answer(a), _answer(b))
+              for (_, a), (_, b) in zip(run["responses"], plain["responses"])]
+    same_bounds = run["bounds"] == plain["bounds"]
+    stats = {name: _tick_stats(ticks, sel) for name, sel in (
+        ("all", lambda k, h: True), ("plain", lambda k, h: k == "plain"),
+        ("fold", lambda k, h: k == "fold"), ("response", lambda k, h: k == "response"),
+        ("plain_prefetch_hit", lambda k, h: k == "plain" and h),
+        ("plain_prefetch_miss", lambda k, h: k == "plain" and not h))}
+    out = dict(
+        frames=len(ticks), responses=len(run["responses"]), queries=len(answered),
+        segments_folded=int(sess.bridge_state.count), compactions=sess._compactions,
+        compaction_drops=sess._compaction_drops, prefetch_hits=sess.prefetch_hits,
+        prefetch_misses=sess.prefetch_misses, max_open_frames=run["max_open"],
+        context_length=sess.context_length, max_seq_len=sess.max_seq_len,
+        state_shapes=len(run["shapes"]), ticks=stats, plain_tick_p50_in_turns=turns,
+        launches=launches,
+        plain=dict(boundaries_equal=same_bounds, min_depth_margin=margin, max_depth=max_depth,
+                   plain_min_depth_margin=plain_margin, max_depth_err=depth_err,
+                   bridge_memory_max_err=mem_err, answer_first_split=splits,
+                   responses=len(plain["responses"])))
+    for name, st in stats.items():
+        print(f"[stream] ticks {name}: n={st['n']} p50 {st['p50_ms']:.2f} ms, "
+              f"p99 {st['p99_ms']:.2f} ms")
+    print(f"[stream] plain tick p50 over 32 frames in turns (ms): prefetch "
+          f"{[round(x, 2) for x in turns['prefetch']]}, live edge "
+          f"{[round(x, 2) for x in turns['live_edge']]}")
+    print(f"[stream] {out['frames']} frames, {out['responses']} responses ({out['queries']} "
+          f"queries), {out['segments_folded']} segments folded, {out['compactions']} "
+          f"compactions, {out['compaction_drops']} drops; prefetch {out['prefetch_hits']} hits, "
+          f"{out['prefetch_misses']} misses; open frames at most {out['max_open_frames']}; "
+          f"context {out['context_length']} of {out['max_seq_len']}; "
+          f"{out['state_shapes']} state shape(s); launches K1 {launches['spatial_attention']}, "
+          f"K3 {launches['flash_attention']}")
+    print(f"[stream] kernels vs plain on the card: boundaries equal {same_bounds}, smallest "
+          f"|depth - threshold| {margin:.4e} (plain {plain_margin:.4e}; largest depth "
+          f"{max_depth:.4e}), depth max err "
+          f"{depth_err:.3e}, bridge memory max err {mem_err:.3e}, answers part at {splits}")
+    if not same_bounds:
+        raise AssertionError("stream: kernel and plain runs found other boundaries")
+    del run, plain, short, sess
+    torch.cuda.empty_cache()
+    return out
+
+
+def liveinfer_phase(model, cfg, g: torch.Generator) -> dict:
+    """One short ``LiveInfer`` pass: two scenes of 8 identical frames and a
+    query. Equal frames give equal similarities and zero depths, so only the
+    cut fires and no boundary response comes: the query's answer is the one
+    response (a full sampled generate of up to 512 tokens over all 16 frames:
+    K1, K2, K3)."""
+    from videollamb_torch.serve.chat import Chat
+    from videollamb_torch.serve.streaming import LiveInfer
+
+    chat = Chat(SmokeTokenizer(cfg.lm.vocab_size), model, cfg, {})
+    live = LiveInfer(chat)
+    live.video_tensor = scene_clip(g, cfg.vision.image_size, [8, 8], noise=0.0)
+    live.num_video_frames = live.video_tensor.shape[0]
+    live.input_query_stream("what happens in the video", video_time=2.0)
+    torch.cuda.synchronize()
+    zero_counters()
+    responses, ticks = [], []
+    for i in range(live.num_video_frames):
+        t0 = time.perf_counter()
+        live.input_video_stream(float(i))
+        q, r = live()
+        ticks.append(time.perf_counter() - t0)
+        if r is not None:
+            responses.append((q, r))
+    torch.cuda.synchronize()
+    launches = read_counters()
+    toks = [_answer(r) for _, r in responses]
+    if (len(responses) != 1 or "User: what happens" not in responses[0][0]
+            or any(t < 0 or t >= cfg.lm.vocab_size for a in toks for t in a)):
+        raise AssertionError(f"LiveInfer: responses {responses}")
+    for name in ("spatial_attention", "temporal_attention", "flash_attention"):
+        if launches[name] == 0:
+            raise AssertionError(f"LiveInfer: kernel {name} was never launched")
+    print(f"[live] LiveInfer, {len(ticks)} frames: {len(responses)} response, "
+          f"{len(toks[0])} tokens, response tick {max(ticks):.2f} s, other ticks p50 "
+          f"{_pct(sorted(ticks)[:-1], 0.5) * 1e3:.1f} ms; boundaries {live.boundaries}; "
+          f"launches {launches}")
+    return dict(frames=len(ticks), responses=len(responses), tokens=len(toks[0]),
+                response_tick_s=max(ticks), launches=launches)
+
+
+def kv_chat_phase(model, cfg, g: torch.Generator) -> dict:
+    """``KVChatSession`` on a 16-frame clip: two greedy turns (the first
+    prefills through K1, K2 and K3, the second extends the cache), then the
+    same two turns with prompt-lookup speculation over the session cache
+    (parts from greedy reported, not asserted, in bf16)."""
+    from videollamb_torch.serve.chat import Chat, KVChatSession
+
+    frames = scene_clip(g, cfg.vision.image_size, [8, 8], noise=0.05)
+    questions = [SPEC_QUESTION, "and what happens after that"]
+    torch.cuda.synchronize()
+    zero_counters()
+    out = {}
+    for spec in (False, True):
+        session = KVChatSession(Chat(SmokeTokenizer(cfg.lm.vocab_size), model, cfg, {}),
+                                max_new_tokens=24)
+        answers, secs = [], []
+        for i, q in enumerate(questions):
+            t0 = time.perf_counter()
+            answers.append(_answer_tokens(session.ask(q, frames if i == 0 else None,
+                                                      speculative=spec)))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        if not all(answers) or any(t < 0 or t >= cfg.lm.vocab_size for a in answers
+                                   for t in a):
+            raise AssertionError(f"KVChatSession speculative={spec}: answers {answers}")
+        out["lookup" if spec else "greedy"] = dict(
+            answers=answers, seconds=secs, full_prefills=session.full_prefills,
+            extends=session.extends)
+    launches = read_counters()
+    for name in ("spatial_attention", "temporal_attention", "flash_attention"):
+        if launches[name] == 0:
+            raise AssertionError(f"KVChatSession: kernel {name} was never launched")
+    splits = [_first_split(a, b) for a, b in zip(out["greedy"]["answers"],
+                                                out["lookup"]["answers"])]
+    for mode, r in out.items():
+        print(f"[kvchat] {mode}: turns {[len(a) for a in r['answers']]} tokens in "
+              f"{[round(s, 3) for s in r['seconds']]} s, full prefills {r['full_prefills']}, "
+              f"extends {r['extends']}")
+    print(f"[kvchat] lookup parts from greedy at {splits}; launches {launches}")
+    return dict(greedy={k: v for k, v in out["greedy"].items() if k != "answers"},
+                lookup={k: v for k, v in out["lookup"].items() if k != "answers"},
+                lookup_first_split=splits, launches=launches)
 
 
 def quantized_phase(model, cfg, int8_lm, g: torch.Generator) -> dict:
@@ -1335,6 +1666,11 @@ def main() -> int:
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     sliced = slice_phase(model, cfg, g)
     served = serving_phase(model, cfg, g)
+    t0 = time.perf_counter()
+    streamed = stream_phase(model, cfg, g)
+    lived = liveinfer_phase(model, cfg, g)
+    chatted = kv_chat_phase(model, cfg, g)
+    print(f"[stream] stream, LiveInfer and KV-chat phases took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     int8_lm = lm_variant(model, "int8").lm
@@ -1365,6 +1701,10 @@ def main() -> int:
                      "bound_by": r["bound"][1], "library_ms": r["library_ms"]})
         if name in ("spatial_attention", "temporal_attention"):
             rows[-1]["encode_launches"] = enc["encode bf16"][name]
+        if name in ("spatial_attention", "temporal_attention", "flash_attention"):
+            rows[-1]["path_launches"] = {"stream": streamed["launches"][name],
+                                         "liveinfer": lived["launches"][name],
+                                         "kv_chat": chatted["launches"][name]}
         if "host_ms" in r:
             rows[-1].update(host_enqueue_ms=r["host_ms"], graph_replay_ms=r["device_ms"])
         if "shapes" in r:  # every further main-path shape, beside the first one's numbers
@@ -1380,6 +1720,8 @@ def main() -> int:
                  **({"causal": x["causal"]} if "causal" in x else {})} for x in r["shapes"]]
     print(json.dumps({"requests": sliced["stats"] + served["stats"] + quantized["stats"],
                       "speculative": speculated, "weight_gib": quantized["weight_gib"],
+                      "stream": {k: v for k, v in streamed.items() if k != "launches"},
+                      "liveinfer": lived, "kv_chat": chatted,
                       "int8_tower": quantized["int8_tower"],
                       "encode": {k: v for k, v in encoded.items() if k != "launches"},
                       "gradients": graded}))

@@ -664,3 +664,111 @@ def test_kernel_wrappers_refuse_inputs_that_want_a_gradient(dev):
             call()
         with torch.no_grad():
             call()  # no graph wanted: it launches
+
+
+def _loop_peaks(sim, reverse):
+    xs = sim.flip(0) if reverse else sim
+    peaks = [xs[0]]
+    for i in range(1, xs.shape[0]):
+        peaks.append(torch.where(xs[i - 1] >= xs[i], peaks[-1], xs[i]))
+    out = torch.stack(peaks)
+    return out.flip(0) if reverse else out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["random", "tied", "neg_inf_tail"])
+def test_monotone_run_peaks_gather_equals_loop_on_the_card(dev, kind):
+    from videollamb_torch.ops.scene_tilling import _monotone_run_peaks
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    for n in (1, 7, 511):
+        s = torch.randn((n,), generator=g, device=dev)
+        if kind == "tied":
+            s = s.round()
+        elif kind == "neg_inf_tail":
+            s[n // 2:] = float("-inf")
+        for reverse in (False, True):
+            assert torch.equal(_monotone_run_peaks(s, reverse=reverse), _loop_peaks(s, reverse))
+
+
+class _WordTokenizer:
+    bos_token_id, eos_token_id, pad_token_id = 1, 2, 0
+
+    def __call__(self, text):
+        import types
+        import zlib
+
+        words = text.replace("</s>", " </s> ").split()
+        return types.SimpleNamespace(input_ids=[1] + [
+            2 if w == "</s>" else 4 + zlib.crc32(w.encode()) % 252 for w in words])
+
+    def decode(self, tokens, skip_special_tokens=True):
+        return " ".join(str(int(t)) for t in tokens if int(t) > 2)
+
+
+@pytest.mark.cuda
+def test_streaming_session_kernels_match_plain_on_the_card(dev):
+    """A tiny bf16 StreamingSession (head dims 64, as K1 and K3 take) over still
+    scenes, with the kernels and with their plain versions: equal boundaries
+    and response times, K1 and K3 launched by the first run only, the bridge
+    memory close, the prefetched encodes served from the side stream."""
+    from videollamb_torch.config import BridgeConfig, LlamaConfig, ModelConfig, VisionConfig
+    from videollamb_torch.models.assembly import VideoLLaMB
+    from videollamb_torch.models.bridge.rmt_r import init_rmt_r_params
+    from videollamb_torch.models.lm.llama import init_llama_params
+    from videollamb_torch.models.vision.clip_vit import init_vision_params
+    from videollamb_torch.ops import attention
+    from videollamb_torch.ops import spatial_attention as sa
+    from videollamb_torch.serve.chat import Chat
+    from videollamb_torch.serve.incremental import StreamingSession
+
+    cfg = ModelConfig(
+        vision=VisionConfig(hidden_size=128, intermediate_size=256, num_hidden_layers=2,
+                            num_attention_heads=2, image_size=56, patch_size=14),
+        lm=LlamaConfig(vocab_size=256, hidden_size=128, intermediate_size=256,
+                       num_hidden_layers=2, num_attention_heads=2, num_key_value_heads=2),
+        bridge=BridgeConfig.from_projector_type("rmt_r_transformer1x", hidden_size=128),
+        max_length=512)
+    kw = dict(dtype=torch.bfloat16, device=dev)
+    model = VideoLLaMB(init_vision_params(cfg.vision, seed=0, **kw),
+                       init_rmt_r_params(cfg.bridge, cfg.lm.hidden_size, seed=1, **kw),
+                       init_llama_params(cfg.lm, seed=2, **kw))
+    g = torch.Generator().manual_seed(0)
+    frames = torch.cat([torch.randn((1, 3, 56, 56), generator=g).expand(n, -1, -1, -1)
+                        for n in (12, 12, 6, 6)]).numpy()
+
+    def run():
+        sess = StreamingSession(Chat(_WordTokenizer(), model, cfg, {}), max_seq_len=512,
+                                max_new_tokens=4)
+        sess.video_tensor, sess.num_video_frames = frames, frames.shape[0]
+        sess.input_query_stream("what is shown", video_time=5.0)
+        ticks = []
+        for i in range(frames.shape[0]):
+            sess.input_video_stream(float(i))
+            q, r = sess()
+            ticks.append((q is not None, list(sess._segment_boundaries())))
+        return sess, ticks
+
+    with torch.no_grad():
+        k1, k3 = sa.fused_spatial_core_packed.launches, attention.flash_attention.launches
+        sess, ticks = run()
+        launched = (sa.fused_spatial_core_packed.launches - k1,
+                    attention.flash_attention.launches - k3)
+        saved = sa.fused_spatial_core_packed, attention.flash_attention
+        from videollamb_torch.ops.flash_attention import flash_attention_reference
+
+        sa.fused_spatial_core_packed = (
+            lambda q, k, v, *, heads: sa.spatial_core_packed_reference(q, k, v, heads))
+        attention.flash_attention = flash_attention_reference
+        try:
+            plain, plain_ticks = run()
+        finally:
+            sa.fused_spatial_core_packed, attention.flash_attention = saved
+    assert launched[0] == frames.shape[0] and launched[1] >= 1
+    assert (sa.fused_spatial_core_packed.launches - k1,
+            attention.flash_attention.launches - k3) == launched
+    assert ticks == plain_ticks and sum(t[0] for t in ticks) >= 2
+    assert (sess.prefetch_hits, sess.prefetch_misses) == (frames.shape[0] - 1, 1)
+    got, want = sess.bridge_state.memory.float(), plain.bridge_state.memory.float()
+    assert torch.isfinite(got).all()
+    assert float((got - want).norm() / want.norm()) <= 5e-2

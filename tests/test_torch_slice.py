@@ -98,8 +98,7 @@ def test_chat_ask_about_video(checkpoint, tmp_path):
     assert isinstance(follow_up, str) and len(chat.conv.messages) == 4
 
 
-@pytest.mark.parametrize("flag", [["--kv-reuse"], ["--device-preprocess"],
-                                  ["--image-file", "x.png"]])
+@pytest.mark.parametrize("flag", [["--device-preprocess"], ["--image-file", "x.png"]])
 def test_cli_rejects_unported_flags(flag):
     from videollamb_torch.serve import cli
 

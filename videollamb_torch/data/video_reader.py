@@ -7,7 +7,9 @@ decoder:
 
 - OpenCV (seek-based sparse sampling, like the reference's 'opencv'
   backend);
-- PyAV ('av' backend), gif (imageio) and frame-directory backends.
+- PyAV ('av' backend), gif (imageio) and frame-directory backends;
+- the streaming CLI's ffmpeg re-encode cache (reference
+  llava/serve/cli_streaming.py:12-37).
 
 All backends return (T, H, W, C) uint8 RGB frames at the sampled indices.
 """
@@ -117,6 +119,44 @@ def _read_av(path: str, indices: Sequence[int]) -> np.ndarray:
             if len(frames) == len(wanted):
                 break
     return np.stack([frames[int(i)] for i in indices])
+
+
+def ffmpeg_command(src_path: str, dst_path: str, *, fps: Optional[int] = None,
+                   resolution: Optional[int] = None, pad: str = "#000000",
+                   mode: str = "bicubic") -> list:
+    """The reference's streaming re-encode command (cli_streaming.py:12-27
+    ``ffmpeg_once``): strip audio, optional fps resample, optional square
+    pad-resize."""
+    command = ["ffmpeg", "-y", "-sws_flags", mode, "-i", src_path, "-an",
+               "-threads", "10"]
+    if fps is not None:
+        command += ["-r", str(fps)]
+    if resolution is not None:
+        command += [
+            "-vf",
+            f"scale='if(gt(iw\\,ih)\\,{resolution}\\,-2)':'if(gt(iw\\,ih)\\,-2\\,{resolution})'"
+            f",pad={resolution}:{resolution}:(ow-iw)/2:(oh-ih)/2:color='{pad}'",
+        ]
+    return command + [dst_path]
+
+
+def ffmpeg_reencode_cached(src_path: str, cache_dir: str, fps: int = 1,
+                           resolution: Optional[int] = None) -> str:
+    """Re-encode once into ``cache_dir`` and return the cached path (reference
+    cli_streaming.py:30-37). Without ``ffmpeg`` on PATH it returns the source
+    path, and the reader's fps resampling stands in."""
+    import shutil
+    import subprocess
+
+    name, ext = os.path.splitext(os.path.basename(src_path))
+    dst = os.path.join(cache_dir, f"{name}_{fps}fps{ext}")
+    if os.path.exists(dst):
+        return dst
+    if shutil.which("ffmpeg") is None:
+        return src_path
+    os.makedirs(cache_dir, exist_ok=True)
+    subprocess.run(ffmpeg_command(src_path, dst, fps=fps, resolution=resolution), check=True)
+    return dst
 
 
 def load_video(

@@ -1,8 +1,8 @@
 """RMT-R Memory Bridge: recurrent-memory projector with memory retrieval.
 
 Port of ``videollamb_tpu/models/bridge/rmt_r.py`` (reference
-rmt_r_transformer_projector.py:186-402 and self_retriever.py:188-248),
-video and image paths; the streaming step is not ported yet.
+rmt_r_transformer_projector.py:186-402 and self_retriever.py:188-248):
+the video and image paths, and the streaming step with carried state.
 
 SceneTilling cuts the video at its top-k (3) depth minima into 4 segments
 of at most 8 subsampled frames, pooled to 12 x 12 tokens each. The
@@ -140,6 +140,65 @@ def rmt_r_video_forward(bridge: RMTRBridge, cfg: BridgeConfig,
     all_proj = torch.stack(all_proj)
     return BridgeOutput(tokens=all_proj[-1], token_mask=seg_mask[-1],
                         all_tokens=all_proj, all_masks=seg_mask, memory=mem[0])
+
+
+class StreamBridgeState(NamedTuple):
+    """Carry of the streaming bridge: the recurrent memory, a bounded ring of
+    past segment memories for retrieval, and the segments seen (a device
+    scalar, so a step needs no host read)."""
+
+    memory: torch.Tensor  # (1, M, d)
+    cache: torch.Tensor   # (1, S_cache*M, d)
+    count: torch.Tensor   # () int64
+
+
+def init_stream_state(cfg: BridgeConfig, dtype=torch.float32, cache_segments: int = 32,
+                      device="cpu") -> StreamBridgeState:
+    d, m = cfg.hidden_size, cfg.num_memory_tokens
+    return StreamBridgeState(
+        memory=torch.zeros((1, m, d), dtype=dtype, device=device),
+        cache=torch.zeros((1, cache_segments * m, d), dtype=dtype, device=device),
+        count=torch.zeros((), dtype=torch.long, device=device))
+
+
+@torch.no_grad()
+def rmt_r_stream_step(bridge: RMTRBridge, cfg: BridgeConfig, features: torch.Tensor,
+                      frame_mask: torch.Tensor, state: StreamBridgeState
+                      ) -> Tuple[torch.Tensor, torch.Tensor, StreamBridgeState]:
+    """One segment of the Memory Bridge recurrence with carried state.
+
+    ``features`` (F, n, d) are one segment's tower features, ``frame_mask``
+    (F,) its valid frames. The math of one step of
+    :func:`rmt_r_video_forward`, except that the retrieval cache is a ring:
+    once full it rolls left by one segment, so retrieval covers the newest
+    ``cache_segments`` memories (a live stream needs constant memory).
+
+    Returns (tokens (F*P, lm_d), token_mask (F*P,), new state).
+    """
+    f = features.shape[0]
+    m = cfg.num_memory_tokens
+    p = cfg.tokens_per_frame
+    d = cfg.hidden_size
+    s_cache = state.cache.shape[1] // m
+
+    _, pooled = pool_and_split(features, cfg)  # (F, P, d)
+    tmask = frame_mask.bool().repeat_interleave(p)[None]  # (1, F*P)
+    tokens = torch.where(tmask[..., None], pooled.reshape(1, f * p, d), 0.0)
+
+    projector = bridge.projector
+    first = state.count == 0
+    mem_in = torch.where(first, projector.read_memory_emb[None].to(tokens.dtype), state.memory)
+    proj, mem_out = projector_pass(projector, cfg, tokens, tmask, mem_in)
+
+    cache = torch.where(state.count >= s_cache, torch.roll(state.cache, -m, dims=1), state.cache)
+    slot = torch.clamp(state.count, max=s_cache - 1)
+    rows = slot * m + torch.arange(m, device=cache.device)
+    cache = cache.index_copy(1, rows, mem_out.to(cache.dtype))
+    n_valid = torch.clamp(state.count + 1, max=s_cache)
+    cache_mask = (torch.arange(s_cache * m, device=cache.device) < n_valid * m)[None]
+    mem_new = retrieve(bridge.retrieval, cfg, mem_out, cache, cache_mask)
+    return proj[0], tmask[0], StreamBridgeState(memory=mem_new, cache=cache,
+                                                count=state.count + 1)
 
 
 def rmt_r_image_forward(bridge: RMTRBridge, cfg: BridgeConfig,

@@ -1,14 +1,17 @@
 """SceneTilling segmentation (port of ``videollamb_tpu/ops/scene_tilling.py``).
 
-Top-k mode only: cosine similarity of adjacent frame CLS embeddings, the
-O(n) depth-score recurrence, the top-k boundaries and the static
-per-segment frame plan. The threshold and left (streaming) modes are not
-ported yet.
+Cosine similarity of adjacent frame CLS embeddings, the depth scores
+(two-sided, and the causal left-only ones of the streaming mode), the
+top-k, threshold and left boundary modes, and the static per-segment frame
+plan.
 
-Two details are matched exactly, because a flipped boundary changes which
-frames reach the bridge: ``segment_topk`` breaks ties towards the lowest
-index (as ``lax.top_k`` does), and ``segment_plan`` truncates an f32
-linspace computed in the same order as the JAX function.
+Three details are matched exactly, because a flipped boundary changes which
+frames reach the bridge: top-k picks break ties towards the lowest index
+(as ``lax.top_k`` does: a stable descending sort, never ``torch.topk``);
+the threshold modes take the unbiased std written out as the JAX package
+computes it; ``segment_plan`` truncates an f32 linspace computed in the
+same order as the JAX function. The threshold and left modes keep the JAX
+package's static packing: fixed-size bounds and a validity mask.
 """
 
 from __future__ import annotations
@@ -26,12 +29,20 @@ def cosine_similarity(a: torch.Tensor, b: torch.Tensor, eps: float = 1e-8) -> to
 
 
 def _monotone_run_peaks(sim: torch.Tensor, *, reverse: bool) -> torch.Tensor:
-    """Peak at the end of the non-decreasing run left (or right) of each position."""
+    """Peak at the end of the non-decreasing run left (or right) of each position.
+
+    The JAX scan carries ``peak[i] = peak[i-1] if sim[i-1] >= sim[i] else
+    sim[i]``, so a run restarts at 0 and wherever that test fails, and each
+    position's peak is the value at its run's start: a gather at the running
+    maximum of the restart indices. No arithmetic, so it equals the scan bit
+    for bit (-inf and NaN included: the restart test is the scan's own).
+    """
     xs = sim.flip(0) if reverse else sim
-    peaks = [xs[0]]
-    for i in range(1, xs.shape[0]):
-        peaks.append(torch.where(xs[i - 1] >= xs[i], peaks[-1], xs[i]))
-    out = torch.stack(peaks)
+    pos = torch.arange(xs.shape[0], device=xs.device)
+    restart = torch.ones_like(pos, dtype=torch.bool)
+    restart[1:] = ~(xs[:-1] >= xs[1:])
+    start = torch.cummax(torch.where(restart, pos, 0), dim=0).values
+    out = xs[start]
     return out.flip(0) if reverse else out
 
 
@@ -41,15 +52,92 @@ def depth_scores(sim: torch.Tensor) -> torch.Tensor:
             + _monotone_run_peaks(sim, reverse=True) - 2.0 * sim)
 
 
+def left_depth_scores(sim: torch.Tensor) -> torch.Tensor:
+    """Causal (streaming) depth score lpeak - sim: looks left only."""
+    return _monotone_run_peaks(sim, reverse=False) - sim
+
+
+def _frame_sims(features: torch.Tensor) -> torch.Tensor:
+    return cosine_similarity(features[:-1], features[1:])
+
+
+def top_indices(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices of the k largest entries, ties to the lowest index (``lax.top_k``)."""
+    return torch.sort(x, descending=True, stable=True).indices[:k]
+
+
+def _threshold(depths: torch.Tensor, alpha: float) -> torch.Tensor:
+    """depths > mean + alpha * std, the std unbiased (ddof=1) as ``jnp.std``
+    computes it: the mean first, then the centred squares over n - 1."""
+    mean = torch.sum(depths) / depths.shape[0]
+    var = torch.sum((depths - mean) ** 2) / (depths.shape[0] - 1)
+    return depths > mean + alpha * torch.sqrt(var)
+
+
+def _fired_sorted(cond: torch.Tensor, mk: int, width: int, fill: int) -> torch.Tensor:
+    """Fired positions in order, the first ``mk``, padded to ``width`` with ``fill``."""
+    n = cond.shape[0]
+    positions = torch.arange(n, dtype=torch.int32, device=cond.device)
+    fired = torch.sort(torch.where(cond, positions, n)).values[:mk]
+    return torch.cat([fired, fired.new_full((width - mk,), fill)])
+
+
 def segment_topk(features: torch.Tensor, k: int = 3) -> torch.Tensor:
     """(T, d) CLS embeddings -> (k+1,) int32 sorted segment ends; last is T-1."""
     t = features.shape[0]
-    depths = depth_scores(cosine_similarity(features[:-1], features[1:]))
-    # Stable descending sort: equal depths keep the lowest index first.
-    idx = torch.sort(depths, descending=True, stable=True).indices[:k]
-    bounds = torch.sort(idx).values
+    depths = depth_scores(_frame_sims(features))
+    bounds = torch.sort(top_indices(depths, k)).values
     last = torch.full((1,), t - 1, dtype=bounds.dtype, device=bounds.device)
     return torch.cat([bounds, last]).to(torch.int32)
+
+
+def segment_threshold(features: torch.Tensor, alpha: float = 0.5,
+                      max_boundaries: int = 15) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Threshold-mode SceneTilling (reference self_segment.py:33-39).
+
+    Boundaries where depth > mean + alpha * std; when more than ``mk`` =
+    min(max_boundaries, T-1) fire, the top-``mk`` depths instead. The final
+    frame T-1 follows the valid prefix.
+
+    Returns bounds (max_boundaries + 1,) int32, sorted valid entries first and
+    padded with T-1, and valid (max_boundaries + 1,) bool.
+    """
+    t = features.shape[0]
+    depths = depth_scores(_frame_sims(features))
+    cond = _threshold(depths, alpha)
+    n_fired = torch.sum(cond)
+    mk = min(max_boundaries, depths.shape[0])  # short videos have fewer positions
+    fired_sorted = _fired_sorted(cond, mk, max_boundaries, t - 1)
+    top = torch.sort(top_indices(depths, mk).to(torch.int32)).values
+    top_sorted = torch.cat([top, top.new_full((max_boundaries - mk,), t - 1)])
+    use_topk = n_fired > mk
+    n_valid = torch.where(use_topk, mk, n_fired)
+    raw = torch.where(use_topk, top_sorted, fired_sorted)
+    slot = torch.arange(max_boundaries + 1, dtype=torch.int32, device=features.device)
+    picked = raw[torch.clamp(slot, max=max_boundaries - 1)]
+    bounds = torch.where(slot < n_valid, picked, t - 1).to(torch.int32)
+    return bounds, slot <= n_valid
+
+
+def segment_left(features: torch.Tensor, alpha: float = 0.5,
+                 max_boundaries: int = 15) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Streaming (causal) segmentation (reference self_segment.py:77-118).
+
+    The threshold rule over the left depth scores, no final-frame append
+    unless nothing fires (then the one valid entry is T-1).
+
+    Returns (bounds, valid), both (max_boundaries,).
+    """
+    t = features.shape[0]
+    depths = left_depth_scores(_frame_sims(features))
+    cond = _threshold(depths, alpha)
+    n_fired = torch.sum(cond)
+    mk = min(max_boundaries, depths.shape[0])
+    fired_sorted = _fired_sorted(cond, mk, max_boundaries, t - 1)
+    slot = torch.arange(max_boundaries, dtype=torch.int32, device=features.device)
+    bounds = torch.where(slot < n_fired, fired_sorted, t - 1).to(torch.int32)
+    valid = torch.where(n_fired == 0, slot == 0, slot < torch.clamp(n_fired, max=mk))
+    return bounds, valid
 
 
 def segment_plan(bounds: torch.Tensor, max_frames: int = 8) -> Tuple[torch.Tensor, torch.Tensor]:

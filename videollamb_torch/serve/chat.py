@@ -5,8 +5,9 @@ Port of ``Chat.generate_text`` and ``Chat.ask_about_video`` of
 conversation template -> ``tokenizer_x_token`` -> multimodal generate ->
 stop-string trim, and of ``Chat.generate_speculative`` (prompt-lookup or
 draft-model speculation, greedy-exact). Text lengths are padded to bucket
-multiples, as in the JAX package. KV reuse across turns, streaming and
-mixed-modality turns are not ported yet.
+multiples, as in the JAX package. :class:`KVChatSession` ports the
+multi-turn chat with KV reuse (``--kv-reuse``); mixed-modality turns are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -163,4 +164,136 @@ class Chat:
         else:
             answer = self.generate_text(prompt, videos=frames, **gen_kwargs)
         self.conv.messages[-1][1] = answer
+        return answer
+
+
+class KVChatSession:
+    """Multi-turn greedy video chat with KV reuse.
+
+    ``Chat.ask_about_video`` re-encodes the video and re-prefills the whole
+    conversation every turn. Here the first turn prefills once (tower, bridge
+    and the prefill: kernels K1, K2 and K3 on the card) and each later turn
+    extends the running cache with the new tokens only (``llama_extend``, as
+    the streaming engine does).
+
+    The session tracks the token ids whose K/V are in the cache. Each turn
+    tokenizes the whole prompt again; when the cached ids are not a prefix of
+    it (a tokenizer may merge across the answer / separator boundary), it
+    prefills from scratch, so the answers are always those of a full
+    re-prefill.
+    """
+
+    def __init__(self, chat: Chat, max_new_tokens: int = 512):
+        self.chat = chat
+        self.max_new_tokens = max_new_tokens
+        self.cache = None
+        self.logits = None
+        self.cached_ids: list = []
+        self.frames: Optional[np.ndarray] = None
+        self.full_prefills = 0  # how often the full prefill ran
+        self.extends = 0
+
+    def _ids(self, prompt: str) -> list:
+        return [int(t) for t in tokenizer_x_token(
+            prompt, self.chat.tokenizer, X_TOKEN_INDEX["VIDEO"], return_tensors="np")]
+
+    def _padded(self, ids: list):
+        t = _round_up(len(ids), self.chat.text_bucket)
+        arr = torch.zeros((1, t), dtype=torch.long)
+        mask = torch.zeros((1, t), dtype=torch.long)
+        arr[0, : len(ids)] = torch.tensor(ids, dtype=torch.long)
+        mask[0, : len(ids)] = 1
+        dev = self.chat.device
+        return arr.to(dev), mask.to(dev)
+
+    def _full_prefill(self, ids: list) -> None:
+        from videollamb_torch.models.assembly import prepare_multimodal_embeds
+        from videollamb_torch.models.lm.llama import init_kv_cache, llama_prefill
+
+        chat = self.chat
+        arr, mask = self._padded(ids)
+        batch = MultimodalBatch(
+            input_ids=arr, attention_mask=mask,
+            videos=torch.from_numpy(np.asarray(self.frames)[None]).to(chat.device, chat.dtype))
+        spliced = prepare_multimodal_embeds(chat.model, chat.cfg, batch)
+        self.cache = init_kv_cache(
+            chat.cfg.lm, 1, chat.cfg.max_length + _round_up(self.max_new_tokens, 64),
+            dtype=chat.dtype, device=chat.device)
+        self.logits, self.cache = llama_prefill(chat.model.lm, chat.cfg.lm, spliced.embeds,
+                                                spliced.attention_mask, self.cache)
+        self.cached_ids = list(ids)
+        self.full_prefills += 1
+
+    def _extend(self, delta: list) -> None:
+        from videollamb_torch.models.lm.llama import embed_tokens, llama_extend
+
+        lm = self.chat.model.lm
+        arr, mask = self._padded(delta)
+        self.logits, self.cache = llama_extend(
+            lm, self.chat.cfg.lm, embed_tokens(lm, arr).to(self.cache.k.dtype), mask,
+            self.cache)
+        self.cached_ids.extend(delta)
+        self.extends += 1
+
+    @torch.no_grad()
+    def ask(self, question: str, frames: Optional[np.ndarray] = None,
+            max_new_tokens: Optional[int] = None, speculative: bool = False) -> str:
+        """One greedy turn. ``frames`` (processed (T, C, H, W)) are needed on
+        the first call; later turns reuse the cached video K/V.
+
+        ``speculative=True`` decodes by prompt-lookup speculation over the same
+        session cache (``models/speculative.py``): a rollback shrinks
+        ``cache.length``, and only committed tokens join ``cached_ids``."""
+        from videollamb_torch.models.lm.llama import embed_tokens, llama_decode_step
+
+        chat = self.chat
+        if frames is not None:
+            self.frames = frames
+        first = self.cache is None
+        if first:
+            if self.frames is None:
+                raise ValueError("the first turn of a KVChatSession needs frames")
+            question = DEFAULT_X_TOKEN["VIDEO"] + "\n" + question
+        chat.conv.append_message(chat.conv.roles[0], question)
+        chat.conv.append_message(chat.conv.roles[1], None)
+        ids = self._ids(chat.conv.get_prompt())
+
+        if (not first and len(ids) > len(self.cached_ids)
+                and ids[: len(self.cached_ids)] == self.cached_ids):
+            self._extend(ids[len(self.cached_ids):])
+        else:
+            self._full_prefill(ids)
+
+        stopper = KeywordStopper([chat.stop_str()], chat.tokenizer)
+        stop_ids = set(stopper.stop_token_ids())
+        eos = int(chat.tokenizer.eos_token_id or 2)
+        budget = max_new_tokens or self.max_new_tokens
+        lm = chat.model.lm
+
+        if speculative:
+            from videollamb_torch.models.speculative import speculative_decode
+
+            toks, self.cache, self.logits, _ = speculative_decode(
+                lm, chat.cfg.lm, self.cache, self.logits,
+                [t for t in self.cached_ids if t >= 0],
+                max_new_tokens=budget, eos_token_id=eos, stop_ids=stop_ids)
+            self.cached_ids.extend(toks)
+        else:
+            toks = []
+            logits = self.logits
+            for _ in range(budget):
+                nxt = int(torch.argmax(logits[0]))
+                if nxt == eos or nxt in stop_ids:
+                    break
+                toks.append(nxt)
+                # The fed token's K/V joins the cache: cached context for the
+                # next turn's diff.
+                ids_t = torch.tensor([[nxt]], dtype=torch.long, device=chat.device)
+                logits, self.cache = llama_decode_step(
+                    lm, chat.cfg.lm, embed_tokens(lm, ids_t).to(self.cache.k.dtype),
+                    self.cache)
+                self.cached_ids.append(nxt)
+            self.logits = logits
+        answer = stopper.trim(chat.tokenizer.decode(toks, skip_special_tokens=True).strip())
+        chat.conv.messages[-1][1] = answer
         return answer

@@ -13,7 +13,6 @@ import argparse
 import sys
 
 UNPORTED = {
-    "kv_reuse": "--kv-reuse",
     "device_preprocess": "--device-preprocess",
     "image_file": "--image-file",
     "image_tower": "--image-tower",
@@ -54,6 +53,11 @@ def main(args) -> None:
         speculative = "draft"
         draft_params = quantize_llama_params(copy.deepcopy(model.lm))
     frames = processors["VIDEO"](load_video(args.video_file, num_frames=args.num_frames))
+    session = None
+    if args.kv_reuse and args.temperature == 0:
+        from videollamb_torch.serve.chat import KVChatSession
+
+        session = KVChatSession(chat, max_new_tokens=args.max_new_tokens)
 
     first = True
     while True:
@@ -64,11 +68,14 @@ def main(args) -> None:
         if not inp:
             break
         print(f"{chat.conv.roles[1]}: ", end="", flush=True)
-        out = chat.ask_about_video(
-            inp, frames, first_turn=first, temperature=args.temperature,
-            max_new_tokens=args.max_new_tokens, do_sample=args.temperature > 0,
-            speculative=speculative if args.temperature == 0 else None,
-            draft_params=draft_params)
+        if session is not None:
+            out = session.ask(inp, frames if first else None)
+        else:
+            out = chat.ask_about_video(
+                inp, frames, first_turn=first, temperature=args.temperature,
+                max_new_tokens=args.max_new_tokens, do_sample=args.temperature > 0,
+                speculative=speculative if args.temperature == 0 else None,
+                draft_params=draft_params)
         print(out)
         first = False
         if args.debug:
@@ -95,7 +102,9 @@ def parse_args(argv=None):
     parser.add_argument("--device-preprocess", action="store_true",
                         help="not supported by the port yet")
     parser.add_argument("--kv-reuse", action="store_true",
-                        help="not supported by the port yet")
+                        help="multi-turn KV reuse (greedy video chat, used when "
+                             "--temperature 0): later turns extend the cache instead "
+                             "of re-encoding and re-prefilling")
     parser.add_argument("--speculative", type=str, default=None,
                         choices=["lookup", "self-draft-int8"],
                         help="greedy-exact speculative decoding (used when "

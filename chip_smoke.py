@@ -224,7 +224,11 @@ def _paged_table(lengths, seed: int):
     return table.cuda(), torch.tensor(lengths, dtype=torch.int32, device="cuda")
 
 
-def kernel_phase(g: torch.Generator) -> dict:
+def kernel_phase(g: torch.Generator, system_len: int) -> dict:
+    """Every kernel against its plain version at the main paths' shapes, with
+    its time, the plain version's, the library call's and the bound.
+    ``system_len``: the stream's system prompt in tokens, the length of every
+    prefill ``StreamingSession`` makes."""
     import torch.nn.functional as F
 
     from videollamb_torch.ops.attention import multihead_attention
@@ -339,8 +343,9 @@ def kernel_phase(g: torch.Generator) -> dict:
                                       shapes=k11)
     del q4, k4, v4, qs
     # K1 at the stream's per-tick encodes (``serve/incremental.py``): one frame
-    # a tick, and a catch-up window of 4 frames.
-    for frames in (1, 4):
+    # a tick, and a catch-up window of 4 frames; and at the 16-frame clips of
+    # the LiveInfer and KV-chat phases.
+    for frames in (1, 4, 16):
         q, k, v = randn(frames, n, d, scale=0.125), randn(frames, n, d), randn(frames, n, d)
         err = compare(f"spatial ({frames}, {n}, {d})", fused_spatial_core_packed(q, k, v, heads=h),
                       spatial_core_packed_reference(q, k, v, h))
@@ -353,20 +358,26 @@ def kernel_phase(g: torch.Generator) -> dict:
             bound=bound(4 * q.numel() * 2, 4 * frames * h * n * n * e, "bf16")))
     del q, k, v, q4, k4, v4
 
-    b, t = ENC_FRAMES // 8, 8
+    # K2 at the encode path's 32 windows, and at the 2 windows of the
+    # 16-frame LiveInfer and KV-chat clips.
+    t = 8
+    results["temporal_attention"]["shapes"] = []
+    for b in (ENC_FRAMES // 8, 2):
+        qkv = torch.cat([randn(b, t, n, d, scale=0.125), randn(b, t, n, 2 * d)], dim=-1)
+        err = compare(f"temporal {tuple(qkv.shape)}", fused_temporal_core_fm3(qkv, num_heads=h),
+                      temporal_core_fm3_reference(qkv, h))
+        tq, tk, tv = (heads(qkv[..., i * d:(i + 1) * d].permute(0, 2, 1, 3)
+                            .reshape(b * n, t, d), h) for i in range(3))
+        results["temporal_attention"]["shapes"].append(dict(
+            shape=list(qkv.shape), max_abs_err=err,
+            ms=cuda_ms(lambda: fused_temporal_core_fm3(qkv, num_heads=h)),
+            plain_ms=cuda_ms(lambda: temporal_core_fm3_reference(qkv, h), iters=5),
+            library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(tq, tk, tv, scale=1.0)),
+            bound=bound(qkv.numel() * 2 + qkv.numel() // 3 * 2, 4 * b * n * h * t * t * e,
+                        "bf16")))
+    del qkv, tq, tk, tv
+    b = ENC_FRAMES // 8
     temporal_ops = 4 * b * n * h * t * t * e
-    qkv = torch.cat([randn(b, t, n, d, scale=0.125), randn(b, t, n, 2 * d)], dim=-1)
-    err = compare(f"temporal {tuple(qkv.shape)}", fused_temporal_core_fm3(qkv, num_heads=h),
-                  temporal_core_fm3_reference(qkv, h))
-    tq, tk, tv = (heads(qkv[..., i * d:(i + 1) * d].permute(0, 2, 1, 3).reshape(b * n, t, d), h)
-                  for i in range(3))
-    results["temporal_attention"]["shapes"] = [dict(
-        shape=list(qkv.shape), max_abs_err=err,
-        ms=cuda_ms(lambda: fused_temporal_core_fm3(qkv, num_heads=h)),
-        plain_ms=cuda_ms(lambda: temporal_core_fm3_reference(qkv, h), iters=5),
-        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(tq, tk, tv, scale=1.0)),
-        bound=bound(qkv.numel() * 2 + qkv.numel() // 3 * 2, temporal_ops, "bf16"))]
-    del qkv
     # K9 on (b, n, t, d) and K10 on three frame-major operands; SDPA over the
     # frames of each (b * n, head) is the library call for both.
     for name, shape, kernel, plain in (
@@ -426,6 +437,23 @@ def kernel_phase(g: torch.Generator) -> dict:
         library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt,
                                                                   attn_mask=sdpa_mask)),
         bound=results["flash_attention"]["bound"])]
+    # The stream's system prefill: Sq = Skv = system_len (under one tile),
+    # causal, every key valid, as ``llama_prefill`` calls it.
+    s_ = system_len
+    q, k, v = (randn(1, s_, 32, 128) for _ in range(3))
+    mask = torch.ones((1, s_), dtype=torch.bool, device=dev)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    errs.append(compare(f"flash through multihead_attention (1, {s_}, 32, 128), all keys valid",
+                        multihead_attention(q, k, v, causal=True, k_mask=mask),
+                        flash_attention_reference(qt, kt, vt, mask, causal=True)
+                        .transpose(1, 2)))
+    results["flash_attention"]["shapes"].append(dict(
+        shape=[1, s_, 32, 128], layout="(B, S, H, Dh) projections through "
+        "multihead_attention; the stream's system prefill", max_abs_err=errs[-1],
+        ms=cuda_ms(lambda: multihead_attention(q, k, v, causal=True, k_mask=mask)),
+        plain_ms=cuda_ms(lambda: flash_attention_reference(qt, kt, vt, mask, causal=True)),
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)),
+        bound=bound(4 * q.numel() * 2 + s_, 4 * 32 * 128 * s_ * (s_ + 1) // 2, "bf16")))
     del q, k, v, qt, kt, vt
     results["flash_attention"]["max_abs_err"] = max(errs)
 
@@ -871,6 +899,15 @@ class SmokeTokenizer:
         return " ".join(str(int(t)) for t in tokens if not (skip_special_tokens and int(t) < 3))
 
 
+def stream_system_len(cfg) -> int:
+    """Tokens of the system prompt that ``StreamingSession`` prefills, with the
+    smoke's tokenizer."""
+    from videollamb_torch.serve.chat import Chat
+    from videollamb_torch.serve.incremental import system_prompt_ids
+
+    return len(system_prompt_ids(Chat(SmokeTokenizer(cfg.lm.vocab_size), None, cfg, {})))
+
+
 # A question whose phrases repeat, so that prompt lookup has n-grams to hit.
 SPEC_QUESTION = " ".join(["what does the person in the red coat do next"] * 4)
 
@@ -1009,21 +1046,20 @@ def _pct(xs, q: float) -> float:
     return xs[min(len(xs) - 1, int(round(q * (len(xs) - 1))))] if xs else float("nan")
 
 
-def depth_margins(cls: torch.Tensor):
+def depth_margins(cls: torch.Tensor, alpha: float):
     """The detector's rule over every prefix of the stream's CLS embeddings
     (each fits its window): (the smallest |depth - threshold| over the
     prefixes whose depths are not all equal (equal depths fire nothing,
     exactly), the largest depth, the depths of each prefix)."""
-    from videollamb_torch.ops.scene_tilling import _frame_sims, depth_scores
+    from videollamb_torch.ops.scene_tilling import _frame_sims, _threshold_stats, depth_scores
 
     sims = _frame_sims(cls.float())
     margin, depths = float("inf"), []
     for m in range(2, sims.shape[0] + 1):  # m similarities: m + 1 >= 3 frames
         d = depth_scores(sims[:m])
-        mean = d.sum() / m
-        std = torch.sqrt(((d - mean) ** 2).sum() / (m - 1))
+        mean, std, _ = _threshold_stats(d)
         if float(std) > 0:
-            margin = min(margin, float((d - (mean + 0.5 * std)).abs().min()))
+            margin = min(margin, float((d - (mean + alpha * std)).abs().min()))
         depths.append(d)
     return margin, float(depths[-1].max()), depths
 
@@ -1039,16 +1075,21 @@ STREAM_QUERIES = {20: "what is the person doing", 60: "what changed in the scene
 STREAM_NEW = 24
 
 
-def drive_stream(chat, frames, queries, new: int, label: str, live_edge: bool = False):
-    """A ``StreamingSession`` over ``frames`` at 1 fps without pacing; per tick
-    (host seconds, kind, prefetch hit). The tick ends when its calls return
-    (answers are host strings); device work it left queued, such as the next
-    tick's prefetched encode, is not waited for. ``live_edge``: the session
-    sees only the frames up to the current one, as from a camera, so no encode
-    can be prefetched."""
+def drive_stream(chat, frames, queries, new: int, label: str, live_edge: bool = False,
+                 pace_s: float = 0.0, side_stream: bool = True):
+    """A ``StreamingSession`` over ``frames`` at 1 fps; per tick (seconds,
+    kind, prefetch hit). A tick's time runs from its first call to the end
+    of the device work it queued (the next tick's prefetched encode, the
+    tail of a fold's extend), so each tick is charged for its own work.
+    ``pace_s``: an idle gap between ticks, untimed (0: no pacing).
+    ``live_edge``: the session sees only the frames up to the current one, as
+    from a camera, so no encode can be prefetched. ``side_stream=False``
+    dispatches the prefetched encode on the current stream."""
     from videollamb_torch.serve.incremental import StreamingSession
 
     sess = StreamingSession(chat, max_seq_len=chat.cfg.max_length, max_new_tokens=new)
+    if not side_stream:
+        sess._side = None
     sess.video_tensor, sess.num_video_frames = frames, frames.shape[0]
     ticks, responses, bounds, shapes, max_open = [], [], [], set(), 0
     for i in range(frames.shape[0]):
@@ -1056,10 +1097,13 @@ def drive_stream(chat, frames, queries, new: int, label: str, live_edge: bool = 
             sess.input_query_stream(queries[i], video_time=float(i))
         if live_edge:
             sess.num_video_frames = i + 1
+        if pace_s:
+            time.sleep(pace_s)
         folded, hits = sess.closed_upto, sess.prefetch_hits
         t0 = time.perf_counter()
         sess.input_video_stream(float(i))
         q, r = sess()
+        torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         kind = "response" if r is not None else (
             "fold" if sess.closed_upto != folded else "plain")
@@ -1112,6 +1156,9 @@ def stream_phase(model, cfg, g: torch.Generator) -> dict:
             raise AssertionError(f"stream: bad answer {r}")
     if launches["spatial_attention"] == 0 or launches["flash_attention"] == 0:
         raise AssertionError(f"stream: K1 or K3 was never launched: {launches}")
+    if sess._system_len != stream_system_len(cfg):
+        raise AssertionError(f"stream: system prompt of {sess._system_len} tokens, K3 was "
+                             f"checked at {stream_system_len(cfg)}")
     if len(run["shapes"]) != 1:
         raise AssertionError(f"stream: state shapes changed: {run['shapes']}")
     answered = [q for q, _ in run["responses"] if "User: None" not in q]
@@ -1135,9 +1182,10 @@ def stream_phase(model, cfg, g: torch.Generator) -> dict:
     if any(v for k, v in read_counters().items()
            if k in ("spatial_attention", "temporal_attention", "flash_attention")):
         raise AssertionError("the plain run launched a kernel")
-    margin, max_depth, depths = depth_margins(sess._detector.cls_buf[: sess._detector.n])
-    plain_margin, _, plain_depths = depth_margins(
-        plain["sess"]._detector.cls_buf[: plain["sess"]._detector.n])
+    det, plain_det = sess._detector, plain["sess"]._detector
+    margin, max_depth, depths = depth_margins(det.cls_buf[: det.n], det.alpha)
+    plain_margin, _, plain_depths = depth_margins(plain_det.cls_buf[: plain_det.n],
+                                                  plain_det.alpha)
     depth_err = max(float((a - b).abs().max()) for a, b in zip(depths, plain_depths))
     mem_err = float((sess.bridge_state.memory.float()
                      - plain["sess"].bridge_state.memory.float()).abs().max())
@@ -1655,10 +1703,10 @@ def main() -> int:
         print(f"[build] ptxas: {name}: {regs} registers, {spills} bytes spilled")
 
     g = torch.Generator(device="cuda").manual_seed(args.seed)
-    kernels = kernel_phase(g)
+    cfg = ModelConfig()
+    kernels = kernel_phase(g, stream_system_len(cfg))
     encoded = encoder_phase(g, args.seed)
     graded = gradient_phase(g, args.seed)
-    cfg = ModelConfig()
     t0 = time.perf_counter()
     model = build_model(cfg, args.seed, "cuda", torch.bfloat16)
     torch.cuda.synchronize()

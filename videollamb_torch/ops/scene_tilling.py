@@ -16,7 +16,7 @@ package's static packing: fixed-size bounds and a validity mask.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -66,12 +66,25 @@ def top_indices(x: torch.Tensor, k: int) -> torch.Tensor:
     return torch.sort(x, descending=True, stable=True).indices[:k]
 
 
-def _threshold(depths: torch.Tensor, alpha: float) -> torch.Tensor:
-    """depths > mean + alpha * std, the std unbiased (ddof=1) as ``jnp.std``
-    computes it: the mean first, then the centred squares over n - 1."""
-    mean = torch.sum(depths) / depths.shape[0]
-    var = torch.sum((depths - mean) ** 2) / (depths.shape[0] - 1)
-    return depths > mean + alpha * torch.sqrt(var)
+def _threshold_stats(depths: torch.Tensor, n_live: Optional[int] = None):
+    """(mean, std, live) over the first ``n_live`` depths (all by default):
+    the std unbiased (ddof=1) as ``jnp.std`` computes it, the mean first, then
+    the centred squares over n - 1; ``live`` masks those depths. The rest of
+    the buffer is zeroed out of the sums, so its shape stays fixed."""
+    n = depths.shape[0] if n_live is None else n_live
+    live = torch.arange(depths.shape[0], device=depths.device) < n
+    dv = torch.where(live, depths, 0.0)
+    mean = torch.sum(dv) / max(n, 1)
+    var = torch.sum(torch.where(live, (dv - mean) ** 2, 0.0)) / max(n - 1, 1)
+    return mean, torch.sqrt(var), live
+
+
+def _threshold(depths: torch.Tensor, alpha: float, n_live: Optional[int] = None
+               ) -> torch.Tensor:
+    """depths > mean + alpha * std over the first ``n_live`` depths; the rest
+    never fire."""
+    mean, std, live = _threshold_stats(depths, n_live)
+    return live & (depths > mean + alpha * std)
 
 
 def _fired_sorted(cond: torch.Tensor, mk: int, width: int, fill: int) -> torch.Tensor:
@@ -91,6 +104,31 @@ def segment_topk(features: torch.Tensor, k: int = 3) -> torch.Tensor:
     return torch.cat([bounds, last]).to(torch.int32)
 
 
+def threshold_bounds(depths: torch.Tensor, alpha: float, max_boundaries: int, fill: int,
+                     n_live: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The threshold rule and its static packing, shared by ``segment_threshold``
+    and the stream's detector (``ops/streaming_boundaries.py``).
+
+    Fired positions in order; when more than ``mk`` = min(max_boundaries,
+    len(depths)) fire, the top-``mk`` depths instead. Only the first
+    ``n_live`` depths (all by default) count: the rest must be -inf, so that
+    top-k takes them last. Returns bounds (max_boundaries + 1,) int32, padded
+    with ``fill`` from slot n_valid on, and n_valid (a 0-d tensor).
+    """
+    cond = _threshold(depths, alpha, n_live)
+    n_fired = torch.sum(cond)
+    mk = min(max_boundaries, depths.shape[0])  # short videos have fewer positions
+    fired_sorted = _fired_sorted(cond, mk, max_boundaries, fill)
+    top = torch.sort(top_indices(depths, mk).to(torch.int32)).values
+    top_sorted = torch.cat([top, top.new_full((max_boundaries - mk,), fill)])
+    use_topk = n_fired > mk
+    n_valid = torch.where(use_topk, mk, n_fired)
+    raw = torch.where(use_topk, top_sorted, fired_sorted)
+    slot = torch.arange(max_boundaries + 1, dtype=torch.int32, device=depths.device)
+    picked = raw[torch.clamp(slot, max=max_boundaries - 1)]
+    return torch.where(slot < n_valid, picked, fill).to(torch.int32), n_valid
+
+
 def segment_threshold(features: torch.Tensor, alpha: float = 0.5,
                       max_boundaries: int = 15) -> Tuple[torch.Tensor, torch.Tensor]:
     """Threshold-mode SceneTilling (reference self_segment.py:33-39).
@@ -103,19 +141,9 @@ def segment_threshold(features: torch.Tensor, alpha: float = 0.5,
     padded with T-1, and valid (max_boundaries + 1,) bool.
     """
     t = features.shape[0]
-    depths = depth_scores(_frame_sims(features))
-    cond = _threshold(depths, alpha)
-    n_fired = torch.sum(cond)
-    mk = min(max_boundaries, depths.shape[0])  # short videos have fewer positions
-    fired_sorted = _fired_sorted(cond, mk, max_boundaries, t - 1)
-    top = torch.sort(top_indices(depths, mk).to(torch.int32)).values
-    top_sorted = torch.cat([top, top.new_full((max_boundaries - mk,), t - 1)])
-    use_topk = n_fired > mk
-    n_valid = torch.where(use_topk, mk, n_fired)
-    raw = torch.where(use_topk, top_sorted, fired_sorted)
+    bounds, n_valid = threshold_bounds(depth_scores(_frame_sims(features)), alpha,
+                                       max_boundaries, t - 1)
     slot = torch.arange(max_boundaries + 1, dtype=torch.int32, device=features.device)
-    picked = raw[torch.clamp(slot, max=max_boundaries - 1)]
-    bounds = torch.where(slot < n_valid, picked, t - 1).to(torch.int32)
     return bounds, slot <= n_valid
 
 

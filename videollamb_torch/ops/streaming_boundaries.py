@@ -10,10 +10,10 @@ lives on the stream's device in buffers whose shapes never change:
 
 Each frame runs one step over the whole masked buffer: write the CLS, fill
 ``sims[n-1]``, and apply the threshold rule of ``segment_threshold``
-(``ops/scene_tilling.py``, reference self_segment.py:33-39). Masking the
-invalid similarities to -inf cuts both monotone-run scans exactly at the
-valid frontier (a -inf never extends a non-decreasing run), so the bounds
-equal ``segment_threshold`` over the frames seen, as long as they fit the
+(``ops/scene_tilling.threshold_bounds``, reference self_segment.py:33-39)
+to the valid prefix. Masking the invalid similarities to -inf cuts both
+monotone-run scans exactly at the valid frontier (a -inf never extends a
+non-decreasing run), so the bounds equal ``segment_threshold`` over the frames seen, as long as they fit the
 window. Streams longer than ``cap`` slide the window by ``cap // 2``;
 bounds stay absolute through ``base``, and the mean and std then cover the
 window, not all history.
@@ -29,7 +29,7 @@ from typing import List, Tuple
 
 import torch
 
-from videollamb_torch.ops.scene_tilling import depth_scores, top_indices
+from videollamb_torch.ops.scene_tilling import depth_scores, threshold_bounds
 
 _NEG = float("-inf")
 
@@ -55,29 +55,13 @@ def _boundary_step(cls_buf: torch.Tensor, sims: torch.Tensor, n: int, new_cls: t
         nb = torch.clamp(torch.linalg.norm(cur), min=eps)
         sims[n - 1] = torch.sum(prev * cur) / (na * nb)
 
-    t = n + 1  # frames now resident
-    m = t - 1  # valid similarities
+    m = n  # valid similarities, with n + 1 frames now resident
     live = torch.arange(cap - 1, device=sims.device) < m
     # depth_scores over the -inf tail is NaN there (-inf + -inf + inf): mask
-    # it before the mean and the std, as the JAX step does.
+    # it back to -inf before the threshold rule, as the JAX step does.
     depths = torch.where(live, depth_scores(torch.where(live, sims, _NEG)), _NEG)
-    mf = float(max(m, 1))
-    dv = torch.where(live, depths, 0.0)
-    mean = torch.sum(dv) / mf
-    var = torch.sum(torch.where(live, (dv - mean) ** 2, 0.0)) / max(mf - 1.0, 1.0)
-    cond = live & (depths > mean + alpha * torch.sqrt(var))
-    n_fired = torch.sum(cond)
-
-    mk = max_boundaries
-    pos = torch.arange(cap - 1, dtype=torch.int32, device=sims.device)
-    fired_sorted = torch.sort(torch.where(cond, pos, cap)).values[:mk]
-    top_sorted = torch.sort(top_indices(depths, mk).to(torch.int32)).values
-    use_topk = n_fired > mk
-    n_valid = torch.where(use_topk, mk, n_fired)
-    raw = torch.where(use_topk, top_sorted, fired_sorted)
-    slot = torch.arange(max_boundaries + 1, dtype=torch.int32, device=sims.device)
-    bounds = torch.where(slot < n_valid, raw[torch.clamp(slot, max=mk - 1)], t - 1)
-    return cls_buf, sims, bounds.to(torch.int32), n_valid
+    bounds, n_valid = threshold_bounds(depths, alpha, max_boundaries, n, n_live=m)
+    return cls_buf, sims, bounds, n_valid
 
 
 def _slide(cls_buf: torch.Tensor, sims: torch.Tensor, shift: int):

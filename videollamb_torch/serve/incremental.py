@@ -65,6 +65,13 @@ from videollamb_torch.serve.chat import Chat, _round_up
 from videollamb_torch.serve.streaming import encode_frames
 
 
+def system_prompt_ids(chat: Chat) -> List[int]:
+    """Token ids of the system preamble that a session prefills first (and
+    again at every compaction)."""
+    conv = chat.conv
+    return list(chat.tokenizer(conv.system + (conv.sep if conv.sep else "")).input_ids)
+
+
 class StreamingSession:
     """``LiveInfer``'s tick API (load_videos / input_video_stream /
     input_query_stream / __call__) over carried state."""
@@ -121,9 +128,7 @@ class StreamingSession:
 
     def _prefill_system(self) -> None:
         """Prefill the system preamble; everything else joins by extension."""
-        conv = self.chat.conv
-        system = conv.system + (conv.sep if conv.sep else "")
-        ids = torch.tensor([self.chat.tokenizer(system).input_ids], dtype=torch.long,
+        ids = torch.tensor([system_prompt_ids(self.chat)], dtype=torch.long,
                            device=self.device)
         self._system_len = int(ids.shape[1])
         lm = self.chat.model.lm

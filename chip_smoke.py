@@ -1075,21 +1075,16 @@ STREAM_QUERIES = {20: "what is the person doing", 60: "what changed in the scene
 STREAM_NEW = 24
 
 
-def drive_stream(chat, frames, queries, new: int, label: str, live_edge: bool = False,
-                 pace_s: float = 0.0, side_stream: bool = True):
+def drive_stream(chat, frames, queries, new: int, label: str, live_edge: bool = False):
     """A ``StreamingSession`` over ``frames`` at 1 fps; per tick (seconds,
     kind, prefetch hit). A tick's time runs from its first call to the end
     of the device work it queued (the next tick's prefetched encode, the
-    tail of a fold's extend), so each tick is charged for its own work.
-    ``pace_s``: an idle gap between ticks, untimed (0: no pacing).
-    ``live_edge``: the session sees only the frames up to the current one, as
-    from a camera, so no encode can be prefetched. ``side_stream=False``
-    dispatches the prefetched encode on the current stream."""
+    tail of a fold's extend), so each tick is charged for its own work; no
+    pacing between ticks. ``live_edge``: the session sees only the frames up
+    to the current one, as from a camera, so no encode can be prefetched."""
     from videollamb_torch.serve.incremental import StreamingSession
 
     sess = StreamingSession(chat, max_seq_len=chat.cfg.max_length, max_new_tokens=new)
-    if not side_stream:
-        sess._side = None
     sess.video_tensor, sess.num_video_frames = frames, frames.shape[0]
     ticks, responses, bounds, shapes, max_open = [], [], [], set(), 0
     for i in range(frames.shape[0]):
@@ -1097,8 +1092,6 @@ def drive_stream(chat, frames, queries, new: int, label: str, live_edge: bool = 
             sess.input_query_stream(queries[i], video_time=float(i))
         if live_edge:
             sess.num_video_frames = i + 1
-        if pace_s:
-            time.sleep(pace_s)
         folded, hits = sess.closed_upto, sess.prefetch_hits
         t0 = time.perf_counter()
         sess.input_video_stream(float(i))

@@ -711,7 +711,7 @@ def test_streaming_session_kernels_match_plain_on_the_card(dev):
     """A tiny bf16 StreamingSession (head dims 64, as K1 and K3 take) over still
     scenes, with the kernels and with their plain versions: equal boundaries
     and response times, K1 and K3 launched by the first run only, the bridge
-    memory close, the prefetched encodes served from the side stream."""
+    memory close, every encode after the first served from the prefetch."""
     from videollamb_torch.config import BridgeConfig, LlamaConfig, ModelConfig, VisionConfig
     from videollamb_torch.models.assembly import VideoLLaMB
     from videollamb_torch.models.bridge.rmt_r import init_rmt_r_params

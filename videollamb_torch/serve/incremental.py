@@ -25,11 +25,9 @@ Device memory is constant in stream length: one KV cache of
 
 The per-frame encode of the next tick is dispatched before this tick's
 host work (the detector's one read per frame, each decoded token's
-argmax). On the card it runs on a stream of its own, created once per
-session, so those reads do not wait behind it; the consumer's stream waits
-on its event when it takes the frames. On the CPU the same code runs
-without streams. At one frame a tick the encode is host-bound, and
-``PERF.md`` records no tick-latency gain from the overlap on the H100.
+argmax), on the current stream. At one frame a tick the encode is
+host-bound: ``PERF.md`` records no tick-latency gain on the H100 from
+running it on a stream of its own, nor from the prefetch itself.
 
 ``recent_segments`` records each closed segment as it left the bridge
 (padded), even when ``_extend_segment`` installed only its newest tokens or
@@ -89,8 +87,6 @@ class StreamingSession:
         self.temperature = temperature
         self.seed = seed
         self.device = chat.device
-        # The prefetched encode's stream (the card only).
-        self._side = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
         self.reset()
 
     # -- state ----------------------------------------------------------
@@ -110,7 +106,7 @@ class StreamingSession:
         self.video_time = 0.0
         self.last_frame_idx = -1
         self.video_tensor: Optional[np.ndarray] = None
-        # Encode prefetch: (start, end, features, event or None).
+        # Encode prefetch: (start, end, features).
         self._prefetched = None
         self.prefetch_hits = 0
         self.prefetch_misses = 0
@@ -144,18 +140,6 @@ class StreamingSession:
         self.num_video_frames = self.video_tensor.shape[0]
         self.video_duration = self.num_video_frames / self.frame_fps
 
-    def _dispatch_encode(self, start: int, end: int):
-        """Enqueue the encode of frames [start, end) on the side stream:
-        (features, event), the event None on the CPU."""
-        frames = self.video_tensor[start:end]
-        if self._side is None:
-            return encode_frames(self.chat, frames), None
-        with torch.cuda.stream(self._side):
-            feats = encode_frames(self.chat, frames)
-            done = torch.cuda.Event()
-            done.record(self._side)
-        return feats, done
-
     def _take_frames(self, start: int, end: int) -> torch.Tensor:
         """Encoded frames [start, end): from the prefetch when its window
         matches, else encoded now. Re-arms the prefetch for the next window
@@ -163,18 +147,15 @@ class StreamingSession:
         pf = self._prefetched
         self._prefetched = None
         if pf is not None and pf[0] == start and pf[1] == end:
-            feats, done = pf[2], pf[3]
+            feats = pf[2]
             self.prefetch_hits += 1
-            if done is not None:
-                stream = torch.cuda.current_stream(self.device)
-                stream.wait_event(done)
-                feats.record_stream(stream)
         else:
             feats = encode_frames(self.chat, self.video_tensor[start:end])
             self.prefetch_misses += 1
         nxt_end = min(end + (end - start), self.num_video_frames)
         if nxt_end > end:
-            self._prefetched = (end, nxt_end, *self._dispatch_encode(end, nxt_end))
+            self._prefetched = (end, nxt_end,
+                                encode_frames(self.chat, self.video_tensor[end:nxt_end]))
         return feats
 
     def input_query_stream(self, query: str, video_time: Optional[float] = None) -> str:

@@ -15,7 +15,10 @@
    each, with its host enqueue and CUDA-graph replay times; K4 with its host
    enqueue and CUDA-graph replay times, also at one slot of 1191 tokens, and
    with lengths past the table's width followed by normal calls; K5's
-   CUDA-graph replay time. The build's
+   CUDA-graph replay time. K4 and K6 also over 8 slots that share their
+   first 16 full pages (a cached prefix), and K5 writing three garbage steps,
+   then over a slot rewound by 3 rows (a frozen grammar row), followed by
+   K4 over it. The build's
    ``ptxas`` registers and spills are echoed, one line per kernel.
 1a. The tower's encode-throughput path (``encoder_phase``): ViT-L/14 at
    full width and depth (23 layers run, seeded random bf16 weights) encodes
@@ -52,6 +55,20 @@
    query, a sampled answer over all 16 frames: K1, K2, K3) and two
    ``KVChatSession``s (greedy, then prompt-lookup speculation; the first
    turn prefills, the second extends the cache).
+3b. Request features (``features_phase``), on the same model: the paged
+   engine with 8 slots, int8 then bf16 pages (eos 2, a vocabulary whose
+   decodable ids are JSON pieces): 4 videos of 16 frames with 4 questions
+   each through automatic prefix caching (hits and misses, admission of a
+   video's first question against its later ones, refcounts back to zero
+   after the drain and ``release_prefix``, and the first token where each
+   cached answer parts from the same question as a full prompt, reported);
+   then 8 text prompts unconstrained, with one choice set on 4 rows, all
+   json_object (one grammar table), two choice sets with json_object rows
+   (the combined table) at k = 8 and through host masks at k = 1, sampling
+   controls with logprob rows, and 6 rows over two seeded adapters (ranks 8
+   and 16) and the base: aggregate tok/s, peak pages, K4 / K5 / K6
+   launches. Every choice answer is a choice, every json_object answer
+   parses, min_tokens holds, logprobs are finite, <= 0 and sorted.
 4. Speculative decoding at full depth in bf16: ``Chat.generate_speculative``
    with prompt lookup and with an int8 copy of the LM as the draft, beside
    plain greedy (accepted lengths, rounds, rates, and where the chains part,
@@ -84,6 +101,7 @@ import contextlib
 import copy
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -101,6 +119,9 @@ KERNEL_RTOL = 2e-2
 STATS_TOL = 1e-5
 K4_OUT_TOL = 2e-3  # of max |out|
 K6_OUT_TOL = 1e-4  # of max |out|
+# With a bf16 query both round K6's output to bf16 once: they part where the
+# two f32 sums straddle a rounding edge, by one bf16 step of the value.
+K6_BF16_Q_RTOL = 2 ** -7
 # K7 and its plain version both sum in f32 and round once to bf16: they part
 # only where the two f32 sums straddle a rounding edge, by one bf16 step.
 K7_ATOL = 1e-3
@@ -136,6 +157,13 @@ PEAK_OPS = {"bf16": 989e12, "int8": 1979e12}
 # defaults): page 64, 40 pages per slot, 321 pages, 512-token K4 blocks.
 PAGE, PPS, POOL_PAGES = 64, 40, 321
 PAGED_LENGTHS = [0, 300, 517, 1024, 1500, 2047, 2500, 1777]
+# Prefix caching: 8 slots share their first 16 full pages (one cached
+# 1024-token prefix) and hold private tail pages, at the lengths of
+# questions about one 16-frame video (the features phase's).
+SHARED_PAGES = 16
+SHARED_LENGTHS = [1166, 1180, 1171, 1190, 1168, 1201, 1176, 1185]
+# A frozen grammar row rewound over this many garbage steps.
+REWIND = 3
 
 
 def card_line() -> str:
@@ -212,15 +240,18 @@ def compare(name: str, got: torch.Tensor, want: torch.Tensor, atol: float = KERN
     return max_abs
 
 
-def _paged_table(lengths, seed: int):
+def _paged_table(lengths, seed: int, shared: int = 0):
+    """A table of random pages per slot; with ``shared`` every row maps the
+    same first ``shared`` pages (a cached prefix)."""
     g = torch.Generator(device="cpu").manual_seed(seed)
     perm = torch.randperm(POOL_PAGES - 1, generator=g) + 1
     table = torch.zeros((len(lengths), PPS), dtype=torch.int32)
-    nxt = 0
+    table[:, :shared] = perm[:shared]
+    nxt = shared
     for i, n in enumerate(lengths):
         used = -(-n // PAGE)
-        table[i, :used] = perm[nxt:nxt + used]
-        nxt += used
+        table[i, shared:used] = perm[nxt:nxt + used - shared]
+        nxt += max(used - shared, 0)
     return table.cuda(), torch.tensor(lengths, dtype=torch.int32, device="cuda")
 
 
@@ -563,7 +594,99 @@ def kernel_phase(g: torch.Generator, system_len: int) -> dict:
     print(f"[kernel] paged_fresh_write: kernel {r['ms']:.4f} ms (host enqueue "
           f"{r['host_ms']:.4f} ms; replayed from a CUDA graph {r['device_ms']:.4f} ms), bound "
           f"{r['bound'][0]:.4f} ms ({r['bound'][1]})")
-    del pools, flat, fresh
+
+    # Prefix caching: K4 over 8 slots that share their first 16 full pages.
+    # The bound reads the shared pages once.
+    stab, slens = _paged_table(SHARED_LENGTHS, seed=7, shared=SHARED_PAGES)
+    sa = (q, pools[0][layer], pools[1][layer], stab, slens, *scales)
+    got = gathered_paged_attention_int8(*sa, pages_per_block=ppb)
+    want = gathered_paged_attention_int8_reference(*sa, pages_per_block=ppb)
+    label = f"{SHARED_PAGES} shared pages, lengths {SHARED_LENGTHS}"
+    errs = [compare(f"gathered int8 m, {label}", got[1], want[1], STATS_TOL, STATS_TOL),
+            compare(f"gathered int8 l, {label}", got[2], want[2], STATS_TOL, STATS_TOL),
+            compare(f"gathered int8 out, {label}", got[0], want[0],
+                    K4_OUT_TOL * float(want[0].abs().max()), 0.0)]
+    s_tokens = sum(SHARED_LENGTHS)
+    s_unique = s_tokens - (n_slots - 1) * SHARED_PAGES * PAGE
+    shared_row = dict(
+        shape=[n_slots, h, dh], lengths=SHARED_LENGTHS, shared_pages=SHARED_PAGES,
+        max_abs_err=max(errs),
+        ms=cuda_ms(lambda: gathered_paged_attention_int8(*sa, pages_per_block=ppb)),
+        plain_ms=cuda_ms(lambda: gathered_paged_attention_int8_reference(
+            *sa, pages_per_block=ppb)),
+        library_ms=None, bound=bound(k4_bytes(s_unique, n_slots), 4 * s_tokens * h * dh, "int8"),
+        host_ms=host_ms(lambda: gathered_paged_attention_int8(*sa, pages_per_block=ppb)),
+        device_ms=graph_ms(lambda: gathered_paged_attention_int8(*sa, pages_per_block=ppb)))
+    results["gathered_paged_attention"]["shapes"].append(shared_row)
+
+    # K5 over rewound rows: every slot writes three garbage steps past its
+    # length, slot 3 is rewound by 3 (a frozen grammar row), the others move
+    # on; the next write lands on slot 3's first garbage row; then K4 reads
+    # lengths + 1. Held against the plain write and the plain attention.
+    rtab, _ = _paged_table([n + REWIND + 1 for n in SHARED_LENGTHS], seed=8,
+                           shared=SHARED_PAGES)
+    rlens = torch.tensor(SHARED_LENGTHS, dtype=torch.int32, device=dev)
+    rows = torch.arange(n_slots, device=dev)
+    plain_pools = [p.clone() for p in pools]
+
+    def rows_at(pos):
+        pos = pos.long()
+        return rtab[rows, pos // PAGE], (pos % PAGE).int()
+
+    steps = [torch.randint(-128, 128, (REWIND + 1, layers, n_slots, kd), generator=g,
+                           device=dev, dtype=torch.int8) for _ in range(2)]
+    for step in range(REWIND):
+        for kernel, target in ((paged_fresh_write, pools), (paged_fresh_write_xla, plain_pools)):
+            kernel(*target, steps[0][step], steps[1][step], *rows_at(rlens + step))
+    rewound = rlens + REWIND
+    rewound[3] -= REWIND
+    wp, wo = rows_at(rewound)
+    paged_fresh_write(*pools, steps[0][REWIND], steps[1][REWIND], wp, wo)
+    paged_fresh_write_xla(*plain_pools, steps[0][REWIND], steps[1][REWIND], wp, wo)
+    torch.cuda.synchronize()
+    for name, a, w in (("K", pools[0], plain_pools[0]), ("V", pools[1], plain_pools[1])):
+        if not torch.equal(a[:, 1:], w[:, 1:]):
+            raise AssertionError(f"fresh write over rewound rows: {name} pool differs")
+    del plain_pools
+    ra = (q, pools[0][layer], pools[1][layer], rtab, rewound + 1, *scales)
+    got = gathered_paged_attention_int8(*ra, pages_per_block=ppb)
+    want = gathered_paged_attention_int8_reference(*ra, pages_per_block=ppb)
+    label = f"after a write over slot 3 rewound by {REWIND}"
+    errs = [compare(f"gathered int8 m, {label}", got[1], want[1], STATS_TOL, STATS_TOL),
+            compare(f"gathered int8 l, {label}", got[2], want[2], STATS_TOL, STATS_TOL),
+            compare(f"gathered int8 out, {label}", got[0], want[0],
+                    K4_OUT_TOL * float(want[0].abs().max()), 0.0)]
+    r_tokens = int((rewound + 1).sum())
+    results["gathered_paged_attention"]["shapes"].append(dict(
+        shape=[n_slots, h, dh], lengths=(rewound + 1).tolist(), shared_pages=SHARED_PAGES,
+        rewound_slot=3, max_abs_err=max(errs),
+        ms=cuda_ms(lambda: gathered_paged_attention_int8(*ra, pages_per_block=ppb)),
+        plain_ms=cuda_ms(lambda: gathered_paged_attention_int8_reference(
+            *ra, pages_per_block=ppb)),
+        library_ms=None,
+        bound=bound(k4_bytes(r_tokens - (n_slots - 1) * SHARED_PAGES * PAGE, n_slots),
+                    4 * r_tokens * h * dh, "int8"),
+        host_ms=host_ms(lambda: gathered_paged_attention_int8(*ra, pages_per_block=ppb)),
+        device_ms=graph_ms(lambda: gathered_paged_attention_int8(*ra, pages_per_block=ppb))))
+    print(f"[kernel] fresh write of 3 garbage steps, slot 3 rewound by {REWIND}, one more "
+          "write: equal to the plain writes outside page 0 -> ok")
+    rflat = (torch.arange(layers, device=dev)[:, None], (wp * PAGE + wo)[None].long())
+    rk, rv = steps[0][REWIND], steps[1][REWIND]
+
+    def library_rewound():
+        for pool, rows_in in zip(flat, (rk, rv)):
+            pool.index_put_(rflat, rows_in)
+
+    results["paged_fresh_write"]["shapes"] = [dict(
+        shape=[layers, POOL_PAGES, PAGE, kd], slots=n_slots, rewound_slot=3, rewind=REWIND,
+        max_abs_err=0.0,
+        ms=cuda_ms(lambda: paged_fresh_write(*pools, rk, rv, wp, wo)),
+        plain_ms=cuda_ms(lambda: paged_fresh_write_xla(*pools, rk, rv, wp, wo)),
+        library_ms=cuda_ms(library_rewound),
+        bound=bound(4 * layers * n_slots * kd + 2 * n_slots * 4, 0, "int8"),
+        host_ms=host_ms(lambda: paged_fresh_write(*pools, rk, rv, wp, wo)),
+        device_ms=graph_ms(lambda: paged_fresh_write(*pools, rk, rv, wp, wo)))]
+    del pools, flat, fresh, steps
 
     # K6: one layer of the bf16 head-major pool.
     k6 = [torch.randn((h, POOL_PAGES, PAGE, dh), generator=g, device=dev).to(bf)
@@ -589,10 +712,12 @@ def kernel_phase(g: torch.Generator, system_len: int) -> dict:
         device_ms=graph_ms(lambda: paged_attention_with_stats(q, *k6, lens, table)))
     # The paged step's own call: a bf16 query, int32 lengths.
     qb = q.to(bf)
+    got_b = paged_attention_with_stats(qb, *k6, lens, table)[0]
+    want_b = attend_paged_with_stats_xla(qb, *k6, table, lens)[0]
     results["paged_attention_stats"]["shapes"] = [dict(
         shape=[n_slots, h, dh], q_dtype="bfloat16", max_abs_err=compare(
-            "paged bf16 out, bf16 q", paged_attention_with_stats(qb, *k6, lens, table)[0],
-            attend_paged_with_stats_xla(qb, *k6, table, lens)[0]),
+            "paged bf16 out, bf16 q", got_b, want_b,
+            K6_OUT_TOL * float(want_b.abs().max()), K6_BF16_Q_RTOL),
         ms=cuda_ms(lambda: paged_attention_with_stats(qb, *k6, lens, table)),
         host_ms=host_ms(lambda: paged_attention_with_stats(qb, *k6, lens, table)),
         device_ms=graph_ms(lambda: paged_attention_with_stats(qb, *k6, lens, table)),
@@ -602,6 +727,49 @@ def kernel_phase(g: torch.Generator, system_len: int) -> dict:
         print(f"[kernel] paged_attention_stats q {'bf16' if 'q_dtype' in r else 'f32'}: kernel "
               f"{r['ms']:.4f} ms (host enqueue {r['host_ms']:.4f} ms; replayed from a CUDA "
               f"graph {r['device_ms']:.4f} ms), bound {r['bound'][0]:.4f} ms ({r['bound'][1]})")
+    # Prefix caching: K6 over the same shared-page table, with an f32 query
+    # (the tolerances of K6's first row) and with the paged step's bf16 query
+    # (those of its bf16-q row). The bound reads the shared pages once.
+    got = paged_attention_with_stats(q, *k6, slens, stab)
+    want = attend_paged_with_stats_xla(q, *k6, stab, slens)
+    got_sb = paged_attention_with_stats(qb, *k6, slens, stab)[0]
+    want_sb = attend_paged_with_stats_xla(qb, *k6, stab, slens)[0]
+    label = f"{SHARED_PAGES} shared pages, lengths {SHARED_LENGTHS}"
+    errs = [compare(f"paged bf16 m, {label}", got[1], want[1], STATS_TOL, STATS_TOL),
+            compare(f"paged bf16 l, {label}", got[2], want[2], STATS_TOL, STATS_TOL),
+            compare(f"paged bf16 out, {label}", got[0], want[0],
+                    K6_OUT_TOL * float(want[0].abs().max()), 0.0),
+            compare(f"paged bf16 out, bf16 q, {label}", got_sb, want_sb,
+                    K6_OUT_TOL * float(want_sb.abs().max()), K6_BF16_Q_RTOL)]
+    # Where a bf16 q's error comes from: K6 fed the same q values in f32,
+    # against its plain version (a kernel check), and how much of the bf16-q
+    # output is that f32 output rounded once to bf16.
+    for name, tb, ln, got_q in (("", table, lens, got_b), (f", {label}", stab, slens, got_sb)):
+        out_f = paged_attention_with_stats(qb.float(), *k6, ln, tb)[0]
+        want_f = attend_paged_with_stats_xla(qb.float(), *k6, tb, ln)[0]
+        errs.append(compare(f"paged bf16 out, f32 q of bf16 values{name}", out_f, want_f,
+                            K6_OUT_TOL * float(want_f.abs().max()), 0.0))
+        same = float((got_q == out_f.to(bf)).float().mean())
+        print(f"[kernel] paged bf16 out, bf16 q{name}: {same:.6f} of the entries equal the "
+              "f32-q output of the same values rounded once to bf16")
+    results["paged_attention_stats"]["shapes"].append(dict(
+        shape=[n_slots, h, dh], q_dtype="bfloat16", lengths=SHARED_LENGTHS,
+        shared_pages=SHARED_PAGES, max_abs_err=max(errs),
+        ms=cuda_ms(lambda: paged_attention_with_stats(qb, *k6, slens, stab)),
+        host_ms=host_ms(lambda: paged_attention_with_stats(qb, *k6, slens, stab)),
+        device_ms=graph_ms(lambda: paged_attention_with_stats(qb, *k6, slens, stab)),
+        plain_ms=cuda_ms(lambda: attend_paged_with_stats_xla(qb, *k6, stab, slens)),
+        library_ms=None,
+        bound=bound(s_unique * h * dh * 2 * 2 + 2 * qb.numel() * 4 + 2 * n_slots * h * 4
+                    + stab.numel() * 4, 4 * s_tokens * h * dh, "bf16")))
+    for r in (shared_row, results["gathered_paged_attention"]["shapes"][-1],
+              results["paged_fresh_write"]["shapes"][0],
+              results["paged_attention_stats"]["shapes"][-1]):
+        print(f"[kernel] {r.get('lengths', r['shape'])}"
+              f"{' rewound slot 3' if 'rewound_slot' in r else ''}: kernel {r['ms']:.4f} ms "
+              f"(host enqueue {r['host_ms']:.4f} ms; replayed from a CUDA graph "
+              f"{r['device_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, bound "
+              f"{r['bound'][0]:.4f} ms ({r['bound'][1]})")
     del k6
     # K6 where its splits meet (256 tokens): lengths on, just under and just
     # over a boundary, one token, none, a table not a multiple of the split,
@@ -868,6 +1036,263 @@ def serving_phase(model, cfg, g: torch.Generator) -> dict:
     return dict(stats=[int8, bf16],
                 launches={**int8["launches"],
                           "paged_attention_stats": bf16["launches"]["paged_attention_stats"]})
+
+
+# The features phase's decodable vocabulary: the JSON pieces of
+# tests/test_grammar.py at their ids, every other id of the 32000 undecodable
+# (grammar tables then expand over these pieces only).
+JSON_PIECES = {
+    3: "{", 4: "}", 5: "[", 6: "]", 7: '"', 8: ":", 9: ",", 10: " ",
+    11: "0", 12: "1", 13: "7", 14: "-", 15: ".", 16: "e", 17: "+",
+    18: "true", 19: "false", 20: "null", 21: "t", 22: "r", 23: "u",
+    24: "a", 25: "l", 26: "s", 27: "n", 28: "f",
+    29: '"name"', 30: '": ', 31: ', "', 32: "abc", 33: "xyz",
+    34: '{"', 35: '"}', 36: "\\", 37: "\\n", 38: "A", 39: "B",
+    40: "12", 41: "3",
+}
+FEATURE_EOS = 2
+FEATURE_NEW = 24
+# Two choice sets (token ids), the first shared by the choice rows.
+CHOICE_SETS = [[[38], [39], [24, 32]], [[18], [19], [20, 9]]]
+
+
+def text_batch(cfg, g: torch.Generator, n: int):
+    """A text-only B=1 batch of ``n`` random ids."""
+    from videollamb_torch.models.assembly import MultimodalBatch
+
+    ids = torch.randint(4, cfg.lm.vocab_size, (1, n), generator=g, device="cuda")
+    return MultimodalBatch(input_ids=ids, attention_mask=torch.ones_like(ids))
+
+
+def seeded_adapters(cfg, ranks, seed: int):
+    """Adapters of the given ranks for every projection, numpy f32:
+    A ~ N(0, 1 / d_in), B ~ N(0, 0.02^2)."""
+    import numpy as np
+
+    lm = cfg.lm
+    d, inter, kv = lm.hidden_size, lm.intermediate_size, lm.num_key_value_heads * lm.head_dim
+    dims = {"q_proj": (d, d), "k_proj": (d, kv), "v_proj": (d, kv), "o_proj": (d, d),
+            "gate_proj": (d, inter), "up_proj": (d, inter), "down_proj": (inter, d)}
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name, r in ranks.items():
+        ad = {}
+        for proj, (d_in, d_out) in dims.items():
+            layers = lm.num_hidden_layers
+            ad[f"{proj}_lora_a"] = (rng.standard_normal((layers, d_in, r), np.float32)
+                                    * d_in ** -0.5)
+            ad[f"{proj}_lora_b"] = rng.standard_normal((layers, r, d_out), np.float32) * 0.02
+        out[name] = ad
+    return out
+
+
+def features_phase(model, cfg, g: torch.Generator) -> dict:
+    """The paged engine's request features at 7B, 8 slots, int8 then bf16
+    pages: prefix caching (4 videos x 4 questions, automatic), choice rows
+    on one device table, json_object rows, a mixed batch of choice sets and
+    json rows through the combined table and through host masks at k = 1,
+    sampling controls with logprob rows, and 6 rows over two adapters and
+    the base. Hard checks: choices, JSON, min_tokens, logprobs, refcounts."""
+    import json as _json
+
+    from videollamb_torch.constants import VIDEO_TOKEN_INDEX
+    from videollamb_torch.models.assembly import MultimodalBatch
+    from videollamb_torch.models.lm.mlora import add_multi_lora_params, drop_multi_lora_params
+    from videollamb_torch.serve import grammar as grammar_mod
+    from videollamb_torch.serve.grammar import json_constraint
+    from videollamb_torch.serve.paged import PagedServingEngine
+    from videollamb_torch.serve.server import Request
+
+    strs = [None] * cfg.lm.vocab_size
+    for i, piece in JSON_PIECES.items():
+        strs[i] = piece
+
+    class Tok:
+        eos_token_id = FEATURE_EOS
+
+    def decode(tokens):
+        return "".join(strs[t] for t in tokens if t != FEATURE_EOS)
+
+    # 4 videos of 16 frames (system + video prefix of 40 ids), 4 questions each.
+    prefixes = [make_batch(cfg, g, [40], 16) for _ in range(4)]
+    questions = [[torch.randint(4, cfg.lm.vocab_size, (1, 16), generator=g, device="cuda")
+                  for _ in range(4)] for _ in range(4)]
+    prompts = [text_batch(cfg, g, 40) for _ in range(8)]
+    adapters = seeded_adapters(cfg, {"a8": 8, "b16": 16}, seed=11)
+    results = {}
+
+    def check(r, kind):
+        if r.error:
+            raise AssertionError(f"features {kind} request {r.uid}: {r.error}")
+        if not r.tokens or min(r.tokens) < 0 or max(r.tokens) >= cfg.lm.vocab_size:
+            raise AssertionError(f"features {kind} request {r.uid}: bad tokens {r.tokens}")
+        if r.choices and not (r.tokens in r.choices or (
+                r.tokens[-1] == FEATURE_EOS and r.tokens[:-1] in r.choices)):
+            raise AssertionError(f"choice answer {r.tokens} is none of {r.choices}")
+        if r.grammar is not None:
+            text = decode(r.tokens)
+            if not isinstance(_json.loads(text), dict):
+                raise AssertionError(f"json_object answer {text!r} is not an object")
+        if len(r.tokens) < min(r.min_tokens, r.max_new_tokens):
+            raise AssertionError(f"min_tokens {r.min_tokens} row gave {len(r.tokens)} tokens")
+        if r.logprobs:
+            if not (len(r.token_logprobs) == len(r.top_tokens) == len(r.tokens)):
+                raise AssertionError("logprobs and tokens differ in length")
+            plain = r.temperature == 0 and r._constraint is None and not r.logit_bias
+            for tok, lp, top in zip(r.tokens, r.token_logprobs, r.top_tokens):
+                vals = [v for _, v in top]
+                if not (math.isfinite(lp) and lp <= 0 and len(top) == r.top_logprobs
+                        and all(math.isfinite(v) and v <= 0 for v in vals)
+                        and vals == sorted(vals, reverse=True)):
+                    raise AssertionError(f"bad logprobs {lp} {top}")
+                ids = [t for t, _ in top]
+                if tok in ids and abs(vals[ids.index(tok)] - lp) > 1e-5:
+                    raise AssertionError("the chosen token's top entry differs from its logprob")
+                # A greedy row's token has the top logprob (bf16 ties may list
+                # another id first); any token above the list's last must be in it.
+                if (plain and abs(vals[0] - lp) > 1e-5) or (lp > vals[-1] + 1e-5
+                                                             and tok not in ids):
+                    raise AssertionError(f"chosen token {tok} ({lp}) missing from {top}")
+
+    for quantize_kv in (True, False):
+        pages = "int8" if quantize_kv else "bf16"
+        grammar_mod._CONTENT_TABLE_CACHE.clear()  # the first json run meets a cold table
+
+        def engine(**kw):
+            return PagedServingEngine(model, cfg, num_slots=8, quantize_kv=quantize_kv,
+                                      eos_token_id=FEATURE_EOS, **kw)
+
+        def run(label, reqs, k=8, eng=None):
+            eng = eng or engine()
+            torch.cuda.synchronize()
+            zero_counters()
+            t0 = time.perf_counter()
+            for r in reqs:
+                eng.submit(r)
+            done = eng.run_until_drained(k=k)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = read_counters()
+            if len(done) != len(reqs):
+                raise AssertionError(f"features {label}: {len(done)} of {len(reqs)} returned")
+            n = sum(len(r.tokens) for r in reqs)
+            attn = "gathered_paged_attention" if quantize_kv else "paged_attention_stats"
+            steps = launches[attn] // cfg.lm.num_hidden_layers
+            row = dict(requests=len(reqs), tokens=n, wall_s=wall, tok_s=n / wall, k=k,
+                       decode_steps=steps, ms_per_step=wall * 1e3 / max(steps, 1),
+                       decodable_ids=len(JSON_PIECES),
+                       launches={x: launches[x] for x in ("gathered_paged_attention",
+                                                          "paged_fresh_write",
+                                                          "paged_attention_stats")},
+                       peak_pages_in_use=eng.peak_pages_in_use)
+            want = (("gathered_paged_attention", "paged_fresh_write") if quantize_kv
+                    else ("paged_attention_stats",))
+            if any(row["launches"][x] == 0 for x in want):
+                raise AssertionError(f"features {label}: a paged kernel was never launched "
+                                     f"{row['launches']}")
+            print(f"[features] {pages} pages, {label}: {len(reqs)} requests, {n} tokens in "
+                  f"{wall:.2f} s, {n / wall:.1f} tok/s aggregate (reduced vocabulary: "
+                  f"{len(JSON_PIECES)} decodable ids), {steps} decode steps "
+                  f"({row['ms_per_step']:.1f} ms of wall each, admission included), k={k}, "
+                  f"peak pages {eng.peak_pages_in_use}, launches {row['launches']}")
+            return row, eng
+
+        res = {}
+        # Prefix caching: the suffix prefills timed against a video's first
+        # question (its prefix registration and its suffix prefill).
+        eng = engine()
+        admit_ms = {"register": [], "suffix": []}
+        for name, key in (("register_prefix", "register"), ("_admit_prefix", "suffix")):
+            def timed(*a, _fn=getattr(eng, name), _key=key):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = _fn(*a)
+                torch.cuda.synchronize()
+                admit_ms[_key].append((time.perf_counter() - t0) * 1e3)
+                return out
+            setattr(eng, name, timed)
+        cached = [Request(uid=(v, q), batch=MultimodalBatch(
+                      input_ids=questions[v][q], attention_mask=torch.ones_like(questions[v][q])),
+                      prefix_batch=prefixes[v], max_new_tokens=16)
+                  for v in range(4) for q in range(4)]
+        res["prefix_cached"], eng = run("prefix-cached questions", cached, eng=eng)
+        if (eng.prefix_misses, eng.prefix_hits) != (4, 12):
+            raise AssertionError(f"prefix hits {eng.prefix_hits}, misses {eng.prefix_misses}")
+        if any(eng._prefix_refs.values()):
+            raise AssertionError(f"prefix refs after the drain: {eng._prefix_refs}")
+        for pid in list(eng._prefixes):
+            eng.release_prefix(pid)
+        if eng.allocator._rc or eng.allocator.free_pages != eng.total_pages - 1:
+            raise AssertionError("page refcounts not zero after the drain and release_prefix")
+        full = [Request(uid=r.uid, batch=MultimodalBatch(
+                    input_ids=torch.cat([prefixes[r.uid[0]].input_ids,
+                                         questions[r.uid[0]][r.uid[1]]], 1),
+                    attention_mask=torch.ones((1, 56), dtype=torch.long, device="cuda"),
+                    videos=prefixes[r.uid[0]].videos), max_new_tokens=16) for r in cached]
+        res["full_prompts"], _ = run("the same questions as full prompts", full)
+        for r in cached:
+            check(r, "prefix")
+        first = [admit_ms["register"][i] + admit_ms["suffix"][i * 4] for i in range(4)]
+        later = [admit_ms["suffix"][i] for i in range(16) if i % 4]
+        res["prefix"] = dict(
+            hits=eng.prefix_hits, misses=eng.prefix_misses, first_question_admit_ms=first,
+            later_question_admit_ms=later, parts_from_uncached_at=[
+                _first_split(a.tokens, b.tokens) for a, b in zip(cached, full)])
+        print(f"[features] {pages} pages, prefix cache: hits {eng.prefix_hits}, misses "
+              f"{eng.prefix_misses}; admission of a video's first question "
+              f"{[round(x, 1) for x in first]} ms (registration + suffix), later questions "
+              f"{[round(x, 1) for x in later]} ms; first token where a cached answer parts "
+              f"from the uncached one (None: never): {res['prefix']['parts_from_uncached_at']}")
+        del eng
+
+        def rows(spec):
+            reqs = []
+            for i, kind in enumerate(spec):
+                kw = {}
+                if kind == "json":
+                    kw["grammar"] = json_constraint(Tok(), token_strs=strs)
+                elif kind.startswith("choice"):
+                    kw["choices"] = CHOICE_SETS[int(kind[-1])]
+                elif kind == "controls":
+                    kw.update(temperature=0.8, top_k=40, logit_bias={41: 3.0, 11: -5.0},
+                              presence_penalty=0.4, frequency_penalty=0.3, min_tokens=12)
+                elif kind == "logprobs":
+                    kw.update(logprobs=True, top_logprobs=5)
+                elif kind in adapters:
+                    kw["adapter"] = kind
+                reqs.append(Request(uid=i, batch=prompts[i % len(prompts)],
+                                    max_new_tokens=FEATURE_NEW, **kw))
+            return reqs
+
+        mixed = ["choice0", "choice0", "choice1", "choice1"] + ["json"] * 4
+        runs = [("unconstrained", ["free"] * 8, 8),
+                ("one choice set (device table)", ["choice0"] * 4 + ["free"] * 4, 8),
+                ("json_object, one table, cold", ["json"] * 8, 8),
+                ("json_object, one table, warm", ["json"] * 8, 8),
+                ("mixed choice sets + json_object (combined table)", mixed, 8),
+                ("the mixed batch through host masks", mixed, 1),
+                ("sampling controls + logprobs", ["controls"] * 4 + ["logprobs"] * 4, 8)]
+        for label, spec, k in runs:
+            reqs = rows(spec)
+            res[label], _ = run(label, reqs, k=k)
+            for r in reqs:
+                check(r, label)
+        add_multi_lora_params(model.lm, adapters, dtype=torch.bfloat16)
+        try:
+            reqs = rows(["a8", "free", "b16", "a8", "b16", "free"])
+            res["adapters"], eng = run("two adapters (ranks 8, 16) and the base", reqs,
+                                       eng=engine(adapter_registry={"a8": 0, "b16": 1}))
+            for r in reqs:
+                check(r, "adapter")
+            if eng._live_adapter_idx() is not None:
+                raise AssertionError("adapter indices left after the drain")
+            res["adapters"]["first_tokens"] = {f"{r.uid} {r.adapter}": r.tokens[:6]
+                                               for r in reqs}
+        finally:
+            drop_multi_lora_params(model.lm)
+        results[pages] = res
+        torch.cuda.empty_cache()
+    return results
 
 
 class SmokeTokenizer:
@@ -1708,6 +2133,9 @@ def main() -> int:
     sliced = slice_phase(model, cfg, g)
     served = serving_phase(model, cfg, g)
     t0 = time.perf_counter()
+    featured = features_phase(model, cfg, g)
+    print(f"[features] features phase took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     streamed = stream_phase(model, cfg, g)
     lived = liveinfer_phase(model, cfg, g)
     chatted = kv_chat_phase(model, cfg, g)
@@ -1742,6 +2170,10 @@ def main() -> int:
                      "bound_by": r["bound"][1], "library_ms": r["library_ms"]})
         if name in ("spatial_attention", "temporal_attention"):
             rows[-1]["encode_launches"] = enc["encode bf16"][name]
+        if name in ("gathered_paged_attention", "paged_fresh_write", "paged_attention_stats"):
+            rows[-1]["features_launches"] = sum(
+                run["launches"][name] for res in featured.values() for run in res.values()
+                if "launches" in run)
         if name in ("spatial_attention", "temporal_attention", "flash_attention"):
             rows[-1]["path_launches"] = {"stream": streamed["launches"][name],
                                          "liveinfer": lived["launches"][name],
@@ -1757,7 +2189,8 @@ def main() -> int:
                     if "host_ms" in x else {}),
                  **({"library_graph_replay_ms": x["library_device_ms"]}
                     if "library_device_ms" in x else {}),
-                 **({k: x[k] for k in ("layout", "q_dtype", "lengths") if k in x}),
+                 **({k: x[k] for k in ("layout", "q_dtype", "lengths", "shared_pages",
+                                       "rewound_slot", "rewind", "slots") if k in x}),
                  **({"causal": x["causal"]} if "causal" in x else {})} for x in r["shapes"]]
     print(json.dumps({"requests": sliced["stats"] + served["stats"] + quantized["stats"],
                       "speculative": speculated, "weight_gib": quantized["weight_gib"],
@@ -1765,7 +2198,7 @@ def main() -> int:
                       "liveinfer": lived, "kv_chat": chatted,
                       "int8_tower": quantized["int8_tower"],
                       "encode": {k: v for k, v in encoded.items() if k != "launches"},
-                      "gradients": graded}))
+                      "gradients": graded, "features": featured}))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

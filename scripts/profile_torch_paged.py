@@ -16,7 +16,7 @@ video requests (``--frames`` frames, prompts of 24-90 ids, one VIDEO sentinel):
   the chunked prefill and the page insert of one request, then the whole
   ``_admit`` of all slots;
 - the decode step with every slot active: wall time per step of an 8-step
-  ``paged_greedy_decode_steps``, and one ``torch.profiler`` trace of another
+  ``decode_steps`` (greedy), and one ``torch.profiler`` trace of another
   8 steps: device time by kernel name and the device's idle share.
 
 Writes everything to the ``--out`` JSON file (relative paths are taken from
@@ -63,8 +63,8 @@ def profile_engine(model, cfg, g, *, quantize_kv: bool, slots: int, frames: int)
     from videollamb_torch.models.assembly import prepare_multimodal_embeds
     from videollamb_torch.models.lm.llama import chunked_prefill, init_kv_cache
     from videollamb_torch.models.lm.paged import paged_insert
-    from videollamb_torch.serve.paged import PagedServingEngine, paged_greedy_decode_steps
-    from videollamb_torch.serve.server import Request
+    from videollamb_torch.serve.paged import PagedServingEngine
+    from videollamb_torch.serve.server import Request, decode_steps
 
     engine = PagedServingEngine(model, cfg, num_slots=slots, quantize_kv=quantize_kv,
                                 eos_token_id=-1)
@@ -97,11 +97,11 @@ def profile_engine(model, cfg, g, *, quantize_kv: bool, slots: int, frames: int)
     prompt_tokens = [int(x) for x in engine._host_len]
     engine._ensure_pages(3 * STEPS)
     engine._sync_table()
-    (_, engine.logits), steps_ms = _timed(lambda: paged_greedy_decode_steps(
-        model, cfg, engine.logits, engine.cache, STEPS))
+    out, steps_ms = _timed(lambda: decode_steps(engine._forward, engine.logits, STEPS))
+    engine.logits = out.logits
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        (_, engine.logits), traced_ms = _timed(lambda: paged_greedy_decode_steps(
-            model, cfg, engine.logits, engine.cache, STEPS))
+        out, traced_ms = _timed(lambda: decode_steps(engine._forward, engine.logits, STEPS))
+        engine.logits = out.logits
     kernels = [(e.key, _device_us(e) / 1e3, e.count) for e in prof.key_averages()
                if _device_us(e) > 0 and e.device_type.name == "CUDA"]
     kernels.sort(key=lambda r: -r[1])

@@ -7,23 +7,24 @@ so it also runs where jax is absent:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_kernels.py
 
-Shapes are the main path's: 257 tokens x 16 heads of 64 in the tower,
-(B, 32, 2048, 128) in the LM prefill (and the transposed (B, S, H, Dh)
-views it takes there), the paged decode step's pools at 7B (plus small GQA
-cases up to 8 query heads a kv head, K6's split boundaries, and K4's and
-K6's merge counters over repeated calls, lengths past the table's width and
-CUDA-graph replay). Tolerances: K1-K3 have bf16 outputs (relative step
-2^-8) and f32 sums taken in other orders, atol 1e-2 + rtol 2e-2. K4 and K6
-return f32 statistics (m, l) within 1e-5 and outputs within 2e-3 (K4: one
-int8 step of the probability requantisation) or 1e-4 (K6) of max|out|. K5
-is a copy: exact outside the trash page. K7 sums each group in f32 in
-another order than its plain version and rounds once: 2e-5 in f32, one
-bf16 step (2^-7 relative) plus 1e-3 absolute in bf16; its cases reach both
-of its kernels (f32 FMAs: f32, M = 1, groups of 16; tensor cores: bf16 from
-M = 2 on) with ragged N and M on each. K8-K11 round to bf16 like K1-K3 and
-take their tolerance. The differentiable tower ops launch K1 / K2 / K8 / K9
-in their forward and none in their backward; every kernel wrapper refuses a
-CUDA input that wants a gradient.
+Shapes are the main path's: 257 tokens x 16 heads of 64 in the tower, (B,
+32, 2048, 128) in the LM prefill (and the transposed (B, S, H, Dh) views it
+takes there), the paged decode step's pools at 7B (plus small GQA cases up
+to 8 query heads a kv head, K6's split boundaries, and K4's and K6's merge
+counters over repeated calls, lengths past the table's width and CUDA-graph
+replay; page tables whose rows share a prefix's full pages, and K5 writing
+over rows past a rewound length before K4 reads it). Tolerances: K1-K3 have
+bf16 outputs (relative step 2^-8) and f32 sums taken in other orders, atol
+1e-2 + rtol 2e-2. K4 and K6 return f32 statistics (m, l) within 1e-5 and
+outputs within 2e-3 (K4: one int8 step of the probability requantisation)
+or 1e-4 (K6) of max|out|. K5 is a copy: exact outside the trash page. K7
+sums each group in f32 in another order than its plain version and rounds
+once: 2e-5 in f32, one bf16 step (2^-7 relative) plus 1e-3 absolute in
+bf16; its cases reach both of its kernels (f32 FMAs: f32, M = 1, groups of
+16; tensor cores: bf16 from M = 2 on) with ragged N and M on each. K8-K11
+round to bf16 like K1-K3 and take their tolerance. The differentiable tower
+ops launch K1 / K2 / K8 / K9 in their forward and none in their backward;
+every kernel wrapper refuses a CUDA input that wants a gradient.
 """
 
 from __future__ import annotations
@@ -445,6 +446,106 @@ def test_paged_stats_kernel_resets_its_merge_counters(dev):
         _assert_stats_close(paged_attention_with_stats(q, k, v, lens2, table),
                             attend_paged_with_stats_xla(q, k, v, table, lens2), 1e-4)
         assert counters_are_zero()
+
+
+def _shared_prefix_table(dev, lengths, page, pps, p_total, n_shared, seed):
+    """Every slot maps the same ``n_shared`` full pages first (one cached
+    prefix), then private pages of its own."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    perm = torch.randperm(p_total - 1, generator=g) + 1
+    table = torch.zeros((len(lengths), pps), dtype=torch.int32)
+    table[:, :n_shared] = perm[:n_shared]
+    nxt = n_shared
+    for i, n in enumerate(lengths):
+        used = min(-(-n // page), pps)
+        table[i, n_shared:used] = perm[nxt:nxt + used - n_shared]
+        nxt += used - n_shared
+    return table.to(dev), torch.tensor(lengths, dtype=torch.int32, device=dev)
+
+
+# 8 slots sharing 16 full pages of 64 (a 1024-token prefix), as prefix-cached
+# questions about one video; and a small GQA case.
+SHARED_CASES = [(32, 32, 64, 40, 8, 16, [1034, 1100, 1157, 1191, 1060, 1201, 1090, 1175]),
+                (8, 2, 16, 8, 2, 3, [49, 60, 97, 128])]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,h_kv,page,pps,ppb,n_shared,lengths", SHARED_CASES)
+def test_paged_kernels_on_shared_prefix_pages(dev, h, h_kv, page, pps, ppb, n_shared, lengths):
+    """K4 (int8 pages) and K6 (bf16 pages) over page tables whose rows share
+    their first full pages."""
+    # _gathered_case's pool has 1 + (b + 1) * pps >= 1 + n_shared + b * pps pages.
+    q, k, v, _, _, ks, vs = _gathered_case(dev, h, h_kv, page, pps, [0] * (len(lengths) + 1),
+                                           seed=31)
+    p_total, q = k.shape[0], q[:len(lengths)].contiguous()
+    table, lens = _shared_prefix_table(dev, lengths, page, pps, p_total, n_shared, seed=32)
+    assert (table[:, :n_shared] == table[:1, :n_shared]).all()
+    got = gathered_paged_attention_int8(q, k, v, table, lens, ks, vs, pages_per_block=ppb)
+    _assert_stats_close(got, gathered_paged_attention_int8_reference(
+        q, k, v, table, lens, ks, vs, pages_per_block=ppb), 2e-3)
+    g = torch.Generator(device=dev).manual_seed(33)
+    kb = torch.randn((h_kv, p_total, page, 128), generator=g, device=dev).to(torch.bfloat16)
+    vb = torch.randn((h_kv, p_total, page, 128), generator=g, device=dev).to(torch.bfloat16)
+    _assert_stats_close(paged_attention_with_stats(q, kb, vb, lens, table),
+                        attend_paged_with_stats_xla(q, kb, vb, table, lens), 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layers,page,kd,h_kv,pps,ppb,lengths", [
+    (32, 64, 4096, 32, 40, 8, [1034, 1100, 1157, 1191, 1060, 1201, 1090, 1175]),
+    (2, 16, 256, 2, 8, 2, [5, 16, 47, 90]),
+])
+def test_fresh_write_over_rewound_rows_then_gathered(dev, layers, page, kd, h_kv, pps, ppb,
+                                                     lengths):
+    """A frozen grammar row: three garbage steps written by K5, the length
+    rewound by 3, one more K5 write at the rewound position, then K4 over
+    the new length. Equal to the plain write and the plain attention; the
+    garbage rows past the length change nothing."""
+    b, p_total = len(lengths), 1 + len(lengths) * pps
+    g = torch.Generator(device=dev).manual_seed(41)
+    pools = [torch.randint(-128, 128, (layers, p_total, page, kd), generator=g, device=dev,
+                           dtype=torch.int8) for _ in range(2)]
+    scales = [torch.rand((p_total, page, h_kv), generator=g, device=dev) + 0.05
+              for _ in range(2)]
+    table, lens = _paged_case(dev, b, [n + 4 for n in lengths], page, pps, p_total, seed=42)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    rows = torch.arange(b, device=dev)
+
+    def write(kernel, pools, pos):
+        fresh = [torch.randint(-128, 128, (layers, b, kd), generator=g, device=dev,
+                               dtype=torch.int8) for _ in range(2)]
+        pos = pos.long()
+        return kernel(*pools, *fresh, table[rows, pos // page], pos % page)
+
+    plain = [p.clone() for p in pools]
+    for step in range(3):  # garbage steps past the valid length
+        g.manual_seed(100 + step)
+        write(paged_fresh_write, pools, lens + step)
+        g.manual_seed(100 + step)
+        write(paged_fresh_write_xla, plain, lens + step)
+    g.manual_seed(200)  # rewound by 3: the next token lands at lens
+    write(paged_fresh_write, pools, lens)
+    g.manual_seed(200)
+    write(paged_fresh_write_xla, plain, lens)
+    torch.cuda.synchronize()
+    for a, w in zip(pools, plain):
+        assert torch.equal(a[:, 1:], w[:, 1:])
+    q = torch.randn((b, h_kv, 128), generator=g, device=dev) * 128 ** -0.5
+    new_len = lens + 1
+    layer = layers - 1
+    got = gathered_paged_attention_int8(q, pools[0][layer], pools[1][layer], table, new_len,
+                                        *scales, pages_per_block=ppb)
+    want = gathered_paged_attention_int8_reference(q, plain[0][layer], plain[1][layer], table,
+                                                   new_len, *scales, pages_per_block=ppb)
+    _assert_stats_close(got, want, 2e-3)
+    for p in pools:  # the two garbage rows past the new length
+        for extra in (1, 2):
+            pos = (lens + extra).long()
+            p[:, table[rows, pos // page].long(), pos % page] = 0
+    again = gathered_paged_attention_int8(q, pools[0][layer], pools[1][layer], table, new_len,
+                                          *scales, pages_per_block=ppb)
+    for a, w in zip(again, got):
+        assert torch.equal(a, w)
 
 
 @pytest.mark.cuda

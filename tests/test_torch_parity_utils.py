@@ -229,6 +229,42 @@ def port_requests(rows, max_new: int):
             for i, (ids, mask, video) in enumerate(rows)]
 
 
+def tiny_models(max_length: int = 64, seed: int = 0):
+    """(JAX cfg, JAX params, port model, port cfg) of ``ModelConfig.tiny`` in
+    f32 from one seeded parameter tree: enough for text-only requests."""
+    cfg = ModelConfig.tiny(max_length=max_length)
+    tree = jax_params(cfg, seed)
+    return cfg, tree, port_model(cfg, tree), port_config(cfg)
+
+
+def text_requests(vocab_size: int, seeds, budget: int, prompt_len: int = 6, **fields):
+    """(JAX requests, port requests) of text-only prompts: the same seeded ids
+    and request fields on both sides. A callable field value is called with
+    the side ("jax" or "torch") for objects each package builds itself
+    (grammar cursors)."""
+    import jax.numpy as jnp
+
+    from videollamb_torch.models.assembly import MultimodalBatch as PortBatch
+    from videollamb_torch.serve.server import Request as PortRequest
+    from videollamb_tpu.models.assembly import MultimodalBatch
+    from videollamb_tpu.serve.server import Request
+
+    out = {"jax": [], "torch": []}
+    for uid, seed in enumerate(seeds):
+        ids = np.random.default_rng(seed).integers(4, vocab_size, size=(1, prompt_len))
+        mask = np.ones((1, prompt_len), np.int64)
+        for side in out:
+            kw = {k: (v(side) if callable(v) else v) for k, v in fields.items()}
+            if side == "jax":
+                batch = MultimodalBatch(jnp.asarray(ids, jnp.int32), jnp.asarray(mask, jnp.int32),
+                                        None, None, None)
+                out[side].append(Request(uid=uid, batch=batch, max_new_tokens=budget, **kw))
+            else:
+                batch = PortBatch(torch.from_numpy(ids), torch.from_numpy(mask))
+                out[side].append(PortRequest(uid=uid, batch=batch, max_new_tokens=budget, **kw))
+    return out["jax"], out["torch"]
+
+
 def serve(engine, requests, k: int):
     for r in requests:
         engine.submit(r)

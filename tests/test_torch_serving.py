@@ -6,8 +6,12 @@ tiny reference-format checkpoint in f32.
   two slots.
 - ``batch_cli.main`` end to end with a tiny tokenizer: JSONL in, the paged
   int8 and the dense engines, JSONL out; the two engines agree.
-- Row fields and options the port does not serve yet are refused with an
-  error that names them.
+- The request fields of the JAX batch CLI (choices, response_format, the
+  sampling controls, logprobs, adapter, shared_prefix) build the requests
+  that the JAX ``build_requests`` builds, and a batch of such rows through
+  the paged engine gives the JAX engine's tokens and logprobs.
+- Row fields and options the port does not serve yet (image and audio rows,
+  ``--device-preprocess``) are refused with an error that names them.
 """
 
 from __future__ import annotations
@@ -99,11 +103,7 @@ def test_batch_cli_end_to_end(checkpoint, tmp_path):
         assert paged[uid] == dense[uid]
 
 
-@pytest.mark.parametrize("field,value", [
-    ("shared_prefix", True), ("choices", ["A", "B"]), ("response_format", "json_object"),
-    ("logit_bias", {"5": 1.0}), ("presence_penalty", 0.5), ("min_tokens", 2), ("top_k", 5),
-    ("logprobs", True), ("adapter", "x"), ("image", "x.png"), ("audio", "x.wav"),
-])
+@pytest.mark.parametrize("field,value", [("image", "x.png"), ("audio", "x.wav")])
 def test_batch_cli_refuses_unported_row_fields(field, value):
     from videollamb_torch.serve.batch_cli import build_requests
 
@@ -117,3 +117,127 @@ def test_batch_cli_refuses_unported_flags(flag, tmp_path):
 
     with pytest.raises(SystemExit, match=f"{flag} is not supported by the PyTorch port"):
         batch_cli.main(["--model-path", "unused", "--requests", "in", "--output", "out", flag])
+
+
+class JsonPieces:
+    """The tiny tokenizer with its ``<extra_i>`` ids spelled as the JSON pieces
+    of ``tests/test_grammar.py``, so grammar tables can be built over its
+    vocabulary (the tiny vocabulary has no '{' or '"')."""
+
+    def __init__(self, tok):
+        from test_grammar import PIECES
+
+        self.tok = tok
+        self.pieces = {tok.convert_tokens_to_ids(f"<extra_{i}>"): p
+                       for i, p in enumerate(PIECES.values())}
+
+    def __getattr__(self, name):
+        return getattr(self.tok, name)
+
+    def __call__(self, text):
+        return self.tok(text)
+
+    def convert_ids_to_tokens(self, ids):
+        return [self.pieces.get(i, t) for i, t in zip(ids, self.tok.convert_ids_to_tokens(ids))]
+
+
+@pytest.fixture(scope="module")
+def chats(checkpoint):
+    """(JAX Chat, port Chat) over the f32 checkpoint, tokenizers wrapped."""
+    import dataclasses
+
+    from videollamb_torch.models.builder import load_pretrained_model
+    from videollamb_torch.serve.chat import Chat
+    from videollamb_tpu.models.builder import load_pretrained_model as jax_load
+    from videollamb_tpu.serve.chat import Chat as JaxChat
+
+    model_dir, tower_dir = checkpoint
+    tok, params, jcfg, procs, _ = jax_load(model_dir, video_tower_path=tower_dir, dtype="float32")
+    ptok, model, cfg, pprocs, _ = load_pretrained_model(model_dir, video_tower_path=tower_dir,
+                                                        dtype="float32", device="cpu")
+    return (JaxChat(JsonPieces(tok), params, dataclasses.replace(jcfg, dtype="float32"), procs),
+            Chat(JsonPieces(ptok), model, cfg, pprocs))
+
+
+@pytest.mark.parametrize("field,value", [
+    ("shared_prefix", True), ("choices", ["A", "B"]), ("response_format", "json_object"),
+    ("logit_bias", {"5": 1.0}), ("presence_penalty", 0.5), ("min_tokens", 2), ("top_k", 5),
+    ("logprobs", True), ("adapter", "x"),
+])
+def test_batch_cli_builds_row_fields_as_jax(chats, tmp_path, field, value):
+    from videollamb_torch.serve.batch_cli import build_requests
+    from videollamb_tpu.serve.batch_cli import build_requests as jax_build_requests
+
+    jchat, chat = chats
+    row = {"id": 1, "prompt": "what is happening", "video": _frame_dir(tmp_path),
+           "max_new_tokens": 4, "top_logprobs": 2, field: value}
+    (want,) = jax_build_requests([row], jchat)
+    (got,) = build_requests([row], chat)
+    for name in ("max_new_tokens", "temperature", "top_k", "logit_bias", "presence_penalty",
+                 "frequency_penalty", "min_tokens", "adapter", "choices", "logprobs",
+                 "top_logprobs"):
+        assert getattr(got, name) == getattr(want, name), name
+    for a, b in ((got.batch, want.batch), (got.prefix_batch, want.prefix_batch)):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert a.input_ids.tolist() == np.asarray(b.input_ids).tolist()
+            assert a.attention_mask.tolist() == np.asarray(b.attention_mask).tolist()
+            assert (a.videos is None) == (b.videos is None)
+    assert (got.grammar is None) == (want.grammar is None)
+    if got.grammar is not None:
+        vocab = chat.cfg.lm.vocab_size
+        assert got.grammar.min_tokens == want.grammar.min_tokens
+        np.testing.assert_array_equal(got.grammar.mask(vocab), want.grammar.mask(vocab))
+
+
+def test_batch_cli_new_rows_give_jax_tokens(chats, tmp_path):
+    """Three questions about one video through shared_prefix, a choice row, a
+    json_object row, a row with sampling controls and a logprobs row, built
+    and served by both packages' batch CLI functions on the paged engine with
+    f32 pages: equal tokens and output keys (the logprobs row adds its
+    logprobs, which JAX does not write), logprobs within 1e-5, valid
+    constrained output."""
+    from videollamb_torch.serve import batch_cli
+    from videollamb_torch.serve.paged import PagedServingEngine
+    from videollamb_tpu.serve import batch_cli as jax_batch_cli
+    from videollamb_tpu.serve.paged import PagedServingEngine as JaxEngine
+
+    jchat, chat = chats
+    video = _frame_dir(tmp_path)
+    lines = [{"id": f"q{i}", "prompt": p, "video": video, "shared_prefix": True,
+              "max_new_tokens": 5} for i, p in enumerate(["what is happening", "describe it",
+                                                          "what is it"])]
+    lines += [
+        {"id": "mc", "prompt": "what is it", "video": video, "choices": ["a", "an", "the"]},
+        {"id": "js", "prompt": "describe it", "response_format": "json_object",
+         "max_new_tokens": 10},
+        {"id": "ctl", "prompt": "describe it", "logit_bias": {"40": 2.5}, "min_tokens": 4,
+         "presence_penalty": 0.5, "frequency_penalty": 0.25, "max_new_tokens": 6},
+        {"id": "lp", "prompt": "what is happening", "video": video, "logprobs": True,
+         "top_logprobs": 3, "max_new_tokens": 5},
+    ]
+    eos = int(chat.tokenizer.eos_token_id)
+    jreqs = jax_batch_cli.build_requests(lines, jchat)
+    reqs = batch_cli.build_requests(lines, chat)
+    want = {r["id"]: r for r in jax_batch_cli.serve_requests(
+        JaxEngine(jchat.params, jchat.cfg, num_slots=4, eos_token_id=eos),
+        jreqs, jchat.tokenizer, k=3)}
+    engine = PagedServingEngine(chat.model, chat.cfg, num_slots=4, eos_token_id=eos)
+    got = {r["id"]: r for r in batch_cli.serve_requests(engine, reqs, chat.tokenizer, k=3)}
+    assert {k: (v["text"], v["tokens"]) for k, v in got.items()} == {
+        k: (v["text"], v["tokens"]) for k, v in want.items()}
+    # The output lines are JAX's; only the logprobs row adds its logprobs.
+    assert {k: sorted(v) for k, v in got.items()} == {
+        k: sorted(set(v) | ({"token_logprobs", "top_logprobs"} if k == "lp" else set()))
+        for k, v in want.items()}
+    by_id = {r.uid: r for r in reqs}
+    assert [r.tokens for r in reqs] == [r.tokens for r in jreqs]
+    assert engine.prefix_misses == 1 and engine.prefix_hits == 2
+    choice_ids = by_id["mc"].choices
+    assert by_id["mc"].tokens in [c + [eos] for c in choice_ids] + choice_ids
+    assert len(by_id["ctl"].tokens) >= 4
+    jlp = next(r for r in jreqs if r.uid == "lp")
+    np.testing.assert_allclose(got["lp"]["token_logprobs"], jlp.token_logprobs, atol=1e-5,
+                               rtol=0)
+    assert [[e[0] for e in pos] for pos in got["lp"]["top_logprobs"]] == [
+        [t for t, _ in pos] for pos in jlp.top_tokens]

@@ -18,8 +18,11 @@ engines' chunked admission) and one-token decode. Module names follow the HF
 - Every projection is a module call (``attn.q_proj(x)``, ``lm.lm_head(x)``):
   an ``nn.Linear``, a ``models/lm/quant.QuantLinear`` holding int8 or int4
   weights (int4 with at most 64 rows goes through kernel K7 on the card), or
-  a ``models/lm/lora.LoRALinear`` around either.
-- Sliding-window attention and multi-LoRA adapter stacks are not ported yet.
+  a ``models/lm/lora.LoRALinear`` around either, or a
+  ``models/lm/mlora.MultiLoRALinear`` that adds each row's adapter from a
+  stack of K (the row indices set around the call by
+  ``mlora.adapter_rows``).
+- Sliding-window attention is not ported yet.
 """
 
 from __future__ import annotations

@@ -7,8 +7,8 @@ module (an ``nn.Linear`` or a quantised ``QuantLinear``) holding
 orientation: ``y = base(x) + (x @ A) @ B``, each product rounded to x's type.
 
 B starts at zero (identity at initialisation) and the alpha / r scale is
-folded into A, so no scale is kept at run time. Multi-adapter stacks
-(``mlora``) are not ported yet.
+folded into A, so no scale is kept at run time. Stacks of several adapters
+selected per row are ``models/lm/mlora.py``.
 """
 
 from __future__ import annotations

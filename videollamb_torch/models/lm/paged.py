@@ -21,14 +21,18 @@ through the softmax statistics (``merge_one_token``); the fresh K/V rows of
 all layers are written once after the layer loop. Unlike the JAX package,
 the port updates the pools, tables and lengths in place.
 
-Prefix caching (shared prompt pages) is not ported yet.
+Prefix caching: a prefix's whole pages are written once
+(:func:`scatter_pages`) and mapped into the table row of every slot
+that consumes it (:func:`paged_insert` with ``skip_pages``); the
+:class:`PageAllocator` refcounts them. Decode never writes a shared page:
+writes land at positions past the prefix, in the slot's private pages.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -110,31 +114,41 @@ def init_paged_cache(cfg: LlamaConfig, num_slots: int, total_pages: int, page_si
                         page_table=table, lengths=lengths)
 
 
-def _scatter_pages(cache: PagedKVCache, single: KVCache, page_ids: Sequence[int]) -> None:
+def scatter_pages(cache: PagedKVCache, single: KVCache, page_ids: Sequence[int],
+                  skip_pages: int = 0) -> None:
     """Copy the whole pages of a dense B=1 cache into the pool at the real
-    (non-trash) ``page_ids``; int8 pools quantise per token and kv head. The
-    JAX package also writes the trash entries, into page 0."""
+    (non-trash) ``page_ids``, past the first ``skip_pages`` (shared prefix
+    pages already in the pool), without touching any slot's table (it also
+    writes a prefix's pages at registration); int8 pools quantise per token
+    and kv head.
+    The JAX package also writes the trash entries, into page 0."""
     page = cache.page_size
     n = min(len(page_ids), single.k.shape[2] // page, sum(p != TRASH_PAGE for p in page_ids))
-    ids = torch.as_tensor(list(page_ids[:n]), dtype=torch.long, device=cache.k_pages.device)
+    if n <= skip_pages:
+        return
+    ids = torch.as_tensor(list(page_ids[skip_pages:n]), dtype=torch.long,
+                          device=cache.k_pages.device)
     _, _, _, h_kv, dh = single.k.shape
+    m = n - skip_pages
     for layer in range(single.k.shape[0]):
         for pool, scales, dense in ((cache.k_pages, cache.k_scales, single.k),
                                     (cache.v_pages, cache.v_scales, single.v)):
-            rows = dense[layer, 0, :n * page].reshape(n, page, h_kv, dh)
+            rows = dense[layer, 0, skip_pages * page:n * page].reshape(m, page, h_kv, dh)
             if cache.token_major:
-                s = get_quantization_scales(rows.float())  # (n, page, H_kv, 1)
-                pool[layer, ids] = to_int8(rows.float(), s).reshape(n, page, h_kv * dh)
+                s = get_quantization_scales(rows.float())  # (m, page, H_kv, 1)
+                pool[layer, ids] = to_int8(rows.float(), s).reshape(m, page, h_kv * dh)
                 scales[layer, ids] = s[..., 0]
             else:
                 pool[layer][:, ids] = rows.permute(2, 0, 1, 3).to(pool.dtype)
 
 
 def paged_insert(cache: PagedKVCache, single: KVCache, slot: int,
-                 page_ids: Sequence[int]) -> None:
+                 page_ids: Sequence[int], skip_pages: int = 0) -> None:
     """Copy a prefilled B=1 dense cache into the pool at ``page_ids`` (the
-    slot's full table row, unused entries TRASH_PAGE) and install the row."""
-    _scatter_pages(cache, single, page_ids)
+    slot's full table row, unused entries TRASH_PAGE) and install the row.
+    The first ``skip_pages`` entries are installed but not copied: shared
+    prefix pages already in the pool."""
+    scatter_pages(cache, single, page_ids, skip_pages)
     cache.page_table[slot] = torch.as_tensor(list(page_ids), dtype=torch.int32)
     cache.lengths[slot] = single.length[0]
 
@@ -276,23 +290,44 @@ def paged_decode_step(lm: LlamaForCausalLM, cfg: LlamaConfig, token_embeds: torc
 
 
 class PageAllocator:
-    """Host-side free list over logical pages (page 0 = trash). The JAX
-    package refcounts pages for prefix caching, which is not ported yet."""
+    """Host-side refcounted free list over logical pages (page 0 = trash).
+
+    Shared prefix pages are ``retain``-ed once per slot that maps them and
+    return to the free list when the last reference (the slots and the
+    prefix registration itself) drops."""
 
     def __init__(self, total_pages: int):
         self._free: List[int] = list(range(total_pages - 1, 0, -1))
+        self._rc: Dict[int, int] = {}
 
     @property
     def free_pages(self) -> int:
         return len(self._free)
 
+    def refcount(self, page: int) -> int:
+        return self._rc.get(page, 0)
+
     def alloc(self, n: int) -> Optional[List[int]]:
         if n > len(self._free):
             return None
-        return [self._free.pop() for _ in range(n)]
+        pages = [self._free.pop() for _ in range(n)]
+        for p in pages:
+            self._rc[p] = 1
+        return pages
+
+    def retain(self, pages: List[int]) -> None:
+        for p in pages:
+            if p != TRASH_PAGE:
+                self._rc[p] += 1
 
     def free(self, pages: List[int]) -> None:
-        self._free.extend(p for p in pages if p != TRASH_PAGE)
+        for p in pages:
+            if p == TRASH_PAGE:
+                continue
+            self._rc[p] -= 1
+            if self._rc[p] == 0:
+                del self._rc[p]
+                self._free.append(p)
 
     def pages_needed(self, tokens: int, page_size: int) -> int:
         return max(1, math.ceil(tokens / page_size))

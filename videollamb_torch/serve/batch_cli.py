@@ -9,10 +9,25 @@ Port of ``videollamb_tpu/serve/batch_cli.py``:
 Each input line: {"id": ..., "prompt": ..., "video": <path, optional>,
 "max_new_tokens": ..., "temperature": ...}, optionally with "system",
 "system_suffix", "history" ([[user, assistant], ...]) or "raw" (a text-only
-prompt tokenized verbatim). Each output line: {"id": ..., "text": ...,
-"tokens": N}. It runs on the card unless ``--device cpu`` is given. Row
-fields and options the port does not implement yet are refused with an
-error that names them.
+prompt tokenized verbatim), and the request fields of the JAX package's CLI:
+
+- "choices": ["A", "B", ...] pins the output to one of the strings;
+- "response_format": "json_object" (output parses as a JSON object),
+  {"type": "json_schema", "schema": {...}}, {"type": "regex", "regex": ...}
+  or {"type": "tool_call", "schemas": [...]};
+- "logit_bias" ({token id: bias}), "presence_penalty", "frequency_penalty",
+  "min_tokens", "top_k";
+- "logprobs": true and "top_logprobs": N;
+- "adapter": the name of a multi-LoRA adapter of the engine;
+- "shared_prefix": true (paged engine, rows with a video): the system,
+  history and video become an automatically cached prefix and only the
+  question is prefilled per request (``--prefix-cache-size`` prefixes kept).
+
+Each output line: {"id": ..., "text": ..., "tokens": N}, with
+"token_logprobs" (and "top_logprobs": [[[id, logprob], ...], ...]) on rows
+that asked for logprobs, and "error" on rows the engine dropped. It runs on
+the card unless ``--device cpu`` is given. Row fields and options the port
+does not implement yet are refused with an error that names them.
 """
 
 from __future__ import annotations
@@ -23,22 +38,49 @@ import sys
 from typing import Any, Dict, List
 
 # Row fields of the JAX package's batch CLI that the port does not serve yet.
-UNPORTED_FIELDS = {
-    "shared_prefix": "prefix caching",
-    "choices": "choice-constrained decoding",
-    "response_format": "grammar-constrained decoding",
-    "logit_bias": "sampling controls",
-    "presence_penalty": "sampling controls",
-    "frequency_penalty": "sampling controls",
-    "min_tokens": "sampling controls",
-    "top_k": "sampling controls",
-    "logprobs": "logprobs",
-    "top_logprobs": "logprobs",
-    "adapter": "multi-LoRA adapters",
-    "image": "image rows",
-    "audio": "audio rows",
-}
+UNPORTED_FIELDS = {"image": "image rows", "audio": "audio rows"}
 UNPORTED_FLAGS = {"device_preprocess": "--device-preprocess"}
+
+
+def _sampling_controls(row: Dict[str, Any]) -> Dict[str, Any]:
+    """The optional sampling-control fields of a row -> Request kwargs."""
+    out: Dict[str, Any] = {}
+    if row.get("logit_bias"):
+        out["logit_bias"] = {int(t): float(b) for t, b in row["logit_bias"].items()}
+    for key, cast in (("presence_penalty", float), ("frequency_penalty", float),
+                      ("min_tokens", int), ("top_k", int)):
+        if row.get(key):
+            out[key] = cast(row[key])
+    return out
+
+
+def _constraint_kwargs(row: Dict[str, Any], tokenizer) -> Dict[str, Any]:
+    """"choices" -> token-id choices; "response_format" -> a grammar
+    cursor (serve/grammar.py, schema.py, regex_grammar.py)."""
+    out: Dict[str, Any] = {}
+    if row.get("choices"):
+        from videollamb_torch.serve.constrained import tokenize_choice
+
+        out["choices"] = [tokenize_choice(tokenizer, c) for c in row["choices"]]
+    fmt = row.get("response_format")
+    if isinstance(fmt, dict):
+        if fmt.get("type") == "tool_call":
+            from videollamb_torch.serve.schema import alternation_constraint
+
+            out["grammar"] = alternation_constraint(tokenizer, fmt["schemas"])
+        elif fmt.get("type") == "regex":
+            from videollamb_torch.serve.regex_grammar import regex_constraint
+
+            out["grammar"] = regex_constraint(tokenizer, fmt["regex"])
+        else:
+            from videollamb_torch.serve.schema import schema_constraint
+
+            out["grammar"] = schema_constraint(tokenizer, fmt["schema"])
+    elif fmt:
+        from videollamb_torch.serve.grammar import json_constraint
+
+        out["grammar"] = json_constraint(tokenizer, mode=fmt)
+    return out
 
 
 def build_requests(lines: List[Dict[str, Any]], chat) -> List[Any]:
@@ -52,14 +94,25 @@ def build_requests(lines: List[Dict[str, Any]], chat) -> List[Any]:
     from videollamb_torch.models.assembly import MultimodalBatch
     from videollamb_torch.serve.server import Request
 
-    def request(row, ids, mask, videos=None):
+    def text_batch(ids_list):
+        t = max(chat.text_bucket, -(-len(ids_list) // chat.text_bucket) * chat.text_bucket)
+        ids = np.zeros((1, t), np.int64)
+        mask = np.zeros((1, t), np.int64)
+        ids[0, :len(ids_list)] = ids_list
+        mask[0, :len(ids_list)] = 1
+        return ids, mask
+
+    def batch_of(ids, mask, videos=None):
+        return MultimodalBatch(input_ids=torch.from_numpy(ids).to(chat.device),
+                               attention_mask=torch.from_numpy(mask).to(chat.device),
+                               videos=videos)
+
+    def request(row, batch, **kw):
         return Request(
-            uid=row.get("id"),
-            batch=MultimodalBatch(input_ids=torch.from_numpy(ids).to(chat.device),
-                                  attention_mask=torch.from_numpy(mask).to(chat.device),
-                                  videos=videos),
-            max_new_tokens=int(row.get("max_new_tokens", 128)),
-            temperature=float(row.get("temperature", 0.0)))
+            uid=row.get("id"), batch=batch, max_new_tokens=int(row.get("max_new_tokens", 128)),
+            temperature=float(row.get("temperature", 0.0)), adapter=row.get("adapter"),
+            logprobs=bool(row.get("logprobs")), top_logprobs=int(row.get("top_logprobs", 0)),
+            **_constraint_kwargs(row, chat.tokenizer), **_sampling_controls(row), **kw)
 
     reqs = []
     for row in lines:
@@ -71,12 +124,7 @@ def build_requests(lines: List[Dict[str, Any]], chat) -> List[Any]:
             if row.get("video"):
                 raise ValueError("'raw' rows are text-only (no template to place media tags in)")
             ids_list = chat.tokenizer(row["prompt"]).input_ids
-            t = max(chat.text_bucket, -(-len(ids_list) // chat.text_bucket) * chat.text_bucket)
-            ids = np.zeros((1, t), np.int64)
-            mask = np.zeros((1, t), np.int64)
-            ids[0, :len(ids_list)] = ids_list
-            mask[0, :len(ids_list)] = 1
-            reqs.append(request(row, ids, mask))
+            reqs.append(request(row, batch_of(*text_batch(ids_list))))
             continue
         videos = None
         if row.get("video"):
@@ -99,7 +147,21 @@ def build_requests(lines: List[Dict[str, Any]], chat) -> List[Any]:
         chat.conv.append_message(chat.conv.roles[1], None)
         ids, mask = chat._prepare_ids(chat.conv.get_prompt(),
                                       "VIDEO" if videos is not None else "IMAGE")
-        reqs.append(request(row, ids, mask, videos))
+        if not row.get("shared_prefix"):
+            reqs.append(request(row, batch_of(ids, mask, videos)))
+            continue
+        # Automatic prefix caching (paged engine): the token ids split AFTER
+        # the last media sentinel. System, history and video become the
+        # cached prefix, the question the suffix; splitting the ids (not the
+        # prompt string) keeps the prefix's KV independent of the suffix.
+        if videos is None:
+            raise ValueError(f"request {row.get('id')!r}: 'shared_prefix' needs attached media "
+                             "(the shared part is system + media)")
+        valid = int(mask.sum())
+        p = int(np.nonzero(ids[0, :valid] < 0)[0][-1]) + 1
+        prefix = batch_of(ids[:, :p], np.ones((1, p), np.int64), videos)
+        reqs.append(request(row, batch_of(*text_batch(ids[0, p:valid].tolist())),
+                            prefix_batch=prefix))
     return reqs
 
 
@@ -110,7 +172,14 @@ def serve_requests(engine, requests, tokenizer, k: int = 8):
     out = []
     for r in done:
         text = tokenizer.decode(r.tokens, skip_special_tokens=True)
-        out.append({"id": r.uid, "text": text.strip(), "tokens": len(r.tokens)})
+        row = {"id": r.uid, "text": text.strip(), "tokens": len(r.tokens)}
+        if r.logprobs:
+            row["token_logprobs"] = r.token_logprobs
+            if r.top_logprobs:
+                row["top_logprobs"] = [[list(e) for e in pos] for pos in r.top_tokens]
+        if r.error:
+            row["error"] = r.error
+        out.append(row)
     return out
 
 
@@ -128,6 +197,9 @@ def main(argv=None):
     parser.add_argument("--page-size", type=int, default=64)
     parser.add_argument("--quantize-kv", action="store_true",
                         help="int8 KV pages (paged engine only)")
+    parser.add_argument("--prefix-cache-size", type=int, default=8,
+                        help="max automatically cached prompt prefixes (paged engine; "
+                             "'shared_prefix' rows)")
     parser.add_argument("--sync-every", type=int, default=8,
                         help="decode steps between host syncs")
     parser.add_argument("--fp32", action="store_true")
@@ -159,7 +231,7 @@ def main(argv=None):
 
         engine = PagedServingEngine(model, cfg, num_slots=args.num_slots,
                                     page_size=args.page_size, quantize_kv=args.quantize_kv,
-                                    eos_token_id=eos)
+                                    eos_token_id=eos, prefix_cache_size=args.prefix_cache_size)
     else:
         from videollamb_torch.serve.server import ServingEngine
 

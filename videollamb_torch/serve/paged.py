@@ -1,85 +1,94 @@
 """Continuous-batching serving engine over a paged KV cache.
 
-Port of ``videollamb_tpu/serve/paged.py``: the slot protocol of
-:class:`~videollamb_torch.serve.server.ServingEngine`, with context memory
-allocated in pages from one shared pool (``models/lm/paged.py``):
+Port of ``videollamb_tpu/serve/paged.py``: the slot protocol and decode of
+:class:`~videollamb_torch.serve.server.ServingEngine` (sampling controls,
+choice and grammar constraints on device tables, logprobs, multi-LoRA), with
+context memory allocated in pages from one shared pool
+(``models/lm/paged.py``):
 
 - admission splices the request, allocates ceil(prompt_len / page) pages and
   prefills straight into them (``fused_admit``); when the pool is short the
   request waits in the queue;
-- before every k-step decode the engine allocates the pages that the next k
-  tokens of each active slot need (``_ensure_pages``);
-- when page growth exhausts the pool, the youngest active request is swapped
-  out: its pages go to host memory as raw bytes (int8 pages with their
-  scales, so the round trip is exact) and it resumes, first in line, once a
-  slot and its pages fit again;
+- before every decode the engine allocates the pages that the next k tokens
+  of each active slot need (``_ensure_pages``);
+- when page growth exhausts the pool, an idle cached prefix is evicted
+  first, else the youngest active request is swapped out: its pages go to
+  host memory as raw bytes (int8 pages with their scales, so the round trip
+  is exact) and it resumes, first in line, once a slot and its pages fit;
 - finished slots return their pages at once.
 
+Prefix caching: ``register_prefix`` prefills a shared prompt prefix (system
+and video) once; its whole pages go into the pool, refcounted, and are
+mapped into the table row of every slot that consumes it
+(``Request.prefix_id``); each admission prefills only the request's suffix
+over a copy of the prefix's dense cache and inserts the pages past the
+shared ones. Decode never writes a shared page: its writes land past the
+prefix, in the slot's private pages. With ``Request.prefix_batch`` the engine
+keys prefixes by content (:func:`batch_signature`), reuses a cached one on a
+hit and registers on a miss; cached prefixes are refcounted by their live
+slots and evicted least-recently-used past ``prefix_cache_size`` or when
+pages run out.
+
 ``quantize_kv=True`` keeps int8 token-major pages (kernels K4 and K5 on the
-card), otherwise the model's dtype in head-major pages (kernel K6). Prefix
-caching, grammar and choice constraints, sampling controls, logprobs and
-multi-LoRA adapters are not ported yet. The paged engine does not speculate
-(``speculative`` stays None), as in the JAX package.
+card), otherwise the model's dtype in head-major pages (kernel K6). The
+paged engine does not speculate (``speculative`` stays None), as in the JAX
+package.
 """
 
 from __future__ import annotations
 
+import hashlib
+from collections import OrderedDict
 from typing import List, Optional
 
 import numpy as np
 import torch
 
 from videollamb_torch.config import ModelConfig
-from videollamb_torch.models.assembly import VideoLLaMB
-from videollamb_torch.models.lm.llama import embed_tokens
+from videollamb_torch.models.assembly import VideoLLaMB, prepare_multimodal_embeds
+from videollamb_torch.models.lm.llama import (
+    KVCache,
+    chunked_prefill,
+    embed_tokens,
+    init_kv_cache,
+    llama_extend,
+)
+from videollamb_torch.models.lm.mlora import adapter_rows
 from videollamb_torch.models.lm.paged import (
     TRASH_PAGE,
     PageAllocator,
-    PagedKVCache,
     fused_admit,
     gather_slot_pages,
     init_paged_cache,
     insert_raw_pages,
     paged_decode_step,
+    paged_insert,
+    scatter_pages,
 )
-from videollamb_torch.serve.server import Request, ServingEngine, sample_rows, slot_sampling_vectors
+from videollamb_torch.serve.server import Request, ServingEngine, _shared_consume
 
 
-@torch.no_grad()
-def paged_greedy_decode_steps(model: VideoLLaMB, cfg: ModelConfig, logits: torch.Tensor,
-                              cache: PagedKVCache, k: int):
-    """k greedy steps over the pool (the pages for positions len..len+k-1
-    are allocated) -> (tokens (B, k), logits); the cache advances in place."""
-    toks = []
-    for _ in range(k):
-        nxt = torch.argmax(logits, dim=-1)
-        toks.append(nxt)
-        # The embedding table keeps the compute dtype: no cast (an int8 pool
-        # dtype would round the embeddings to integers).
-        logits = paged_decode_step(model.lm, cfg.lm, embed_tokens(model.lm, nxt[:, None]), cache)
-    return torch.stack(toks, dim=1), logits
-
-
-@torch.no_grad()
-def paged_sampled_decode_steps(model: VideoLLaMB, cfg: ModelConfig, logits: torch.Tensor,
-                               cache: PagedKVCache, k: int,
-                               generator: Optional[torch.Generator], temps: np.ndarray,
-                               top_ps: np.ndarray):
-    """k sampled steps over the pool (temperature-0 rows by argmax)."""
-    toks = []
-    for _ in range(k):
-        nxt = sample_rows(logits, generator, temps, top_ps)
-        toks.append(nxt)
-        logits = paged_decode_step(model.lm, cfg.lm, embed_tokens(model.lm, nxt[:, None]), cache)
-    return torch.stack(toks, dim=1), logits
+def batch_signature(batch) -> bytes:
+    """Content hash of a MultimodalBatch, the automatic prefix cache key:
+    splicing is deterministic, so equal token ids, masks and video bytes mean
+    equal prefill KV."""
+    h = hashlib.sha256()
+    for t in (batch.input_ids, batch.attention_mask, batch.videos):
+        if t is None:
+            h.update(b"\x00")
+            continue
+        t = t.detach().contiguous().cpu()
+        h.update(f"{t.dtype}{tuple(t.shape)}".encode())
+        h.update(t.view(torch.uint8).numpy().tobytes())
+    return h.digest()
 
 
 class PagedServingEngine(ServingEngine):
     def __init__(self, model: VideoLLaMB, cfg: ModelConfig, *, num_slots: int = 4,
                  page_size: int = 64, total_pages: Optional[int] = None,
                  pages_per_seq: Optional[int] = None, eos_token_id: int = 2, seed: int = 0,
-                 quantize_kv: bool = False):
-        self._init_slots(model, cfg, num_slots, eos_token_id, seed)
+                 quantize_kv: bool = False, adapter_registry=None, prefix_cache_size: int = 8):
+        self._init_slots(model, cfg, num_slots, eos_token_id, seed, adapter_registry)
         self.page_size = page_size
         # Default pool: every slot can hold max_length + 512 tokens, rounded
         # up to a multiple of 8 pages (VideoLLaMB-7B: 40 pages of 64 per
@@ -105,11 +114,164 @@ class PagedServingEngine(ServingEngine):
         self._swapped: List[dict] = []  # resume order (FIFO)
         self._admit_seq = 0  # admission order; the youngest has the largest
         self._slot_seq = np.zeros((num_slots,), np.int64)
+        # Prefix cache: pid -> dict(pages, dense, logits, len); auto-cached
+        # prefixes by signature in LRU -> MRU order, refcounted by their live
+        # slots. Each holds its shared pages and a dense B=1 cache of its
+        # tokens for the suffix prefills.
+        self._prefixes: dict = {}
+        self._next_prefix_id = 0
+        self.prefix_cache_size = max(1, prefix_cache_size)
+        self._auto_prefix: "OrderedDict[bytes, int]" = OrderedDict()
+        self._prefix_refs: dict = {}
+        self._slot_prefix: List[Optional[int]] = [None] * num_slots
+        self.prefix_hits = 0
+        self.prefix_misses = 0
+        self.prefix_evictions = 0
+        self.peak_pages_in_use = 0
 
     # ------------------------------------------------------------------
-    def _mark_admitted(self, slot: int) -> None:
+    # Prefix caching.
+    def register_prefix(self, batch) -> Optional[int]:
+        """Prefill a shared prompt prefix once; returns its id for
+        ``Request.prefix_id``, or None when the pool cannot hold its pages.
+        Only whole pages are shared; the prefix's dense cache is kept so each
+        admission prefills only the request's suffix."""
+        spliced = prepare_multimodal_embeds(self.model, self.cfg, batch)
+        prefix_len = int(spliced.attention_mask.sum())
+        n_full = prefix_len // self.page_size
+        pages = self.allocator.alloc(n_full) if n_full else []
+        if pages is None:
+            return None
+        dense = init_kv_cache(self.cfg.lm, 1, self.cfg.max_length, dtype=self._dtype,
+                              device=self.device)
+        logits, dense = chunked_prefill(self.model.lm, self.cfg.lm,
+                                        spliced.embeds.to(self._dtype), spliced.attention_mask,
+                                        dense, lengths=[prefix_len])
+        if pages:
+            scatter_pages(self.cache, dense, pages)
+        pid = self._next_prefix_id
+        self._next_prefix_id += 1
+        # Keep only the prefix's rows of the dense cache.
+        self._prefixes[pid] = {
+            "pages": pages, "len": prefix_len, "logits": logits,
+            "k": dense.k[:, :, :prefix_len].clone(), "v": dense.v[:, :, :prefix_len].clone()}
+        self._prefix_refs[pid] = 0
+        self._note_pages()
+        return pid
+
+    def release_prefix(self, pid: int) -> None:
+        info = self._prefixes.pop(pid)
+        self._prefix_refs.pop(pid, None)
+        self.allocator.free(info["pages"])
+
+    def _evict_idle_prefix(self, exclude=None) -> bool:
+        """Drop the least-recently-used auto-cached prefix without a live slot
+        (not ``exclude``, the one being admitted against), freeing its pages.
+        False when every cached prefix is in use."""
+        for sig, pid in self._auto_prefix.items():
+            if pid != exclude and self._prefix_refs.get(pid, 0) == 0:
+                del self._auto_prefix[sig]
+                self.release_prefix(pid)
+                self.prefix_evictions += 1
+                return True
+        return False
+
+    def _pool_idle(self) -> bool:
+        return not any(r is not None for r in self.slots) and not self._swapped
+
+    def _resolve_auto_prefix(self, req: Request) -> str:
+        """Map ``req.prefix_batch`` to a cached prefix id, registering on a
+        miss: 'ok' (req.prefix_id set), 'wait' (the pool is too tight now)
+        or 'reject' (the prefix cannot fit even with the pool idle and every
+        idle prefix evicted)."""
+        sig = batch_signature(req.prefix_batch)
+        pid = self._auto_prefix.get(sig)
+        if pid is not None:
+            self._auto_prefix.move_to_end(sig)
+            self.prefix_hits += 1
+            req.prefix_id = pid
+            return "ok"
+        self.prefix_misses += 1
+        while len(self._auto_prefix) >= self.prefix_cache_size:
+            if not self._evict_idle_prefix():
+                break  # every entry in use: overshoot until slots release
+        pid = self.register_prefix(req.prefix_batch)
+        while pid is None and self._evict_idle_prefix():
+            pid = self.register_prefix(req.prefix_batch)
+        if pid is None:
+            return "reject" if self._pool_idle() and not self._prefixes else "wait"
+        self._auto_prefix[sig] = pid
+        req.prefix_id = pid
+        return "ok"
+
+    def _admit_prefix(self, req: Request, slot: int) -> bool:
+        """Admission of a prefix-cached request: the suffix prefilled over a
+        copy of the prefix's dense rows, the shared pages mapped by refcount.
+        False on backpressure (the request stays queued)."""
+        info = self._prefixes[req.prefix_id]
+        spliced, suffix_len = self._splice(req)
+        total_len = info["len"] + suffix_len
+        n_pages = self.allocator.pages_needed(total_len, self.page_size)
+        n_full = len(info["pages"])
+        if n_pages > self.pages_per_seq:
+            self._drop(self.pending.get(), f"rejected: prefix+suffix needs {n_pages} pages, "
+                       f"per-sequence budget is {self.pages_per_seq}")
+            return True
+        private = self.allocator.alloc(n_pages - n_full)
+        if private is None and req.prefix_batch is not None:
+            # An auto-cached prefix: reclaim OTHER idle prefixes first; if the
+            # pool is otherwise idle and the suffix still does not fit beside
+            # the prefix, no release will ever help.
+            while private is None and self._evict_idle_prefix(exclude=req.prefix_id):
+                private = self.allocator.alloc(n_pages - n_full)
+            if private is None and self._pool_idle():
+                self._drop(self.pending.get(), f"rejected: prefix+suffix needs {n_pages} "
+                           "pages and cannot fit the page pool even with the cache empty")
+                return True
+        if private is None:
+            return False  # pool exhausted: backpressure
+        self.pending.get()
+        req._spliced = None
+        # Suffix-only prefill of the suffix's own tokens (not the splice
+        # buffer's padding) over a copy of the prefix's rows, in a dense cache
+        # as long as the slot's pages (the last one partly filled).
+        k = info["k"].new_zeros((info["k"].shape[0], 1, n_pages * self.page_size,
+                                 *info["k"].shape[3:]))
+        v = torch.zeros_like(k)
+        k[:, :, :info["len"]] = info["k"]
+        v[:, :, :info["len"]] = info["v"]
+        dense = KVCache(k=k, v=v, length=torch.tensor([info["len"]], device=self.device))
+        logits, dense = llama_extend(self.model.lm, self.cfg.lm,
+                                     spliced.embeds[:, :suffix_len].to(self._dtype),
+                                     spliced.attention_mask[:, :suffix_len], dense)
+        self.allocator.retain(info["pages"])
+        pages = list(info["pages"]) + private
+        page_ids = np.full((self.pages_per_seq,), TRASH_PAGE, np.int32)
+        page_ids[:len(pages)] = pages
+        paged_insert(self.cache, dense, slot, page_ids.tolist(), skip_pages=n_full)
+        self.logits[slot] = logits[0]
+        self._install_constraint(req)
+        self._occupy(slot, req, pages, total_len, page_ids)
+        self._slot_prefix[slot] = req.prefix_id
+        self._prefix_refs[req.prefix_id] += 1
+        _shared_consume(req)
+        return True
+
+    # ------------------------------------------------------------------
+    def _note_pages(self) -> None:
+        self.peak_pages_in_use = max(self.peak_pages_in_use,
+                                     self.total_pages - 1 - self.allocator.free_pages)
+
+    def _occupy(self, slot: int, req: Request, pages: List[int], length: int,
+                row: np.ndarray) -> None:
+        """Host bookkeeping of an admitted or resumed slot (its card row is set)."""
+        self.slot_pages[slot] = pages
+        self._host_len[slot] = length
+        self._table_host[slot] = row
+        self.slots[slot] = req
         self._slot_seq[slot] = self._admit_seq
         self._admit_seq += 1
+        self._note_pages()
 
     def _sync_table(self) -> None:
         if not self._table_dirty:
@@ -118,8 +280,12 @@ class PagedServingEngine(ServingEngine):
         self.cache.lengths.copy_(torch.from_numpy(self._host_len.astype(np.int32)))
         self._table_dirty = False
 
-    def _release(self, slot: int) -> None:
-        self.slots[slot] = None
+    def _free_cache_row(self, slot: int) -> None:
+        pid = self._slot_prefix[slot]
+        if pid is not None:
+            self._slot_prefix[slot] = None
+            if pid in self._prefix_refs:
+                self._prefix_refs[pid] -= 1
         self.allocator.free(self.slot_pages[slot])
         self.slot_pages[slot] = []
         self._host_len[slot] = 0
@@ -128,8 +294,17 @@ class PagedServingEngine(ServingEngine):
         self._table_host[slot] = TRASH_PAGE
         self._table_dirty = True
 
+    def _prefix_refusal(self, req: Request) -> Optional[str]:
+        if req.adapter is not None:
+            # A shared prefix's KV comes from the base model.
+            return ("rejected: adapter requests cannot reuse a shared prefix "
+                    "(prefix KV is base-model)")
+        return None
+
     def _admit(self) -> None:
-        # Swapped requests resume first: they predate everything pending.
+        # Releases of the previous commit reach the card first: admission may
+        # reuse their pages. Swapped requests resume before anything pending.
+        self._sync_table()
         self._readmit_swapped()
         while not self.pending.empty():
             slot = self._free_slot()
@@ -139,7 +314,30 @@ class PagedServingEngine(ServingEngine):
             if req.cancelled:
                 self._drop(self.pending.get())
                 continue
-            spliced, prompt_len = self._splice(req)
+            refusal = self._refusal(req)
+            if refusal is not None:
+                self._drop(self.pending.get(), refusal)
+                continue
+            if (req.prefix_batch is not None and req.prefix_id is not None
+                    and req.prefix_id not in self._prefixes):
+                req.prefix_id = None  # evicted while this request waited: resolve again
+            if req.prefix_batch is not None and req.prefix_id is None:
+                state = self._resolve_auto_prefix(req)
+                if state == "wait":
+                    return
+                if state == "reject":
+                    self._drop(self.pending.get(), "rejected: prefix exceeds the page pool "
+                               "even with the cache empty")
+                    continue
+            if req.prefix_id is not None:
+                if not self._admit_prefix(req, slot):
+                    return
+                continue
+            shared = req._shared_prefill
+            if shared is not None and shared["data"] is not None:
+                prompt_len = int(shared["data"][1].length[0])
+            else:
+                prompt_len = self._splice(req)[1]
             n_pages = self.allocator.pages_needed(prompt_len, self.page_size)
             if n_pages > self.pages_per_seq:
                 self._drop(self.pending.get(),
@@ -150,17 +348,25 @@ class PagedServingEngine(ServingEngine):
             if pages is None:
                 return  # pool exhausted: backpressure until slots free
             self.pending.get()
-            req._spliced = None
+            aidx1 = self._set_adapter(slot, req)
             page_ids = np.full((self.pages_per_seq,), TRASH_PAGE, np.int32)
             page_ids[:len(pages)] = pages
-            fused_admit(self.model.lm, self.cfg.lm, spliced.embeds.to(self._dtype),
-                        spliced.attention_mask, prompt_len, self.cache, self.logits, slot,
-                        page_ids.tolist())
-            self.slot_pages[slot] = pages
-            self._host_len[slot] = prompt_len
-            self._table_host[slot] = page_ids  # the card's row was set in place
-            self.slots[slot] = req
-            self._mark_admitted(slot)
+            if shared is None:
+                spliced, _ = self._splice(req)
+                req._spliced = None
+                with adapter_rows(self.model.lm, aidx1):
+                    fused_admit(self.model.lm, self.cfg.lm, spliced.embeds.to(self._dtype),
+                                spliced.attention_mask, prompt_len, self.cache, self.logits,
+                                slot, page_ids.tolist())
+            else:
+                # A share_prefill group: the dense single-row prefill is kept
+                # for the siblings.
+                logits, single, _ = self._prefill(req, aidx1)
+                paged_insert(self.cache, single, slot, page_ids.tolist())
+                self.logits[slot] = logits[0]
+            _shared_consume(req)
+            self._install_constraint(req)
+            self._occupy(slot, req, pages, prompt_len, page_ids)
 
     # ------------------------------------------------------------------
     # Swap preemption: the youngest request's pages go to host memory.
@@ -185,8 +391,10 @@ class PagedServingEngine(ServingEngine):
         return victim
 
     def _swap_out(self, slot: int) -> None:
-        """Copy a slot's resident pages to host memory and free them. Growth
-        pages allocated ahead hold no token and are not saved."""
+        """Copy a slot's resident pages (shared prefix pages included) to host
+        memory and release its references. Growth pages allocated ahead hold
+        no token and are not saved. The request keeps its host state (tokens,
+        constraint cursor) and its adapter index rides along."""
         length = int(self._host_len[slot])
         n_data = min(self.allocator.pages_needed(length, self.page_size),
                      len(self.slot_pages[slot]))
@@ -195,14 +403,15 @@ class PagedServingEngine(ServingEngine):
             "req": self.slots[slot], "len": length, "n": n_data,
             "k": k.cpu(), "v": v.cpu(),
             "ks": None if ks is None else ks.cpu(), "vs": None if vs is None else vs.cpu(),
-            "logits": self.logits[slot].clone(),
+            "logits": self.logits[slot].clone(), "adapter": int(self._adapter_host[slot]),
         })
         self.preempted += 1
         self._release(slot)
 
     def _readmit_swapped(self) -> None:
         """Resume swapped requests in order once a slot and their pages, plus
-        one token of headroom, fit again."""
+        one token of headroom, fit again. A resumed prefix request holds its
+        pages privately."""
         while self._swapped:
             ent = self._swapped[0]
             if ent["req"].cancelled:
@@ -221,20 +430,20 @@ class PagedServingEngine(ServingEngine):
                              ent["ks"], ent["vs"])
             row = np.full((self.pages_per_seq,), TRASH_PAGE, np.int32)
             row[:len(pages)] = pages
-            self.cache.page_table[slot] = torch.from_numpy(row)
+            self.cache.page_table[slot] = torch.from_numpy(row).to(self.device)
             self.cache.lengths[slot] = ent["len"]
             self.logits[slot] = ent["logits"]
-            self.slot_pages[slot] = pages
-            self._host_len[slot] = ent["len"]
-            self._table_host[slot] = row
-            self.slots[slot] = ent["req"]
-            self._mark_admitted(slot)
+            if ent["adapter"] >= 0:
+                self._adapter_host[slot] = ent["adapter"]
+                self.adapter_idx[slot] = ent["adapter"]
+            self._occupy(slot, ent["req"], pages, ent["len"], row)
             self.resumed += 1
 
     def _ensure_pages(self, k: int) -> None:
-        """Allocate pages so every active slot can write k more tokens,
-        swapping out the youngest request when the pool runs dry. A pool
-        that cannot hold the one active request raises."""
+        """Allocate pages so every active slot can write k more tokens. When
+        the pool runs dry an idle cached prefix is evicted, else the youngest
+        request swapped out; a pool that cannot hold the one active request
+        raises."""
         for i in range(self.num_slots):
             if self.slots[i] is None:
                 continue
@@ -243,6 +452,8 @@ class PagedServingEngine(ServingEngine):
                    and len(self.slot_pages[i]) < min(need, self.pages_per_seq)):
                 got = self.allocator.alloc(1)
                 if got is None:
+                    if self._evict_idle_prefix():
+                        continue
                     victim = self._pick_victim()
                     if victim == i and sum(r is not None for r in self.slots) == 1:
                         raise RuntimeError(
@@ -254,27 +465,26 @@ class PagedServingEngine(ServingEngine):
                 self._table_host[i, len(self.slot_pages[i])] = got[0]
                 self.slot_pages[i].append(got[0])
                 self._table_dirty = True
+        self._note_pages()
 
-    def _decode(self, k: int) -> torch.Tensor:
-        temps, top_ps = slot_sampling_vectors(self.slots)
-        if (temps > 0).any():
-            toks, self.logits = paged_sampled_decode_steps(
-                self.model, self.cfg, self.logits, self.cache, k, self.generator, temps, top_ps)
-        else:
-            toks, self.logits = paged_greedy_decode_steps(
-                self.model, self.cfg, self.logits, self.cache, k)
+    # ------------------------------------------------------------------
+    # Decode hooks.
+    def _forward(self, nxt: torch.Tensor) -> torch.Tensor:
+        # The embedding table keeps the compute dtype: no cast (an int8 pool
+        # dtype would round the embeddings to integers).
+        return paged_decode_step(self.model.lm, self.cfg.lm,
+                                 embed_tokens(self.model.lm, nxt[:, None]), self.cache)
+
+    def _advanced(self, k: int) -> None:
         self._host_len += k  # finished rows are zeroed by _release at commit
-        return toks
 
-    def step(self, k: int = 1) -> List[Request]:
-        # Releases of the previous commit reach the card before admission,
-        # which may reuse their pages.
+    def _rewind(self, frozen: np.ndarray, garbage: np.ndarray) -> None:
+        """Frozen rows' lengths come back over their garbage steps: the next
+        steps write (K5 on int8 pages) over those rows, in pages already
+        allocated, and attention (K4, K6) reads up to the rewound length."""
+        self._host_len -= garbage
+        self.cache.lengths -= torch.as_tensor(garbage, dtype=torch.int32, device=self.device)
+
+    def _prepare_decode(self, k: int) -> None:
+        self._ensure_pages(k)
         self._sync_table()
-        self._admit()
-        dropped = self._drain_dropped()
-        if not any(self._active_mask()):
-            return dropped
-        self._ensure_pages(max(k, 1))
-        self._sync_table()
-        toks = self._decode(k)
-        return self._commit_k_tokens(toks.cpu().numpy(), k, dropped)

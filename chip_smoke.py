@@ -74,6 +74,19 @@
    plain greedy (accepted lengths, rounds, rates, and where the chains part,
    if they do: reported, not asserted, in bf16), and a dense
    ``ServingEngine(speculative="lookup")`` serving three requests.
+4a. Training (``train_phase``), before the quantised phase, which
+   quantises the bf16 LM and the tower in place: the stage-1 recipe (a new
+   f32 projector over the frozen bf16 7B and tower) and the stage-2 QLoRA
+   recipe (LoRA r=128, alpha 256, on every projection of the int8 LM, and a
+   projector) through ``create_optimizer`` / ``trainable_mask`` /
+   ``make_train_step``: B=1, 16 frames and 64 ids spliced into 2048 tokens,
+   remat, the chunked attention, one warm-up and 8 timed steps on one batch
+   (the loss must fall), one profiled step (kernel ms by kind); the Trainer
+   over three in-memory clips, with a checkpoint and a resume that must
+   restore the projector, the update count and the generator; the chunked
+   attention timed alone; K1 and K2 must launch. Then a depth-cut (2 tower,
+   2 LM layers) LoRA + projector step on the card in bf16 against the host
+   in f32: loss and gradients within the stated tolerances.
 5. Quantised weights at full width and depth: the int8 LM
    (``quantize_llama_params``, the ``load_8bit`` route) answers offline
    requests; then the bf16 LM is quantised in place by
@@ -100,8 +113,11 @@ import argparse
 import contextlib
 import copy
 import dataclasses
+import gc
 import json
 import math
+import os
+import statistics
 import subprocess
 import sys
 import time
@@ -1805,6 +1821,400 @@ def quantized_phase(model, cfg, int8_lm, g: torch.Generator) -> dict:
                 int8_tower=dict(rel_l2=rel, ms=int8_ms, bf16_ms=bf16_ms))
 
 
+TRAIN_TEXT = 64  # text ids per training sample, spliced with 16 frames into 2048 tokens
+TRAIN_STEPS = 8  # timed steps per recipe, after one warm-up step
+TRAIN_LR = 1e-3
+# Depth-cut train step, kernels in bf16 on the card against the plain route in
+# f32 on the host: relative error of the loss and relative L2 of each trained
+# group's gradient (bf16 activations through the tower, bridge and two layers).
+# The loss limit lies between the sound runs' readings (5.81e-05 and 1.72e-04)
+# and that of a known fault (8.31e-03: SceneTilling cut different segments on
+# the two sides); a random-init LM's loss sits near ln(32000) whatever its
+# inputs, so the loss alone moves little under a fault.
+TRAIN_LOSS_REL = 2e-3
+TRAIN_GRAD_REL_L2 = 1e-1
+
+
+class TrainClips:
+    """An in-memory dataset of processed 16-frame clips and their conversation
+    ids, with the interface the Trainer reads."""
+
+    def __init__(self, cfg, n: int, seed: int):
+        import numpy as np
+
+        from videollamb_torch.constants import IGNORE_INDEX, VIDEO_TOKEN_INDEX
+
+        rng = np.random.default_rng(seed)
+        img = cfg.vision.image_size
+        self.samples = []
+        for _ in range(n):
+            ids = rng.integers(4, cfg.lm.vocab_size, size=TRAIN_TEXT).astype(np.int32)
+            ids[2] = VIDEO_TOKEN_INDEX
+            labels = np.where(np.arange(TRAIN_TEXT) < TRAIN_TEXT // 2, IGNORE_INDEX, ids)
+            self.samples.append({"input_ids": ids, "labels": labels.astype(np.int32),
+                                 "video": rng.normal(size=(16, 3, img, img)).astype(np.float32)})
+
+    def __len__(self):
+        return len(self.samples)
+
+    def __getitem__(self, i):
+        return self.samples[i]
+
+    def modality(self, i):
+        return "video"
+
+    def modality_lengths(self):
+        return [TRAIN_TEXT] * len(self.samples)
+
+
+def train_batch(cfg, clips: "TrainClips"):
+    from videollamb_torch.train.dataset import Collator
+    from videollamb_torch.train.trainer import pin_batch, to_device
+
+    return to_device(pin_batch(Collator(max_length=cfg.max_length)([clips[0]]),
+                             torch.device("cuda")), torch.device("cuda"))
+
+
+def kernel_device_ms(prof) -> dict:
+    """Device time of the kernels in a profile, in total and by kind (name)."""
+    kinds = {"gemm": ("gemm", "cutlass", "xmma", "cublas", "matmul"),
+             "optimizer": ("multi_tensor", "foreach", "adam")}
+    out = {"total": 0.0, "gemm": 0.0, "optimizer": 0.0}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        out["total"] += us / 1e3
+        name = e.key.lower()
+        for kind, marks in kinds.items():
+            if any(m in name for m in marks):
+                out[kind] += us / 1e3
+                break
+    return out
+
+
+def chunked_attention_ms(cfg) -> float:
+    """One layer's chunked attention at the step's shape, as a remat step runs
+    it (forward, the layer's recompute, and the backward with its own block
+    recompute), timed alone with CUDA events."""
+    from videollamb_torch.ops.attention import multihead_attention
+
+    lm = cfg.lm
+    shape = (1, cfg.max_length, lm.num_attention_heads, lm.head_dim)
+    q, k, v = (torch.randn(shape, device="cuda", dtype=torch.bfloat16).requires_grad_(True)
+               for _ in range(3))
+    mask = torch.ones((1, cfg.max_length), dtype=torch.bool, device="cuda")
+
+    def once():
+        with torch.no_grad():
+            multihead_attention(q, k, v, causal=True, k_mask=mask, impl="chunked")
+        out = multihead_attention(q, k, v, causal=True, k_mask=mask, impl="chunked")
+        torch.autograd.grad(out.float().square().mean(), (q, k, v))
+
+    with torch.enable_grad():
+        return cuda_ms(once, iters=3, warmup=1)
+
+
+class GcClock:
+    """Wall time the interpreter spends in its cyclic garbage collector, and
+    its collections of the oldest generation, while installed."""
+
+    def __init__(self):
+        self.ms, self.full, self._t0 = 0.0, 0, 0.0
+
+    def __call__(self, phase, info):
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        else:
+            self.ms += (time.perf_counter() - self._t0) * 1e3
+            self.full += info["generation"] == 2
+
+    @contextlib.contextmanager
+    def installed(self):
+        gc.callbacks.append(self)
+        try:
+            yield self
+        finally:
+            gc.callbacks.remove(self)
+
+
+@contextlib.contextmanager
+def unfrozen_after():
+    """Give the objects that ``gc.freeze`` set aside back to the collector."""
+    try:
+        yield
+    finally:
+        gc.unfreeze()
+
+
+def allocator_counts(clock: GcClock) -> dict:
+    """The caching allocator's running counts of cudaMalloc calls and of
+    retries (a failed allocation that frees the cache and tries again), and
+    the collector's running ms and full collections."""
+    stats = torch.cuda.memory_stats()
+    return {**{k: stats.get(k, 0) for k in ("num_device_alloc", "num_alloc_retries")},
+            "gc_ms": clock.ms, "gc_full": clock.full}
+
+
+def run_recipe(label, model, cfg, tcfg, clips) -> dict:
+    """One warm-up step and TRAIN_STEPS timed steps on one batch repeated
+    through the port's create_optimizer / trainable_mask / make_train_step, then
+    one profiled step. Without dropout (no generator, as bench.py's stage-1
+    step runs), so that the loss can only move by the updates."""
+    from videollamb_torch.train.step import (
+        create_optimizer,
+        create_train_state,
+        make_train_step,
+        trainable_mask,
+    )
+
+    tx = create_optimizer(tcfg, 1000, model)
+    state = create_train_state(model, tx)
+    step = make_train_step(cfg, tx, remat=True, attn_impl="chunked",
+                           mask=trainable_mask(tcfg, model))
+    batch = train_batch(cfg, clips)
+    # This script's earlier phases leave over a million objects that the
+    # collector tracks, and a full collection over them took 2.0 s of one
+    # step. They belong to no training run, so they are collected (with the
+    # device memory their cycles hold) and frozen out of the collector's
+    # reach while the steps are timed.
+    gc.collect()
+    tracked = len(gc.get_objects())
+    gc.freeze()
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    reserved = torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times, allocs = [], [], []
+    with GcClock().installed() as clock, unfrozen_after():
+        for i in range(1 + TRAIN_STEPS):
+            torch.cuda.synchronize()
+            before = allocator_counts(clock)
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            loss = float(metrics["loss"])
+            torch.cuda.synchronize()
+            losses.append(loss)
+            if i:
+                times.append((time.perf_counter() - t0) * 1e3)
+                allocs.append({k: v - before[k] for k, v in allocator_counts(clock).items()})
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            float(metrics["loss"])
+            torch.cuda.synchronize()
+            profiled_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    dev = kernel_device_ms(prof)
+    n_trained = sum(p.numel() for p in tx.params)
+    median = statistics.median(times)
+    out = dict(step_ms_median=median, step_ms_min=min(times), step_ms_max=max(times),
+               step_ms=times, step_allocator=allocs, samples_per_s=1000.0 / median,
+               losses=losses, grad_norm=float(metrics["grad_norm"]), trained_params=n_trained,
+               profiled_step_ms=profiled_ms, device_ms=dev,
+               peak_allocated_gib=peak / 2**30, resident_gib=resident / 2**30)
+    busy = ("device time not measured" if dev["total"] == 0.0 else
+            f"{dev['total']:.1f} ms of kernels ({dev['total'] / profiled_ms:.1%} of it busy; "
+            f"{dev['total'] / out['step_ms_median']:.1%} of the unprofiled median): GEMMs "
+            f"{dev['gemm']:.1f} ms, optimizer {dev['optimizer']:.1f} ms")
+    print(f"[train] {label}: {n_trained / 1e6:.1f} M trained parameters, step "
+          f"{median:.1f} ms median ({min(times):.1f}-{max(times):.1f}) over "
+          f"{TRAIN_STEPS} steps, {out['samples_per_s']:.2f} samples/s; losses "
+          f"{[round(x, 4) for x in losses]}; peak allocated {peak / 2**30:.2f} GiB "
+          f"({(peak - resident) / 2**30:.2f} GiB over the {resident / 2**30:.2f} GiB resident); "
+          f"profiled step {profiled_ms:.1f} ms, {busy}")
+    print(f"[train] {label.split()[0]}: steps in order (ms; device mallocs, allocator "
+          f"retries, ms in the garbage collector, its full collections; "
+          f"{reserved / 2**30:.2f} GiB reserved and {tracked} objects frozen out of the "
+          f"collector at the start): " + ", ".join(
+              f"{t:.1f} ({a['num_device_alloc']}, {a['num_alloc_retries']}, "
+              f"{a['gc_ms']:.1f}, {a['gc_full']})" for t, a in zip(times, allocs)))
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{label}: losses {losses} not finite or not falling on one batch")
+    return out
+
+
+def train_reference(g: torch.Generator, seed: int) -> dict:
+    """One LoRA + projector train step's loss and gradients on a depth-cut
+    model at full width (2 tower layers, 2 LM layers): kernels in bf16 on the
+    card against the plain route in f32 on the host."""
+    from videollamb_torch.config import ModelConfig, TrainConfig
+    from videollamb_torch.models.assembly import causal_lm_loss, videollamb_forward
+    from videollamb_torch.models.lm.lora import add_lora_params
+    from videollamb_torch.models.vision.clip_vit import vision_encode
+    from videollamb_torch.ops.scene_tilling import segment_topk
+    from videollamb_torch.train.step import apply_trainable_mask, trainable_mask
+
+    base = ModelConfig()
+    cfg = dataclasses.replace(
+        base, max_length=1280, vision=dataclasses.replace(base.vision, num_hidden_layers=3),
+        lm=dataclasses.replace(base.lm, num_hidden_layers=2))
+    gpu = build_model(cfg, seed + 40, "cuda", torch.bfloat16)
+    add_lora_params(gpu.lm, cfg.lm, r=16, alpha=32.0, dtype=torch.bfloat16,
+                    generator=torch.Generator(device="cuda").manual_seed(seed + 41))
+    for m in gpu.lm.modules():  # B away from zero, so that A takes a gradient too
+        if hasattr(m, "lora_b"):
+            m.lora_b.data.normal_(0.0, 0.02, generator=g)
+    cpu = copy.deepcopy(gpu).float().cpu()
+    gpu.mm_projector.float()  # f32 masters on the card, as the recipes train them
+    clips = TrainClips(cfg, 1, seed + 42)
+    # Four clear scenes of two frames: SceneTilling cuts both sides' features
+    # at the same frames (random frames would leave near-ties that bf16 flips).
+    clips.samples[0]["video"] = scene_clip(g, cfg.vision.image_size, [2, 2, 2, 2], 0.05)
+    tcfg = TrainConfig(tune_mode="lora")
+    batch = train_batch(cfg, clips)
+    results, cuts = [], []
+    with torch.enable_grad():
+        for model, dev in ((gpu, "cuda"), (cpu, "cpu")):
+            apply_trainable_mask(model, trainable_mask(tcfg, model))
+            b = type(batch)(*(None if x is None else x.to(dev) for x in batch))
+            with torch.no_grad():
+                feats = vision_encode(model.video_tower, b.videos, cfg.vision)
+                cuts.append(segment_topk(feats[0, :, 0], k=cfg.bridge.segment_topk).tolist())
+            zero_counters()
+            logits, spliced = videollamb_forward(model, cfg, b, remat=True, attn_impl="chunked")
+            loss, _ = causal_lm_loss(logits, spliced.labels)
+            names = [n for n, p in model.named_parameters() if p.requires_grad]
+            grads = torch.autograd.grad(loss, [p for n, p in model.named_parameters()
+                                               if p.requires_grad], allow_unused=True)
+            launched = read_counters()
+            results.append((float(loss.detach()), dict(zip(names, grads)), launched))
+    (gl, gg, launched), (cl, cg, _) = results
+    groups = {"projector": lambda n: n.startswith("mm_projector."),
+              "lora_a": lambda n: n.endswith(".lora_a"), "lora_b": lambda n: n.endswith(".lora_b")}
+    errs = {}
+    for group, pick in groups.items():
+        a = torch.cat([gg[n].float().cpu().flatten() for n in gg if pick(n) and gg[n] is not None])
+        b = torch.cat([cg[n].flatten() for n in cg if pick(n) and cg[n] is not None])
+        errs[group] = float((a - b).norm() / b.norm())
+    loss_rel = abs(gl - cl) / abs(cl)
+    ok = (loss_rel <= TRAIN_LOSS_REL and all(e <= TRAIN_GRAD_REL_L2 for e in errs.values())
+          and cuts[0] == cuts[1]
+          and launched["spatial_attention"] > 0 and launched["temporal_attention"] > 0)
+    print(f"[train] depth-cut LoRA + projector step, kernels bf16 on the card vs plain f32 on "
+          f"the host: segment ends {cuts[0]} / {cuts[1]}; "
+          f"loss {gl:.5f} vs {cl:.5f} (rel {loss_rel:.2e}, tol {TRAIN_LOSS_REL}); "
+          f"gradient rel_l2 { {k: f'{v:.3e}' for k, v in errs.items()} } (tol "
+          f"{TRAIN_GRAD_REL_L2}); card K1 {launched['spatial_attention']}, K2 "
+          f"{launched['temporal_attention']} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the card's train step disagrees with the host's")
+    del gpu, cpu
+    torch.cuda.empty_cache()
+    return dict(loss_card=gl, loss_host=cl, loss_rel=loss_rel, grad_rel_l2=errs,
+                segment_ends=cuts[0])
+
+
+def trainer_run(model, cfg, seed: int) -> dict:
+    """The Trainer over TrainClips (adapter recipe, one clip a step): it saves a
+    checkpoint at the end; a second Trainer over a fresh projector resumes
+    from it, and its parameters, update count and generator must equal."""
+    import shutil
+
+    from videollamb_torch.config import TrainConfig
+    from videollamb_torch.models.assembly import VideoLLaMB
+    from videollamb_torch.models.bridge.rmt_r import init_rmt_r_params
+    from videollamb_torch.train.trainer import Trainer
+
+    outdir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "train_smoke")
+    shutil.rmtree(outdir, ignore_errors=True)
+    tcfg = TrainConfig(tune_mode="adapter", per_device_batch_size=1, save_steps=0,
+                       learning_rate=TRAIN_LR, output_dir=outdir, seed=seed)
+    clips = TrainClips(cfg, 3, seed + 50)
+
+    def fresh(bridge_seed):
+        return VideoLLaMB(model.video_tower, init_rmt_r_params(
+            cfg.bridge, cfg.lm.hidden_size, seed=bridge_seed, device="cuda"), model.lm)
+
+    logs = []
+    t0 = time.perf_counter()
+    first = Trainer(cfg, tcfg, fresh(seed + 51), clips, log_fn=logs.append)
+    state = first.train()
+    train_s = time.perf_counter() - t0
+    resumed = Trainer(cfg, tcfg, fresh(seed + 52), clips, log_fn=logs.append)
+    same = all(torch.equal(a, b) for a, b in zip(state.model.mm_projector.parameters(),
+                                                 resumed.state.model.mm_projector.parameters()))
+    ok = (same and resumed.state.step == state.step == len(clips)
+          and resumed.tx.updates == first.tx.updates
+          and torch.equal(resumed.generator.get_state(), first.generator.get_state())
+          and os.path.exists(os.path.join(outdir, f"checkpoint-{state.step}", "mm_projector.bin"))
+          and all(math.isfinite(m["loss"]) for m in logs))
+    print(f"[train] Trainer: {state.step} steps over {len(clips)} clips in {train_s:.1f} s "
+          f"(checkpoint included), losses {[round(m['loss'], 4) for m in logs]}; resumed at "
+          f"step {resumed.state.step} with equal projector, updates and generator -> "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the Trainer did not resume from its checkpoint")
+    shutil.rmtree(outdir, ignore_errors=True)
+    return dict(steps=state.step, seconds=train_s, losses=[m["loss"] for m in logs])
+
+
+def remove_lora(lm) -> None:
+    from videollamb_torch.models.lm.lora import LoRALinear, _targets, LORA_TARGETS
+
+    for parent, name in _targets(lm, LORA_TARGETS):
+        module = getattr(parent, name)
+        if isinstance(module, LoRALinear):
+            setattr(parent, name, module.base)
+
+
+def train_phase(model, cfg, int8_lm, g: torch.Generator, seed: int) -> dict:
+    """Training at full width and depth: the stage-1 adapter recipe over the
+    frozen bf16 7B and tower, the stage-2 QLoRA recipe over the int8 LM (LoRA
+    r=128, alpha 256, on every projection, and the projector), the Trainer with
+    a checkpoint and a resume, then the depth-cut card-vs-host step."""
+    from videollamb_torch.config import TrainConfig
+    from videollamb_torch.models.assembly import VideoLLaMB
+    from videollamb_torch.models.bridge.rmt_r import init_rmt_r_params
+    from videollamb_torch.models.lm.lora import add_lora_params
+
+    clips = TrainClips(cfg, 1, seed + 60)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    zero_counters()
+    with torch.enable_grad():
+        adapter_model = VideoLLaMB(model.video_tower, init_rmt_r_params(
+            cfg.bridge, cfg.lm.hidden_size, seed=seed + 61, device="cuda"), model.lm)
+        adapter = run_recipe("train_adapter (stage 1: projector over the frozen bf16 7B)",
+                             adapter_model, cfg, TrainConfig(tune_mode="adapter",
+                                                             learning_rate=TRAIN_LR),
+                             clips)
+        del adapter_model
+        add_lora_params(int8_lm, cfg.lm, r=128, alpha=256.0,
+                        generator=torch.Generator(device="cuda").manual_seed(seed + 63))
+        qlora_model = VideoLLaMB(model.video_tower, init_rmt_r_params(
+            cfg.bridge, cfg.lm.hidden_size, seed=seed + 64, device="cuda"), int8_lm)
+        qlora = run_recipe("train_qlora (stage 2: LoRA r=128 on every projection of the "
+                           "int8 7B, and the projector)", qlora_model, cfg,
+                           TrainConfig(tune_mode="lora", learning_rate=TRAIN_LR),
+                           clips)
+        del qlora_model
+        remove_lora(int8_lm)
+        trainer = trainer_run(model, cfg, seed)
+    torch.cuda.synchronize()
+    launches = read_counters()
+    seconds = time.perf_counter() - t0
+    attn_ms = chunked_attention_ms(cfg)
+    per_step = attn_ms * cfg.lm.num_hidden_layers
+    print(f"[train] chunked attention at (1, {cfg.max_length}, {cfg.lm.num_attention_heads}, "
+          f"{cfg.lm.head_dim}) bf16, forward + remat recompute + backward, timed alone: "
+          f"{attn_ms:.2f} ms a layer, {per_step:.1f} ms over {cfg.lm.num_hidden_layers} layers: "
+          f"{per_step / adapter['step_ms_median']:.1%} of the adapter step, "
+          f"{per_step / qlora['step_ms_median']:.1%} of the QLoRA step")
+    print(f"[train] phase launches K1 {launches['spatial_attention']}, K2 "
+          f"{launches['temporal_attention']}; {seconds:.1f} s")
+    if launches["spatial_attention"] == 0 or launches["temporal_attention"] == 0:
+        raise AssertionError("the train phase launched no K1 or K2")
+    reference = train_reference(g, seed)
+    return dict(train_adapter=adapter, train_qlora=qlora, trainer=trainer,
+                chunked_attention_ms_per_layer=attn_ms, seconds=seconds, launches=launches,
+                reference=reference)
+
+
 def speculative_reference(cpu_model, cfg) -> None:
     """On the host copy of the depth-cut model, f32: lookup and int8 self-draft
     speculation give plain greedy's tokens, one for one."""
@@ -2146,6 +2556,9 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"[quant] int8 copy of the 7B LM made on the card in {time.perf_counter() - t0:.1f} s")
     speculated = speculative_phase(model, cfg, int8_lm, g)
+    # Training before the quantised phase, which quantises the bf16 LM and the
+    # tower in place.
+    trained = train_phase(model, cfg, int8_lm, g, args.seed)
     quantized = quantized_phase(model, cfg, int8_lm, g)
     del model, int8_lm
     torch.cuda.empty_cache()
@@ -2178,6 +2591,7 @@ def main() -> int:
             rows[-1]["path_launches"] = {"stream": streamed["launches"][name],
                                          "liveinfer": lived["launches"][name],
                                          "kv_chat": chatted["launches"][name]}
+        rows[-1].setdefault("path_launches", {})["train"] = trained["launches"][name]
         if "host_ms" in r:
             rows[-1].update(host_enqueue_ms=r["host_ms"], graph_replay_ms=r["device_ms"])
         if "shapes" in r:  # every further main-path shape, beside the first one's numbers
@@ -2198,7 +2612,8 @@ def main() -> int:
                       "liveinfer": lived, "kv_chat": chatted,
                       "int8_tower": quantized["int8_tower"],
                       "encode": {k: v for k, v in encoded.items() if k != "launches"},
-                      "gradients": graded, "features": featured}))
+                      "gradients": graded, "features": featured,
+                      "train": {k: v for k, v in trained.items() if k != "launches"}}))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -108,8 +108,8 @@ def test_cli_rejects_unported_flags(flag):
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port leaves jax and every module of the
-    JAX package out of sys.modules."""
+    """Importing every module of the port, the training modules included,
+    leaves jax and every module of the JAX package out of sys.modules."""
     code = (
         "import pkgutil, importlib, sys\n"
         "import videollamb_torch\n"
@@ -117,6 +117,9 @@ def test_port_imports_no_jax():
         "'videollamb_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
         "assert len(names) > 30, names\n"
+        "train = {'videollamb_torch.train.' + m for m in ('step', 'dataset', 'preprocess', "
+        "'checkpoint', 'trainer', 'retro', 'cli')}\n"
+        "assert train <= set(names), sorted(train - set(names))\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'videollamb_tpu')]\n"
         "assert not bad, bad\n"
         "print(len(names))\n"

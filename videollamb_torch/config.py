@@ -2,9 +2,9 @@
 
 A copy of the model dataclasses of ``videollamb_tpu/config.py`` with the
 same names, fields and defaults, so one ``ModelConfig`` (or one
-checkpoint's ``config.json``) describes the same model in both packages.
-The sharding, generation and training configs stay with the JAX package
-until the port reaches those slices.
+checkpoint's ``config.json``) describes the same model in both packages,
+and of its ``TrainConfig``. The sharding and generation configs stay with
+the JAX package.
 """
 
 from __future__ import annotations
@@ -305,3 +305,39 @@ class ModelConfig:
         )
         base.update(overrides)
         return ModelConfig(**base)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 2e-5
+    mm_projector_lr: Optional[float] = None
+    weight_decay: float = 0.0
+    warmup_ratio: float = 0.03
+    lr_schedule: str = "cosine"
+    num_train_epochs: int = 1
+    per_device_batch_size: int = 8
+    gradient_accumulation_steps: int = 1
+    seed: int = 42
+    bf16: bool = True
+    gradient_checkpointing: bool = True
+    max_grad_norm: float = 1.0
+    adam_b1: float = 0.9
+    adam_b2: float = 0.999
+    adam_eps: float = 1e-8
+    # Which parameters train: 'full', 'adapter' (mm_projector only,
+    # reference --tune_mm_mlp_adapter), or 'lora'.
+    tune_mode: str = "full"
+    # RMT-loss (retro) training: per-segment LM loss through the recurrence.
+    rmt_loss: bool = False
+    lora_r: int = 128
+    lora_alpha: int = 256
+    lora_dropout: float = 0.05
+    save_steps: int = 50000
+    save_total_limit: int = 1
+    logging_steps: int = 1
+    output_dir: str = "./checkpoints"
+    # Packed-sequence training (train/dataset.PackedCollator): each step
+    # consumes per_device_batch_size * pack_factor samples packed into
+    # per_device_batch_size rows under segment-ID block-causal attention.
+    pack_sequences: bool = False
+    pack_factor: int = 2

@@ -11,7 +11,10 @@ the first segment reads ``read_memory_emb``, each later one the memory
 left by the previous step; after every step the memory is appended to a
 cache and refreshed by a cross-attention over the filled part of it. The
 LM consumes only the final segment's projected tokens. Padded frame slots
-are masked, so the shapes are static.
+are masked, so the shapes are static. Given a ``torch.Generator``, the
+video forward runs in training mode (the bridge's dropout, drawn from it);
+the cache of memories is built without writes in place, so autograd
+reaches every segment's memory.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from videollamb_torch.models.bridge.layers import (
     RetrieverLayer,
     TransformerLayer,
     _act,
+    _dense,
     cross_only_layer,
     transformer_layer,
 )
@@ -68,9 +72,16 @@ class RMTRBridge(nn.Module):
         self.retrieval = Retriever(cfg)
 
 
+def _dropouts(cfg: BridgeConfig, generator: Optional[torch.Generator]) -> dict:
+    return dict(attn_dropout=cfg.attention_probs_dropout_prob,
+                hidden_dropout=cfg.hidden_dropout_prob, generator=generator)
+
+
 def projector_pass(projector: TransformerProjector, cfg: BridgeConfig,
                    tokens: torch.Tensor, token_mask: Optional[torch.Tensor],
-                   read_memories: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+                   read_memories: torch.Tensor,
+                   generator: Optional[torch.Generator] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Pack [memories, tokens], run the layers, unpack, project.
 
     tokens (b, N, d), token_mask (b, N) or None, read_memories (b, M, d)
@@ -86,19 +97,20 @@ def projector_pass(projector: TransformerProjector, cfg: BridgeConfig,
     for layer in projector.layers:
         x = transformer_layer(layer, x, num_heads=cfg.num_attention_heads,
                               eps=cfg.layer_norm_eps, act=cfg.hidden_act,
-                              key_mask=key_mask)
+                              key_mask=key_mask, **_dropouts(cfg, generator))
     new_memories, hidden = x[:, :m], x[:, m:]
-    return _act(cfg.hidden_act, projector.proj[0](hidden)), new_memories
+    return _act(cfg.hidden_act, _dense(projector.proj[0], hidden)), new_memories
 
 
 def retrieve(retrieval: Retriever, cfg: BridgeConfig, memories: torch.Tensor,
-             cache: torch.Tensor, cache_mask: torch.Tensor) -> torch.Tensor:
+             cache: torch.Tensor, cache_mask: torch.Tensor,
+             generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """Cross-attend the memories over the masked cache of past memories."""
     x = memories
     for layer in retrieval.layers:
         x = cross_only_layer(layer, x, num_heads=cfg.num_attention_heads,
                              eps=cfg.layer_norm_eps, encoder_hidden=cache,
-                             encoder_key_mask=cache_mask)
+                             encoder_key_mask=cache_mask, **_dropouts(cfg, generator))
     return x
 
 
@@ -109,9 +121,10 @@ def pool_and_split(features: torch.Tensor, cfg: BridgeConfig):
     return features[:, 0], pool_frame_tokens(patches, grid, cfg.pool_h, cfg.pool_w)
 
 
-def rmt_r_video_forward(bridge: RMTRBridge, cfg: BridgeConfig,
-                        features: torch.Tensor) -> BridgeOutput:
-    """Memory Bridge over one video's (t, n, d) tower features."""
+def rmt_r_video_forward(bridge: RMTRBridge, cfg: BridgeConfig, features: torch.Tensor,
+                        generator: Optional[torch.Generator] = None) -> BridgeOutput:
+    """Memory Bridge over one video's (t, n, d) tower features; dropout on
+    when a ``generator`` is given."""
     d = cfg.hidden_size
     m = cfg.num_memory_tokens
     f = cfg.max_frames_per_segment
@@ -127,15 +140,16 @@ def rmt_r_video_forward(bridge: RMTRBridge, cfg: BridgeConfig,
 
     projector = bridge.projector
     mem = projector.read_memory_emb[None].to(seg_tokens.dtype)
-    cache = seg_tokens.new_zeros((1, s * m, d))
     slots = torch.arange(s * m, device=features.device)
+    entries = []  # the cache: each step's memory, the unwritten rest zeros
     all_proj = []
     for step in range(s):
         proj, mem_out = projector_pass(projector, cfg, seg_tokens[step][None],
-                                       seg_mask[step][None], mem)
-        cache[:, step * m:(step + 1) * m] = mem_out
+                                       seg_mask[step][None], mem, generator)
+        entries.append(mem_out)
+        cache = torch.cat(entries + [mem_out.new_zeros((1, (s - step - 1) * m, d))], dim=1)
         cache_mask = (slots < (step + 1) * m)[None]
-        mem = retrieve(bridge.retrieval, cfg, mem_out, cache, cache_mask)
+        mem = retrieve(bridge.retrieval, cfg, mem_out, cache, cache_mask, generator)
         all_proj.append(proj[0])
     all_proj = torch.stack(all_proj)
     return BridgeOutput(tokens=all_proj[-1], token_mask=seg_mask[-1],

@@ -30,7 +30,7 @@ import torch
 
 from videollamb_torch.config import BridgeConfig, LlamaConfig, ModelConfig, RopeScaling, VisionConfig
 from videollamb_torch.models.assembly import VideoLLaMB
-from videollamb_torch.models.bridge.rmt_r import RMTRBridge
+from videollamb_torch.models.bridge.rmt_r import RMTRBridge, init_rmt_r_params
 from videollamb_torch.models.convert import split_reference_state, tower_state
 from videollamb_torch.models.lm.llama import LlamaForCausalLM
 from videollamb_torch.models.seeded import empty_module
@@ -185,12 +185,17 @@ def load_pretrained_model(
     load_tokenizer: bool = True,
     device_preprocess: bool = False,
     device="cuda",
+    bridge_seed: Optional[int] = None,
 ) -> Tuple[Any, VideoLLaMB, ModelConfig, Dict[str, Any], int]:
     """Resolve a checkpoint (full, base + projector, or LoRA) into a model.
 
     - ``model_base`` set and ``adapter_config.json`` present: LoRA merge;
     - ``model_base`` set and ``mm_projector.bin`` present: projector only;
     - else a full checkpoint.
+
+    A checkpoint without a projector (a base LM, the start of stage-1
+    training) gets a new seeded one when ``bridge_seed`` is given, and fails
+    to load otherwise.
 
     Returns (tokenizer, model, config, processors, context_len), the tuple
     the reference returns; the tokenizer is None unless ``load_tokenizer``.
@@ -219,8 +224,12 @@ def load_pretrained_model(
         video_tower = _load(lambda: CLIPVisionTower(cfg.vision),
                             tower_state(load_state_dict(video_tower_path)), device, wanted)
     lm = _load(lambda: LlamaForCausalLM(cfg.lm), lm_sd, device, wanted)
-    bridge = _load(lambda: RMTRBridge(cfg.bridge, cfg.lm.hidden_size), bridge_sd,
-                   device, wanted)
+    if bridge_sd or bridge_seed is None:
+        bridge = _load(lambda: RMTRBridge(cfg.bridge, cfg.lm.hidden_size), bridge_sd,
+                       device, wanted)
+    else:
+        bridge = init_rmt_r_params(cfg.bridge, cfg.lm.hidden_size, seed=bridge_seed,
+                                   dtype=wanted, device=device)
     if load_8bit:  # weight-only int8 LM, quantised where it lies
         from videollamb_torch.models.lm.quant import quantize_llama_params
 

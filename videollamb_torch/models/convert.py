@@ -18,7 +18,13 @@ kernels (``{"q", "scale"}`` int8, ``{"q4", "scale", "group"}`` int4) keep the
 JAX package's (d_in, d_out) orientation and cross bit for bit: integers stay
 int8 / uint8 and scales bfloat16, under ``<module>.q`` / ``.q4`` / ``.scale``.
 :func:`load_converted_state` loads such a state, swapping in the modules
-that hold quantised kernels first.
+that hold quantised kernels first. LoRA leaves (``{proj}_lora_a`` (L, d_in,
+r) and ``{proj}_lora_b``) become ``<proj>.lora_a`` / ``.lora_b`` of a
+``LoRALinear`` whose base weight is ``<proj>.base.*``.
+
+:func:`to_jax_params` is the inverse for the LM and the bridge (the leaves
+training updates), so a training step of each package can be compared leaf
+by leaf.
 """
 
 from __future__ import annotations
@@ -151,11 +157,110 @@ def _lm_from_jax(tree: Mapping[str, Any]) -> State:
         for norm in ("input_layernorm", "post_attention_layernorm"):
             out[f"{prefix}{norm}.weight"] = _t(np.asarray(layers[norm])[i])
         for name, parent in names.items():
+            key = f"{prefix}{parent}.{name}"
+            if f"{name}_lora_a" in layers:
+                for ab in ("a", "b"):
+                    out[f"{key}.lora_{ab}"] = _t(np.asarray(layers[f"{name}_lora_{ab}"])[i])
+                key += ".base"
             if _is_quantized(layers[name]):
-                _put_quantized(out, f"{prefix}{parent}.{name}", layers[name], layer=i)
+                _put_quantized(out, key, layers[name], layer=i)
             else:
-                out[f"{prefix}{parent}.{name}.weight"] = _t(np.asarray(layers[name])[i].T)
+                out[f"{key}.weight"] = _t(np.asarray(layers[name])[i].T)
     return out
+
+
+LM_PARENTS = {"q_proj": "self_attn", "k_proj": "self_attn", "v_proj": "self_attn",
+              "o_proj": "self_attn", "gate_proj": "mlp", "up_proj": "mlp", "down_proj": "mlp"}
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def _lm_to_jax(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """The entries present in ``sd`` (a whole LM state or a part, such as its
+    adapters), with the layers stacked."""
+    tree: Dict[str, Any] = {}
+    for key, name in (("model.embed_tokens.weight", "embed_tokens"), ("model.norm.weight", "norm")):
+        if key in sd:
+            tree[name] = _np(sd[key])
+    if "lm_head.weight" in sd:
+        tree["lm_head"] = _np(sd["lm_head.weight"]).T
+    elif "lm_head.scale" in sd:
+        tree["lm_head"] = {k: _np(sd[f"lm_head.{k}"]) for k in ("q", "q4", "scale")
+                           if f"lm_head.{k}" in sd}
+    layer_ids = {int(k.split(".")[2]) for k in sd if k.startswith("model.layers.")}
+    if not layer_ids:
+        return tree
+    n_layers = 1 + max(layer_ids)
+    layers: Dict[str, Any] = {}
+
+    def stack(keys, leaf_fn=_np):
+        if all(k in sd for k in keys):
+            return np.stack([leaf_fn(sd[k]) for k in keys])
+        return None
+
+    for norm in ("input_layernorm", "post_attention_layernorm"):
+        value = stack([f"model.layers.{i}.{norm}.weight" for i in range(n_layers)])
+        if value is not None:
+            layers[norm] = value
+    for name, parent in LM_PARENTS.items():
+        keys = [f"model.layers.{i}.{parent}.{name}" for i in range(n_layers)]
+        for ab in ("a", "b"):
+            value = stack([f"{k}.lora_{ab}" for k in keys])
+            if value is not None:
+                layers[f"{name}_lora_{ab}"] = value
+        if f"{keys[0]}.base.weight" in sd or f"{keys[0]}.base.scale" in sd:
+            keys = [f"{k}.base" for k in keys]
+        value = stack([f"{k}.weight" for k in keys], lambda t: _np(t).T)
+        if value is not None:
+            layers[name] = value
+        elif f"{keys[0]}.scale" in sd:
+            layers[name] = {leaf: stack([f"{k}.{leaf}" for k in keys])
+                            for leaf in ("q", "q4", "scale") if f"{keys[0]}.{leaf}" in sd}
+    tree["layers"] = layers
+    return tree
+
+
+def _bridge_to_jax(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """Nested dicts by dotted name; numbered children become lists; a
+    LayerNorm's weight is its ``scale``, a Linear's transposed weight its
+    ``kernel``; ``mlp.0`` / ``proj.0`` are ``mlp.dense`` / ``proj.dense``."""
+    tree: Dict[str, Any] = {}
+    for key, value in sd.items():
+        parts = key.replace(".mlp.0.", ".mlp.dense.").replace("projector.proj.0.",
+                                                                "projector.proj.dense.").split(".")
+        leaf = parts[-1]
+        if leaf == "weight":
+            leaf = "scale" if parts[-2] == "layernorm" else "kernel"
+        node = tree
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[leaf] = _np(value).T if leaf == "kernel" else _np(value)
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(k.isdigit() for k in node):
+            return [lists(node[str(i)]) for i in range(len(node))]
+        return {k: lists(v) for k, v in node.items()}
+
+    return lists(tree)
+
+
+def to_jax_params(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """A :class:`VideoLLaMB` state dict (or any part of it) -> the JAX tree of
+    its ``lm`` and ``mm_projector`` entries, numpy leaves (bf16 as f32)."""
+    tree: Dict[str, Any] = {}
+    lm = {k[3:]: v for k, v in state.items() if k.startswith("lm.")}
+    if lm:
+        tree["lm"] = _lm_to_jax(lm)
+    bridge = {k[len("mm_projector."):]: v for k, v in state.items()
+              if k.startswith("mm_projector.")}
+    if bridge:
+        tree["mm_projector"] = _bridge_to_jax(bridge)
+    return tree
 
 
 def from_jax_params(tree: Mapping[str, Any]) -> State:

@@ -22,6 +22,15 @@ engines' chunked admission) and one-token decode. Module names follow the HF
   ``models/lm/mlora.MultiLoRALinear`` that adds each row's adapter from a
   stack of K (the row indices set around the call by
   ``mlora.adapter_rows``).
+- Every projection goes through :func:`proj`, which casts a plain weight to
+  the activation's dtype first, as the JAX ``_proj`` does: a frozen base in
+  bf16 under f32 trainable leaves, or f32 masters under bf16 activations,
+  multiply in the activation's dtype with f32 accumulation.
+- :func:`llama_forward` is the full-sequence forward of training: logits of
+  every position, per-row ``position_ids``, packed-row ``segment_ids``, the
+  chunked differentiable attention and, with ``remat``, each layer under
+  ``torch.utils.checkpoint`` (the JAX ``jax.checkpoint`` of the layer body),
+  so the backward keeps only the layer boundaries.
 - Sliding-window attention is not ported yet.
 """
 
@@ -34,6 +43,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from videollamb_torch.config import LlamaConfig
 from videollamb_torch.models.lm.rope import apply_rope, rope_cos_sin_cfg
@@ -118,10 +128,20 @@ def _check_supported(cfg: LlamaConfig) -> None:
         raise NotImplementedError("sliding-window attention is not ported yet")
 
 
+def proj(module: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """A projection in x's dtype: a plain ``nn.Linear``'s weight is cast to it
+    (a no-op when they agree); quantised and adapter modules handle their own."""
+    if isinstance(module, nn.Linear):
+        bias = None if module.bias is None else module.bias.to(x.dtype)
+        return F.linear(x, module.weight.to(x.dtype), bias)
+    return module(x)
+
+
 def _mlp(layer: LlamaDecoderLayer, cfg: LlamaConfig, x: torch.Tensor) -> torch.Tensor:
     h = _rms_norm(layer.post_attention_layernorm, x, cfg.rms_norm_eps)
-    gate = F.silu(layer.mlp.gate_proj(h).float()).to(x.dtype)
-    return x + layer.mlp.down_proj(gate * layer.mlp.up_proj(h))
+    mlp = layer.mlp
+    gate = F.silu(proj(mlp.gate_proj, h).float()).to(x.dtype)
+    return x + proj(mlp.down_proj, gate * proj(mlp.up_proj, h))
 
 
 def _qkv(layer: LlamaDecoderLayer, cfg: LlamaConfig, x: torch.Tensor, cos, sin):
@@ -129,14 +149,14 @@ def _qkv(layer: LlamaDecoderLayer, cfg: LlamaConfig, x: torch.Tensor, cos, sin):
     h, h_kv, dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     normed = _rms_norm(layer.input_layernorm, x, cfg.rms_norm_eps)
     attn = layer.self_attn
-    q = apply_rope(attn.q_proj(normed).reshape(b, s, h, dh), cos, sin)
-    k = apply_rope(attn.k_proj(normed).reshape(b, s, h_kv, dh), cos, sin)
-    v = attn.v_proj(normed).reshape(b, s, h_kv, dh)
+    q = apply_rope(proj(attn.q_proj, normed).reshape(b, s, h, dh), cos, sin)
+    k = apply_rope(proj(attn.k_proj, normed).reshape(b, s, h_kv, dh), cos, sin)
+    v = proj(attn.v_proj, normed).reshape(b, s, h_kv, dh)
     return q, k, v
 
 
 def _final(lm: LlamaForCausalLM, cfg: LlamaConfig, x: torch.Tensor) -> torch.Tensor:
-    return lm.lm_head(_rms_norm(lm.model.norm, x, cfg.rms_norm_eps)).float()
+    return proj(lm.lm_head, _rms_norm(lm.model.norm, x, cfg.rms_norm_eps)).float()
 
 
 def embed_tokens(lm: LlamaForCausalLM, input_ids: torch.Tensor) -> torch.Tensor:
@@ -158,6 +178,64 @@ def _grouped_attention(q, k, v, mask):
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs.float(), v.float())
     return out.to(q.dtype).reshape(b, sq, h, dh)
+
+
+def _layer(layer: LlamaDecoderLayer, cfg: LlamaConfig, x: torch.Tensor, cos, sin,
+           valid: torch.Tensor, attn_impl: str,
+           segment_ids: Optional[torch.Tensor]) -> torch.Tensor:
+    """One decoder layer without a cache, causal (JAX ``_layer``)."""
+    b, s, d = x.shape
+    q, k, v = _qkv(layer, cfg, x, cos, sin)
+    attn = multihead_attention(q, k, v, causal=True, k_mask=valid, impl=attn_impl,
+                               segment_ids=segment_ids)
+    x = x + proj(layer.self_attn.o_proj, attn.reshape(b, s, d))
+    return _mlp(layer, cfg, x)
+
+
+def _run_layers(lm: LlamaForCausalLM, cfg: LlamaConfig, x: torch.Tensor,
+                attention_mask: torch.Tensor, position_ids: Optional[torch.Tensor],
+                remat: bool, attn_impl: str,
+                segment_ids: Optional[torch.Tensor]) -> torch.Tensor:
+    _check_supported(cfg)
+    b, s, _ = x.shape
+    if position_ids is None:
+        position_ids = torch.arange(s, device=x.device)[None].expand(b, s)
+    cos, sin = rope_cos_sin_cfg(cfg, position_ids)
+    valid = attention_mask.bool()
+    for layer in lm.model.layers:
+        args = (layer, cfg, x, cos, sin, valid, attn_impl, segment_ids)
+        if remat and torch.is_grad_enabled():
+            x = checkpoint(_layer, *args, use_reentrant=False)
+        else:
+            x = _layer(*args)
+    return x
+
+
+def llama_forward(lm: LlamaForCausalLM, cfg: LlamaConfig, inputs_embeds: torch.Tensor,
+                  attention_mask: torch.Tensor, position_ids: Optional[torch.Tensor] = None,
+                  remat: bool = False, attn_impl: str = "auto",
+                  segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Full-sequence forward (training, no cache) -> (B, S, V) f32 logits.
+
+    ``attn_impl``: ``auto`` (the flash kernel on the card, forward only) or
+    ``chunked`` (differentiable; training). ``segment_ids`` (B, S) restricts
+    attention to each packed segment and needs ``chunked`` or ``torch`` (the
+    kernel has no segment lane and refuses it); pass per-segment
+    ``position_ids`` with it so RoPE restarts per conversation."""
+    x = _run_layers(lm, cfg, inputs_embeds, attention_mask, position_ids, remat,
+                    attn_impl, segment_ids)
+    return _final(lm, cfg, x)
+
+
+def llama_forward_with_hidden(lm: LlamaForCausalLM, cfg: LlamaConfig,
+                              inputs_embeds: torch.Tensor, attention_mask: torch.Tensor,
+                              remat: bool = False, attn_impl: str = "auto"
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`llama_forward` that also returns the last layer's hidden states
+    before the final norm (B, S, D), from which the LM-memory retro variant
+    reads its memory tokens back."""
+    x = _run_layers(lm, cfg, inputs_embeds, attention_mask, None, remat, attn_impl, None)
+    return _final(lm, cfg, x), x
 
 
 @torch.no_grad()

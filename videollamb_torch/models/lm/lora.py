@@ -7,7 +7,10 @@ module (an ``nn.Linear`` or a quantised ``QuantLinear``) holding
 orientation: ``y = base(x) + (x @ A) @ B``, each product rounded to x's type.
 
 B starts at zero (identity at initialisation) and the alpha / r scale is
-folded into A, so no scale is kept at run time. Stacks of several adapters
+folded into A, so no scale is kept at run time. A and B are parameters that
+the train step makes trainable over a frozen base: a plain weight, or the
+int8 kernel of the QLoRA recipe, whose buffers take no gradient. The base
+product runs in x's dtype (``llama.proj``). Stacks of several adapters
 selected per row are ``models/lm/mlora.py``.
 """
 
@@ -20,6 +23,7 @@ import torch
 from torch import nn
 
 from videollamb_torch.config import LlamaConfig
+from videollamb_torch.models.lm.llama import proj
 
 LORA_TARGETS = ["q_proj", "k_proj", "v_proj", "o_proj",
                 "gate_proj", "up_proj", "down_proj"]
@@ -29,12 +33,14 @@ class LoRALinear(nn.Module):
     def __init__(self, base: nn.Module, lora_a: torch.Tensor, lora_b: torch.Tensor):
         super().__init__()
         self.base = base
+        # Created without gradients, as serving holds them; the train step
+        # turns them on for tune_mode "lora" (train/step.apply_trainable_mask).
         self.lora_a = nn.Parameter(lora_a, requires_grad=False)
         self.lora_b = nn.Parameter(lora_b, requires_grad=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         down = torch.matmul(x, self.lora_a.to(x.dtype))
-        return self.base(x) + torch.matmul(down, self.lora_b.to(x.dtype))
+        return proj(self.base, x) + torch.matmul(down, self.lora_b.to(x.dtype))
 
 
 def _targets(lm: nn.Module, names):

@@ -1,8 +1,8 @@
 """Multimodal token splicing under static shapes.
 
-Port of ``videollamb_tpu/models/splice.py::splice_multimodal`` (the packed
-variant is not ported yet). Every row is written into a fixed ``max_len``
-buffer: the k-th X sentinel (id < 0) is replaced by visual block k, text
+Port of ``videollamb_tpu/models/splice.py``: ``splice_multimodal`` and the
+packed-row ``splice_multimodal_packed``. Every row is written into a fixed
+``max_len`` buffer: the k-th X sentinel (id < 0) is replaced by visual block k, text
 token i lands at i - (#sentinels before i) + (#visual tokens inserted
 before i), visual tokens are labelled IGNORE_INDEX, and the attention mask
 covers the spliced prefix (right padding).
@@ -45,6 +45,37 @@ def splice_multimodal(input_ids: torch.Tensor, attention_mask: torch.Tensor,
     """Batched splice. ``x_embeds`` (B, N, D) is one block per row; (B, K, N, D)
     binds block k to the row's k-th sentinel. Rows without a sentinel pass
     through as text."""
+    return _splice(input_ids, attention_mask, labels, text_embeds, x_embeds, x_mask,
+                   max_len)[0]
+
+
+def packed_position_ids(segment_ids: torch.Tensor) -> torch.Tensor:
+    """Per-segment positions of packed rows: 0 at the start of each run of one
+    segment id. (B, L) -> (B, L) int64."""
+    idx = torch.arange(segment_ids.shape[-1], device=segment_ids.device)
+    prev = torch.cat([torch.full_like(segment_ids[..., :1], -1), segment_ids[..., :-1]], -1)
+    starts = torch.where(segment_ids != prev, idx, 0)
+    return idx - torch.cummax(starts, dim=-1).values
+
+
+def splice_multimodal_packed(input_ids: torch.Tensor, attention_mask: torch.Tensor,
+                             labels: Optional[torch.Tensor], segment_ids: torch.Tensor,
+                             text_embeds: torch.Tensor, x_embeds: torch.Tensor,
+                             x_mask: torch.Tensor, max_len: int):
+    """Packed-row splice: each row holds several conversations numbered by
+    ``segment_ids`` (1..S, 0 = padding). Visual tokens take the segment of the
+    sentinel they replace; positions restart at each segment.
+
+    Returns (SplicedBatch, spliced segment ids (B, L), position ids (B, L))."""
+    spliced, seg = _splice(input_ids, attention_mask, labels, text_embeds, x_embeds,
+                           x_mask, max_len, segment_ids)
+    seg = torch.where(spliced.attention_mask, seg, 0)
+    return spliced, seg, packed_position_ids(seg)
+
+
+def _splice(input_ids, attention_mask, labels, text_embeds, x_embeds, x_mask, max_len,
+            segment_ids=None):
+    """The splice of one batch, and the spliced ``segment_ids`` (None without them)."""
     dev = input_ids.device
     ids = input_ids.long()
     text_valid = attention_mask.bool()
@@ -92,8 +123,19 @@ def splice_multimodal(input_ids: torch.Tensor, attention_mask: torch.Tensor,
     out_labels = torch.full((b, max_len + 1), IGNORE_INDEX, dtype=torch.long, device=dev)
     _scatter_rows(out_labels, text_target, labels.long())
 
+    seg_out = None
+    if segment_ids is not None:
+        seg = segment_ids.long()
+        seg_out = torch.zeros((b, max_len + 1), dtype=torch.long, device=dev)
+        _scatter_rows(seg_out, text_target, seg)
+        # Visual block k inherits the segment of the sentinel it replaces.
+        x_seg = torch.gather(seg, 1, sent_pos.clamp(0, t - 1))  # (B, K)
+        _scatter_rows(seg_out, x_target,
+                      x_seg[..., None].expand(b, k_max, n).reshape(b, k_max * n))
+        seg_out = seg_out[:, :max_len]
+
     total = text_valid.sum(dim=1) - num_sent + n_used.sum(dim=1)
     lengths = total.clamp(max=max_len)
     attn = torch.arange(max_len, device=dev)[None] < lengths[:, None]
-    return SplicedBatch(embeds=embeds[:, :max_len], attention_mask=attn,
-                        labels=out_labels[:, :max_len], lengths=lengths)
+    return (SplicedBatch(embeds=embeds[:, :max_len], attention_mask=attn,
+                         labels=out_labels[:, :max_len], lengths=lengths), seg_out)

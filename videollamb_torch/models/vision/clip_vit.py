@@ -18,7 +18,8 @@ by name. Linear weights keep the (out, in) orientation.
   the patch embedding are ``Int8Dense`` modules (int8 x int8 products with
   per-row activation scales); the attention cores are unchanged.
 - Feature extraction stops at the select layer (-2: the last layer is
-  never run). Patch dropout (training only) is not ported.
+  never run). :func:`patch_dropout` (training only) keeps one random subset
+  of patches per video, drawn from the caller's ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -147,11 +148,30 @@ def _embed(emb: CLIPEmbeddings, pixels: torch.Tensor, cfg: VisionConfig) -> torc
     return x + emb.position_embedding.weight.to(x.dtype)[None]
 
 
+def patch_dropout(x: torch.Tensor, generator: torch.Generator, prob: float, b: int,
+                  t: int) -> torch.Tensor:
+    """PatchDropout (reference modeling_video.py:32-76): keep the patches of a
+    random top-(1 - prob) subset, the same subset for every frame of a video;
+    the CLS token is always kept. (b*t, 1+N, d) -> (b*t, 1+keep, d)."""
+    if prob <= 0.0:
+        return x
+    cls_tokens, patches = x[:, :1], x[:, 1:]
+    num_tokens = patches.shape[1]
+    keep = max(1, int(num_tokens * (1.0 - prob)))
+    scores = torch.randn((b, num_tokens), generator=generator, device=generator.device)
+    idx = scores.topk(keep, dim=-1).indices.to(x.device)  # (b, keep), per video
+    idx = idx.repeat_interleave(t, dim=0)  # shared by the frames of a video
+    kept = torch.gather(patches, 1, idx[..., None].expand(-1, -1, patches.shape[-1]))
+    return torch.cat([cls_tokens, kept], dim=1)
+
+
 def vision_encode(tower: CLIPVisionTower, pixels: torch.Tensor, cfg: VisionConfig,
-                  select_layer: Optional[int] = None) -> torch.Tensor:
+                  select_layer: Optional[int] = None, patch_dropout_prob: float = 0.0,
+                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """(B, T, C, H, W) normalised frames -> (B, T, 1+N, D) select-layer features.
 
     For the video tower T is a multiple of ``cfg.num_frames``; images have T == 1.
+    With ``patch_dropout_prob`` > 0 and a ``generator``, N is the kept count.
     """
     b, t, c, h, w = pixels.shape
     vm = tower.vision_model
@@ -161,6 +181,8 @@ def vision_encode(tower: CLIPVisionTower, pixels: torch.Tensor, cfg: VisionConfi
     time_window = cfg.num_frames if (cfg.add_time_attn and t > 1) else 1
     dtype = vm.embeddings.class_embedding.dtype
     x = _embed(vm.embeddings, pixels.reshape(b * t, c, h, w).to(dtype), cfg)
+    if patch_dropout_prob > 0.0 and generator is not None:
+        x = patch_dropout(x, generator, patch_dropout_prob, b, t)
     x = _layer_norm(vm.pre_layrnorm, x, cfg.layer_norm_eps)
     for layer in layers[:n_layers]:
         x = _encoder_layer(layer, x, cfg, time_window)

@@ -35,7 +35,7 @@ tensor it launches ``csrc/block_attention.cu`` (any Skv, head dim 64 or
 
 Both kernels are forward only, as in the JAX package: their wrappers
 refuse inputs that want a gradient. Training attention is the chunked
-route of the JAX ``ops/attention.py``, not yet ported.
+route, ``multihead_attention(..., impl="chunked")`` in ``ops/attention.py``.
 """
 
 from __future__ import annotations
@@ -48,7 +48,8 @@ import torch
 from videollamb_torch.kernels import build as kb
 
 NEG_INF = -1e30
-_NO_GRAD_ATTENTION = "the differentiable (chunked) attention route is not ported yet"
+_NO_GRAD_ATTENTION = ("for gradients use the chunked route, "
+                      "ops.attention.multihead_attention(..., impl='chunked')")
 
 
 def _fill_rows_without_keys(out: torch.Tensor, v: torch.Tensor,

@@ -1,0 +1,141 @@
+"""Training checkpoints on ``torch.save``, with adapter-only records.
+
+Port of ``videollamb_tpu/train/checkpoint.py`` (reference HF Trainer
+checkpoints, llava/train/llava_trainer.py:246-265, and the auto-resume of
+train.py:1120-1123). A checkpoint is a directory ``checkpoint-{step}``
+holding one record, ``train_state.pt``: the step, the parameters, the
+optimizer's and the schedule's state, and the state of the generator that
+draws dropout. The JAX package writes the whole parameter tree with orbax;
+here the parameters are the trained ones only (the frozen base and towers
+are the ones the run was started from, and resuming loads them again), so
+a LoRA record is the adapters and the projector, not the 7B base.
+
+- Adapter-only records (``tune_mm_mlp_adapter``): the ``mm_projector``
+  parameters (and optionally ``embed_tokens``), restorable into a fresh
+  model with :func:`restore_adapter`, and beside them the reference-format
+  ``mm_projector.bin`` (keys ``model.mm_projector.*``, the values of
+  ``export_rmt_r_state_dict``), which the reference's
+  ``--pretrain_mm_mlp_adapter`` loads. The JAX package skips that file on
+  any error; the port raises, so a broken export cannot pass unseen.
+- ``save_total_limit`` rotation, :func:`latest_checkpoint` and
+  :func:`maybe_resume`, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import re
+import shutil
+from typing import Dict, Optional
+
+import torch
+from torch import nn
+
+from videollamb_torch.models.bridge.rmt_r import RMTRBridge
+from videollamb_torch.train.step import TrainState
+
+RECORD = "train_state.pt"
+
+
+def _ckpt_dirs(output_dir: str):
+    if not os.path.isdir(output_dir):
+        return []
+    dirs = []
+    for name in os.listdir(output_dir):
+        m = re.match(r"^checkpoint-(\d+)$", name)
+        if m and os.path.isdir(os.path.join(output_dir, name)):
+            dirs.append((int(m.group(1)), os.path.join(output_dir, name)))
+    return sorted(dirs)
+
+
+def latest_checkpoint(output_dir: str) -> Optional[str]:
+    dirs = _ckpt_dirs(output_dir)
+    return dirs[-1][1] if dirs else None
+
+
+def export_rmt_r_state_dict(bridge: nn.Module, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """The RMT-R bridge's parameters under the reference's names (host copies)."""
+    if not isinstance(bridge, RMTRBridge):
+        raise TypeError(f"mm_projector.bin holds an RMT-R bridge, not {type(bridge).__name__}")
+    return {prefix + k: v.detach().cpu().contiguous() for k, v in bridge.state_dict().items()}
+
+
+def _adapter_params(model: nn.Module, include_embed_tokens: bool) -> Dict[str, torch.Tensor]:
+    params = {f"mm_projector.{k}": v for k, v in model.mm_projector.state_dict().items()}
+    if include_embed_tokens:
+        params["lm.model.embed_tokens.weight"] = model.lm.model.embed_tokens.weight
+    return params
+
+
+def save_checkpoint(output_dir: str, state: TrainState, *, step: Optional[int] = None,
+                    save_total_limit: int = 1, adapter_only: bool = False,
+                    include_embed_tokens: bool = False,
+                    generator: Optional[torch.Generator] = None) -> str:
+    """Write ``checkpoint-{step}``, rotate old ones, return the path."""
+    step = state.step if step is None else step
+    path = os.path.join(os.path.abspath(output_dir), f"checkpoint-{step}")
+    os.makedirs(path, exist_ok=True)
+    model = state.model
+    if adapter_only:
+        params = _adapter_params(model, include_embed_tokens)
+    else:
+        trained = {id(p) for p in state.tx.params}
+        params = {name: p for name, p in model.named_parameters() if id(p) in trained}
+    record = {"step": step,
+              "params": {k: v.detach().cpu() for k, v in params.items()},
+              "optimizer": state.tx.state_dict(),
+              "generator": None if generator is None else generator.get_state()}
+    tmp = os.path.join(path, RECORD + ".tmp")
+    torch.save(record, tmp)
+    os.replace(tmp, os.path.join(path, RECORD))
+
+    if adapter_only:
+        sd = export_rmt_r_state_dict(model.mm_projector, prefix="model.mm_projector.")
+        if include_embed_tokens:
+            sd["model.embed_tokens.weight"] = params["lm.model.embed_tokens.weight"].detach().cpu()
+        torch.save(sd, os.path.join(path, "mm_projector.bin"))
+
+    if save_total_limit and save_total_limit > 0:
+        for _, old in _ckpt_dirs(output_dir)[:-save_total_limit]:
+            if os.path.abspath(old) != path:
+                shutil.rmtree(old, ignore_errors=True)
+    return path
+
+
+def _load_params(model: nn.Module, params: Dict[str, torch.Tensor]) -> None:
+    own = dict(model.named_parameters())
+    missing = [k for k in params if k not in own]
+    if missing:
+        raise KeyError(f"checkpoint parameters not in the model: {missing[:5]}")
+    with torch.no_grad():
+        for name, value in params.items():
+            own[name].copy_(value)
+
+
+def restore_checkpoint(path: str, state: TrainState,
+                       generator: Optional[torch.Generator] = None) -> TrainState:
+    """Load a record into ``state``'s model and optimizer (and ``generator``)."""
+    record = torch.load(os.path.join(path, RECORD), map_location="cpu", weights_only=True)
+    _load_params(state.model, record["params"])
+    opt = record["optimizer"]
+    if opt["acc"] is not None:
+        opt["acc"] = [a.to(p.device) for a, p in zip(opt["acc"], state.tx.params)]
+    state.tx.load_state_dict(opt)
+    if generator is not None and record["generator"] is not None:
+        generator.set_state(record["generator"])
+    return dataclasses.replace(state, step=int(record["step"]))
+
+
+def restore_adapter(path: str, model: nn.Module) -> nn.Module:
+    """Load an adapter-only record's projector (and embed_tokens) into ``model``."""
+    record = torch.load(os.path.join(path, RECORD), map_location="cpu", weights_only=True)
+    _load_params(model, record["params"])
+    return model
+
+
+def maybe_resume(output_dir: str, state: TrainState,
+                 generator: Optional[torch.Generator] = None) -> TrainState:
+    """Resume from the newest ``checkpoint-*`` in ``output_dir``, if any."""
+    path = latest_checkpoint(output_dir)
+    return state if path is None else restore_checkpoint(path, state, generator)

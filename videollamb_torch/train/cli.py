@@ -1,0 +1,161 @@
+"""Training entry point: ``python -m videollamb_torch.train.cli ...``.
+
+Port of ``videollamb_tpu/train/cli.py`` (reference llava/train/train.py:887-1141
+and scripts/finetune_video_image.slurm) with the same flags, plus
+``--device`` (``cuda`` by default; ``--device cpu`` trains on the host).
+The model loads from a reference-format checkpoint; a checkpoint without a
+projector starts a seeded one. The trained parameters are f32 masters; the
+frozen base and towers stay in bf16 with ``--bf16 True`` (the default), and
+every product runs in the activations' dtype, as the JAX ``_proj`` casts.
+
+Not ported here: ``--sequence_parallel`` and ``--model_parallel`` above 1
+(ROADMAP.md section A, item 8: multi-GPU), and image or audio data
+(item 7), which raise.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+import torch
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser()
+    # Model arguments (reference ModelArguments, train.py:56-85)
+    p.add_argument("--model_name_or_path", type=str, required=True)
+    p.add_argument("--version", type=str, default="v1")
+    p.add_argument("--image_tower", type=str, default=None)
+    p.add_argument("--video_tower", type=str, default=None)
+    p.add_argument("--mm_projector_type", type=str, default="rmt_r_transformer1x")
+    p.add_argument("--pretrain_mm_mlp_adapter", type=str, default=None)
+    p.add_argument("--tune_mm_mlp_adapter", action="store_true")
+    p.add_argument("--freeze_backbone", action="store_true")
+    p.add_argument("--mm_use_x_start_end", action="store_true")
+    p.add_argument("--mm_vision_select_layer", type=int, default=-2)
+    p.add_argument("--rmt_loss", action="store_true",
+                   help="per-segment RMT LM loss (reference '_rmt' path)")
+    # Data arguments (reference DataArguments)
+    p.add_argument("--data_path", type=str, required=True)
+    p.add_argument("--image_folder", type=str, default="")
+    p.add_argument("--video_folder", type=str, default="")
+    p.add_argument("--audio_folder", type=str, default="",
+                   help="root for 'audio' (WAV) samples (not ported: such rows raise)")
+    p.add_argument("--num_frames", type=int, default=16)
+    p.add_argument("--image_aspect_ratio", type=str, default="pad")
+    # Training arguments (reference TrainingArguments)
+    p.add_argument("--output_dir", type=str, required=True)
+    p.add_argument("--num_train_epochs", type=int, default=1)
+    p.add_argument("--per_device_train_batch_size", type=int, default=8)
+    p.add_argument("--gradient_accumulation_steps", type=int, default=1)
+    p.add_argument("--learning_rate", type=float, default=2e-5)
+    p.add_argument("--mm_projector_lr", type=float, default=None)
+    p.add_argument("--weight_decay", type=float, default=0.0)
+    p.add_argument("--warmup_ratio", type=float, default=0.03)
+    p.add_argument("--lr_scheduler_type", type=str, default="cosine")
+    p.add_argument("--model_max_length", type=int, default=2048)
+    p.add_argument("--save_steps", type=int, default=50000)
+    p.add_argument("--save_total_limit", type=int, default=1)
+    p.add_argument("--logging_steps", type=int, default=1)
+    p.add_argument("--bf16", type=lambda s: s.lower() == "true", default=True)
+    p.add_argument("--gradient_checkpointing", type=lambda s: s.lower() == "true", default=True)
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--model_parallel", type=int, default=1)
+    p.add_argument("--sequence_parallel", type=int, default=1,
+                   help="shard the spliced token stream over this many devices "
+                        "(not ported: above 1 raises)")
+    p.add_argument("--lora_enable", action="store_true")
+    p.add_argument("--lora_r", type=int, default=128)
+    p.add_argument("--lora_alpha", type=int, default=256)
+    p.add_argument("--pack_sequences", action="store_true",
+                   help="pack several conversations per row (segment-ID "
+                        "block-causal attention; each step trains "
+                        "pack_factor x the samples at the same shape)")
+    p.add_argument("--pack_factor", type=int, default=2)
+    p.add_argument("--device", type=str, default="cuda",
+                   help="device to train on (cpu for a host run)")
+    return p.parse_args(argv)
+
+
+def train_config(args):
+    from videollamb_torch.config import TrainConfig
+
+    return TrainConfig(
+        learning_rate=args.learning_rate, mm_projector_lr=args.mm_projector_lr,
+        weight_decay=args.weight_decay, warmup_ratio=args.warmup_ratio,
+        lr_schedule=args.lr_scheduler_type, num_train_epochs=args.num_train_epochs,
+        per_device_batch_size=args.per_device_train_batch_size,
+        gradient_accumulation_steps=args.gradient_accumulation_steps, seed=args.seed,
+        bf16=args.bf16, gradient_checkpointing=args.gradient_checkpointing,
+        tune_mode="adapter" if args.tune_mm_mlp_adapter else (
+            "lora" if args.lora_enable else "full"),
+        lora_r=args.lora_r, lora_alpha=args.lora_alpha, save_steps=args.save_steps,
+        save_total_limit=args.save_total_limit, logging_steps=args.logging_steps,
+        output_dir=args.output_dir, rmt_loss=args.rmt_loss,
+        pack_sequences=args.pack_sequences, pack_factor=args.pack_factor)
+
+
+def main(argv=None, tokenizer=None, log_fn=None):
+    """Parse the flags and train; ``tokenizer`` replaces the checkpoint's
+    (tests), ``log_fn`` receives each step's metrics."""
+    args = parse_args(argv)
+    if args.sequence_parallel > 1 or args.model_parallel > 1:
+        raise NotImplementedError(
+            "--sequence_parallel / --model_parallel above 1 are not ported yet "
+            "(ROADMAP.md section A, item 8: the multi-GPU step factories)")
+
+    from videollamb_torch.config import BridgeConfig
+    from videollamb_torch.data.processing import VideoProcessor
+    from videollamb_torch.models.builder import load_pretrained_model
+    from videollamb_torch.models.lm.lora import add_lora_params
+    from videollamb_torch.train.dataset import Collator, DataConfig, SupervisedDataset
+    from videollamb_torch.train.preprocess import set_default_conversation
+    from videollamb_torch.train.step import param_labels
+    from videollamb_torch.train.trainer import Trainer
+
+    if BridgeConfig.from_projector_type(args.mm_projector_type).kind != "rmt_r_transformer":
+        raise NotImplementedError(
+            f"--mm_projector_type {args.mm_projector_type}: the port trains the RMT-R bridge")
+    set_default_conversation(args.version)
+    loaded_tokenizer, model, model_cfg, _, _ = load_pretrained_model(
+        args.model_name_or_path, video_tower_path=args.video_tower,
+        image_tower_path=args.image_tower, dtype="bfloat16" if args.bf16 else "float32",
+        load_tokenizer=tokenizer is None, device=args.device, bridge_seed=args.seed)
+    tokenizer = tokenizer or loaded_tokenizer
+    if args.pretrain_mm_mlp_adapter:
+        sd = torch.load(args.pretrain_mm_mlp_adapter, map_location="cpu", weights_only=True)
+        prefix = "model.mm_projector." if any(
+            k.startswith("model.mm_projector.") for k in sd) else "mm_projector."
+        model.mm_projector.load_state_dict(
+            {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}, strict=True)
+    if args.lora_enable:
+        device = next(model.lm.parameters()).device
+        add_lora_params(model.lm, model_cfg.lm, r=args.lora_r, alpha=args.lora_alpha,
+                        generator=torch.Generator(device=device).manual_seed(args.seed + 1))
+
+    tcfg = train_config(args)
+    # f32 masters for what trains; the frozen rest keeps the loaded dtype.
+    labels = param_labels(tcfg, model)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if labels[name] != "frozen":
+                p.data = p.data.float()
+    dcfg = DataConfig(
+        data_path=args.data_path, image_folder=args.image_folder,
+        video_folder=args.video_folder, audio_folder=args.audio_folder,
+        num_frames=args.num_frames, mm_use_x_start_end=args.mm_use_x_start_end,
+        model_max_length=args.model_max_length, image_aspect_ratio=args.image_aspect_ratio)
+    dataset = SupervisedDataset(
+        args.data_path, tokenizer, dcfg,
+        video_processor=VideoProcessor(size=model_cfg.vision.image_size, training=True),
+        seed=args.seed)
+    trainer = Trainer(
+        model_cfg, tcfg, model, dataset,
+        collator=None if args.pack_sequences else Collator(
+            pad_token_id=int(tokenizer.pad_token_id or 0), max_length=args.model_max_length),
+        log_fn=log_fn)
+    return trainer.train()
+
+
+if __name__ == "__main__":
+    main()

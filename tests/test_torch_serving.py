@@ -10,8 +10,8 @@ tiny reference-format checkpoint in f32.
   sampling controls, logprobs, adapter, shared_prefix) build the requests
   that the JAX ``build_requests`` builds, and a batch of such rows through
   the paged engine gives the JAX engine's tokens and logprobs.
-- Row fields and options the port does not serve yet (image and audio rows,
-  ``--device-preprocess``) are refused with an error that names them.
+- Row fields the port does not serve yet (image and audio rows) are refused
+  with an error that names them; ``--device-preprocess`` reaches the loader.
 """
 
 from __future__ import annotations
@@ -112,11 +112,23 @@ def test_batch_cli_refuses_unported_row_fields(field, value):
 
 
 @pytest.mark.parametrize("flag", ["--device-preprocess"])
-def test_batch_cli_refuses_unported_flags(flag, tmp_path):
+def test_batch_cli_refuses_unported_flags(flag, tmp_path, monkeypatch):
+    """``--device-preprocess`` is ported now: the flag is no longer refused
+    and reaches the loader, which then builds the device processor."""
+    from videollamb_torch.models import builder
     from videollamb_torch.serve import batch_cli
 
-    with pytest.raises(SystemExit, match=f"{flag} is not supported by the PyTorch port"):
-        batch_cli.main(["--model-path", "unused", "--requests", "in", "--output", "out", flag])
+    seen = {}
+
+    def loader(*args, **kwargs):
+        seen.update(kwargs)
+        raise LookupError("stop after the loader call")
+
+    monkeypatch.setattr(builder, "load_pretrained_model", loader)
+    with pytest.raises(LookupError, match="stop after the loader"):
+        batch_cli.main(["--model-path", "unused", "--requests", "in", "--output", "out",
+                        "--device", "cpu", flag])
+    assert seen["device_preprocess"] is True
 
 
 class JsonPieces:

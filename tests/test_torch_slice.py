@@ -98,7 +98,7 @@ def test_chat_ask_about_video(checkpoint, tmp_path):
     assert isinstance(follow_up, str) and len(chat.conv.messages) == 4
 
 
-@pytest.mark.parametrize("flag", [["--device-preprocess"], ["--image-file", "x.png"]])
+@pytest.mark.parametrize("flag", [["--image-tower", "tower"], ["--image-file", "x.png"]])
 def test_cli_rejects_unported_flags(flag):
     from videollamb_torch.serve import cli
 
@@ -108,8 +108,8 @@ def test_cli_rejects_unported_flags(flag):
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port, the training modules included,
-    leaves jax and every module of the JAX package out of sys.modules."""
+    """Importing every module of the port, the training modules and the
+    serving surfaces included, leaves jax and every module of the JAX package out of sys.modules."""
     code = (
         "import pkgutil, importlib, sys\n"
         "import videollamb_torch\n"
@@ -120,6 +120,10 @@ def test_port_imports_no_jax():
         "train = {'videollamb_torch.train.' + m for m in ('step', 'dataset', 'preprocess', "
         "'checkpoint', 'trainer', 'retro', 'cli')}\n"
         "assert train <= set(names), sorted(train - set(names))\n"
+        "surfaces = {'videollamb_torch.' + m for m in ('data.device_preprocess', 'data.media', "
+        "'data.audio_reader', 'models.binding', 'models.vision.modalities', 'serve.embeddings', "
+        "'serve.openai_api', 'serve.streams_api', 'serve.http_server', 'serve.gradio_demo')}\n"
+        "assert surfaces <= set(names), sorted(surfaces - set(names))\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'videollamb_tpu')]\n"
         "assert not bad, bad\n"
         "print(len(names))\n"

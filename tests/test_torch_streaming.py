@@ -15,7 +15,7 @@
   ``generate_text`` JAX's prompt and frames (sampling differs by design:
   ``torch.Generator`` against ``jax.random``).
 - ``cli_streaming``: ``main`` writes its history; the CLI needs a GPU
-  unless given ``--device cpu``; ``--device-preprocess`` is refused; the
+  unless given ``--device cpu``; ``--device-preprocess`` reaches the loader; the
   ffmpeg re-encode cache falls back to the source without ffmpeg.
 
 Tolerances: f32 on both sides, so boundaries, ids and answers are compared
@@ -394,14 +394,16 @@ def _mp4(path, frames=90):
 
 
 @pytest.mark.parametrize("incremental", [False, True], ids=["liveinfer", "incremental"])
-def test_cli_streaming_main_writes_history(models, tmp_path, incremental):
+def test_cli_streaming_main_writes_history(models, tmp_path, incremental, monkeypatch):
+    from videollamb_torch.serve import streaming
     from videollamb_torch.serve.cli_streaming import main, parse_args
     from videollamb_torch.serve.incremental import StreamingSession
-    from videollamb_torch.serve.streaming import LiveInfer
 
     _, chat = _chats(models)
+    # A short answer budget: 512 sampled tokens a query take minutes on the CPU.
+    monkeypatch.setattr(streaming, "LIVEINFER_MAX_NEW_TOKENS", 4)
     engine = (StreamingSession(chat, max_seq_len=256, max_new_tokens=4) if incremental
-              else LiveInfer(chat))
+              else streaming.LiveInfer(chat))
     args = parse_args(["--model-path", "unused", "--video-file", _mp4(tmp_path / "v.mp4"),
                        "--query", "what is happening", "--no-sleep",
                        "--output", str(tmp_path / "history.json")])
@@ -422,10 +424,21 @@ def test_cli_streaming_needs_a_gpu(monkeypatch):
     assert args.device == "cuda"
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli_streaming.run(args)
+    # --device-preprocess is ported: it reaches the loader.
+    from videollamb_torch.models import builder
+
+    seen = {}
+
+    def loader(*args, **kwargs):
+        seen.update(kwargs)
+        raise LookupError("stop after the loader call")
+
+    monkeypatch.setattr(builder, "load_pretrained_model", loader)
     args = cli_streaming.parse_args(["--model-path", "unused", "--video-file", "v.mp4",
                                      "--device", "cpu", "--device-preprocess"])
-    with pytest.raises(SystemExit, match="not supported by the PyTorch port"):
+    with pytest.raises(LookupError, match="stop after the loader"):
         cli_streaming.run(args)
+    assert seen["device_preprocess"] is True
 
 
 def test_reencode_cache_equals_jax_and_falls_back(tmp_path, monkeypatch):

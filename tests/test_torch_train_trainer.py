@@ -359,3 +359,44 @@ def test_loader_starts_a_seeded_projector_only_when_asked(tmp_path):
     for x, y in zip(a.mm_projector.parameters(), b.mm_projector.parameters()):
         torch.testing.assert_close(x, y, rtol=0, atol=0)
     assert float(a.mm_projector.projector.proj[0].weight.abs().sum()) > 0
+
+
+def test_cli_builds_the_flagged_projector_on_a_base_lm(tmp_path, monkeypatch):
+    """A checkpoint without a projector: the CLI's seeded bridge and its model
+    config follow ``--mm_projector_type`` (2 layers here, where config.json
+    says nothing), with the parameter names and shapes of JAX's
+    ``init_bridge_params`` tree for the same flag."""
+    from test_torch_parity_utils import np_tree, write_reference_checkpoint
+
+    from videollamb_tpu.models.bridge.builder import init_bridge_params
+    from videollamb_torch.models.convert import from_jax_params
+    from videollamb_torch.train import cli
+    from videollamb_torch.train import trainer as trainer_mod
+
+    model_dir, tower_dir = write_reference_checkpoint(str(tmp_path), seed=1)
+    path = os.path.join(model_dir, "pytorch_model.bin")
+    sd = torch.load(path, weights_only=True)
+    torch.save({k: v for k, v in sd.items() if "mm_projector" not in k}, path)
+    with open(os.path.join(model_dir, "config.json")) as f:
+        raw = json.load(f)
+    raw.pop("mm_projector_type")
+    with open(os.path.join(model_dir, "config.json"), "w") as f:
+        json.dump(raw, f)
+    data = tmp_path / "data.json"
+    data.write_text(json.dumps([{"conversations": [{"from": "human", "value": "say one"},
+                                                   {"from": "gpt", "value": "one"}]}]))
+    built = {}
+    monkeypatch.setattr(trainer_mod.Trainer, "train", lambda self: built.setdefault("t", self))
+    cli.main(["--model_name_or_path", model_dir, "--video_tower", tower_dir,
+              "--data_path", str(data), "--output_dir", str(tmp_path / "out"),
+              "--bf16", "False", "--tune_mm_mlp_adapter", "--device", "cpu",
+              "--mm_projector_type", "rmt_r_transformer2x"], tokenizer=WordTokenizer())
+    trainer = built["t"]
+    flag = BridgeConfig.from_projector_type("rmt_r_transformer2x", hidden_size=32)
+    assert trainer.model_cfg.bridge.depth == flag.depth == 2
+    tree = np_tree(init_bridge_params(jax.random.PRNGKey(0), flag, 64))
+    want = {k: tuple(v.shape) for k, v in from_jax_params({"mm_projector": tree}).items()}
+    got = {f"mm_projector.{k}": tuple(v.shape)
+           for k, v in trainer.state.model.mm_projector.state_dict().items()}
+    assert got == want
+    assert any(".layers.1." in k for k in got)

@@ -8,9 +8,8 @@ languagebind/image/processing_image.py:15-25 image transform — ToTensor ->
 Resize(224, bicubic) -> CenterCrop(224) -> Normalize).
 
 Resize kernels use OpenCV (bilinear for video ShortSideScale, bicubic for
-images), matching torchvision's interpolation modes. The video part of a
-copy of ``videollamb_tpu/data/processing.py``; the image processor comes
-with the image slice.
+images), matching torchvision's interpolation modes. A copy of
+``videollamb_tpu/data/processing.py``.
 """
 
 from __future__ import annotations
@@ -76,3 +75,36 @@ class VideoProcessor:
         if self.training and rng is not None and rng.random() < self.hflip_prob:
             x = x[:, :, ::-1]
         return np.ascontiguousarray(x.transpose(0, 3, 1, 2))  # (T, C, H, W)
+
+
+class ImageProcessor:
+    """PIL image / (H, W, C) uint8 -> (C, size, size) float32 (bicubic)."""
+
+    def __init__(self, size: int = 224, mean=OPENAI_DATASET_MEAN,
+                 std=OPENAI_DATASET_STD):
+        self.size = size
+        self.mean = np.asarray(mean, np.float32).reshape(1, 1, 3)
+        self.std = np.asarray(std, np.float32).reshape(1, 1, 3)
+        self.image_mean = mean
+        self.crop_size = size
+        self.shortest_edge = size
+
+    def __call__(self, image) -> np.ndarray:
+        import cv2
+
+        arr = np.asarray(image)
+        if arr.ndim == 2:
+            arr = np.stack([arr] * 3, -1)
+        h, w = arr.shape[:2]
+        # torchvision Resize(size) scales the short side to `size`.
+        if h < w:
+            new_h, new_w = self.size, int(math.floor(w / h * self.size))
+        else:
+            new_h, new_w = int(math.floor(h / w * self.size)), self.size
+        arr = cv2.resize(arr, (new_w, new_h), interpolation=cv2.INTER_CUBIC)
+        top = (new_h - self.size) // 2
+        left = (new_w - self.size) // 2
+        arr = arr[top: top + self.size, left: left + self.size]
+        x = arr.astype(np.float32) / 255.0
+        x = (x - self.mean) / self.std
+        return np.ascontiguousarray(x.transpose(2, 0, 1))

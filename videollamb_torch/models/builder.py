@@ -12,10 +12,12 @@ Safetensors shards are preferred, as in the JAX package, and read with
 merged into the base at load, with ``non_lora_trainables.bin`` on top) or a
 projector-only dir (``mm_projector.bin`` over the base). ``load_8bit``
 quantises the LM to weight-only int8 after the cast
-(``models/lm/quant.quantize_llama_params``).
+(``models/lm/quant.quantize_llama_params``). ``device_preprocess`` gives a
+``DeviceVideoProcessor`` (``data/device_preprocess.py``: resize, crop and
+normalise on the model's device) in place of the host ``VideoProcessor``.
 
-The image tower and device-side preprocessing are not ported yet. The model
-loads onto the card unless the caller passes ``device="cpu"``.
+The image tower is not ported yet. The model loads onto the card unless the
+caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ from videollamb_torch.models.convert import split_reference_state, tower_state
 from videollamb_torch.models.lm.llama import LlamaForCausalLM
 from videollamb_torch.models.seeded import empty_module
 from videollamb_torch.models.vision.clip_vit import CLIPVisionTower
-from videollamb_torch.data.processing import VideoProcessor
+from videollamb_torch.data.processing import ImageProcessor, VideoProcessor
 
 
 def load_state_dict(model_dir: str) -> Dict[str, torch.Tensor]:
@@ -186,6 +188,7 @@ def load_pretrained_model(
     device_preprocess: bool = False,
     device="cuda",
     bridge_seed: Optional[int] = None,
+    projector_type: Optional[str] = None,
 ) -> Tuple[Any, VideoLLaMB, ModelConfig, Dict[str, Any], int]:
     """Resolve a checkpoint (full, base + projector, or LoRA) into a model.
 
@@ -195,15 +198,16 @@ def load_pretrained_model(
 
     A checkpoint without a projector (a base LM, the start of stage-1
     training) gets a new seeded one when ``bridge_seed`` is given, and fails
-    to load otherwise.
+    to load otherwise. The new projector is built from ``projector_type``
+    (``--mm_projector_type``) when given, else from config.json, and the
+    returned config says which.
 
     Returns (tokenizer, model, config, processors, context_len), the tuple
     the reference returns; the tokenizer is None unless ``load_tokenizer``.
     """
-    unported = {"image_tower_path": image_tower_path, "device_preprocess": device_preprocess}
-    for name, value in unported.items():
-        if value:
-            raise NotImplementedError(f"load_pretrained_model({name}=...) is not ported yet")
+    if image_tower_path:
+        raise NotImplementedError("load_pretrained_model(image_tower_path=...) is not ported yet "
+                                  "(ROADMAP.md section A, item 7)")
     device = resolve_device(device)
     wanted = torch.bfloat16 if dtype == "bfloat16" else torch.float32
     is_lora = os.path.exists(os.path.join(model_path, "adapter_config.json"))
@@ -228,6 +232,9 @@ def load_pretrained_model(
         bridge = _load(lambda: RMTRBridge(cfg.bridge, cfg.lm.hidden_size), bridge_sd,
                        device, wanted)
     else:
+        if projector_type is not None:
+            cfg = dataclasses.replace(cfg, bridge=BridgeConfig.from_projector_type(
+                projector_type, hidden_size=cfg.bridge.hidden_size))
         bridge = init_rmt_r_params(cfg.bridge, cfg.lm.hidden_size, seed=bridge_seed,
                                    dtype=wanted, device=device)
     if load_8bit:  # weight-only int8 LM, quantised where it lies
@@ -241,5 +248,11 @@ def load_pretrained_model(
         from transformers import AutoTokenizer
 
         tokenizer = AutoTokenizer.from_pretrained(model_base or model_path, use_fast=True)
-    processors = {"VIDEO": VideoProcessor(size=cfg.vision.image_size)}
+    if device_preprocess:
+        from videollamb_torch.data.device_preprocess import DeviceVideoProcessor
+
+        video_proc: Any = DeviceVideoProcessor(size=cfg.vision.image_size, device=device)
+    else:
+        video_proc = VideoProcessor(size=cfg.vision.image_size)
+    processors = {"VIDEO": video_proc, "IMAGE": ImageProcessor(size=cfg.vision.image_size)}
     return tokenizer, model, cfg, processors, cfg.max_length

@@ -25,6 +25,10 @@ r) and ``{proj}_lora_b``) become ``<proj>.lora_a`` / ``.lora_b`` of a
 :func:`to_jax_params` is the inverse for the LM and the bridge (the leaves
 training updates), so a training step of each package can be compared leaf
 by leaf.
+
+:func:`binding_from_jax` / :func:`binding_to_jax` carry the LanguageBind
+binding tree (``models/binding.py``: per-modality towers, projections and
+logit scales, and the text encoder) both ways.
 """
 
 from __future__ import annotations
@@ -224,29 +228,10 @@ def _lm_to_jax(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
 
 
 def _bridge_to_jax(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
-    """Nested dicts by dotted name; numbered children become lists; a
-    LayerNorm's weight is its ``scale``, a Linear's transposed weight its
-    ``kernel``; ``mlp.0`` / ``proj.0`` are ``mlp.dense`` / ``proj.dense``."""
-    tree: Dict[str, Any] = {}
-    for key, value in sd.items():
-        parts = key.replace(".mlp.0.", ".mlp.dense.").replace("projector.proj.0.",
-                                                                "projector.proj.dense.").split(".")
-        leaf = parts[-1]
-        if leaf == "weight":
-            leaf = "scale" if parts[-2] == "layernorm" else "kernel"
-        node = tree
-        for part in parts[:-1]:
-            node = node.setdefault(part, {})
-        node[leaf] = _np(value).T if leaf == "kernel" else _np(value)
-
-    def lists(node):
-        if not isinstance(node, dict):
-            return node
-        if node and all(k.isdigit() for k in node):
-            return [lists(node[str(i)]) for i in range(len(node))]
-        return {k: lists(v) for k, v in node.items()}
-
-    return lists(tree)
+    """Nested dicts by dotted name (:func:`_nested_to_jax`); ``mlp.0`` /
+    ``proj.0`` are ``mlp.dense`` / ``proj.dense``."""
+    return _nested_to_jax({k.replace(".mlp.0.", ".mlp.dense.").replace(
+        "projector.proj.0.", "projector.proj.dense."): v for k, v in sd.items()})
 
 
 def to_jax_params(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
@@ -299,3 +284,114 @@ def load_converted_state(model: torch.nn.Module, state: Mapping[str, torch.Tenso
             holder = QuantLinear.empty(leaf, state[key].shape, scale.shape)
         setattr(parent, name, holder)
     model.load_state_dict(state, strict=True)
+
+
+def _nested_to_jax(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """Inverse of :func:`_put_tree` for float leaves: dotted names -> nested
+    dicts, numbered children -> lists; a LayerNorm's weight is its ``scale``,
+    a Linear's transposed weight its ``kernel``."""
+    tree: Dict[str, Any] = {}
+    for key, value in sd.items():
+        parts = key.split(".")
+        leaf = parts[-1]
+        if leaf == "weight":
+            leaf = "scale" if "norm" in parts[-2] else "kernel"
+        node = tree
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[leaf] = _np(value).T if leaf == "kernel" else _np(value)
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(k.isdigit() for k in node):
+            return [lists(node[str(i)]) for i in range(len(node))]
+        return {k: lists(v) for k, v in node.items()}
+
+    return lists(tree)
+
+
+def _tower_to_jax(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """Inverse of :func:`_tower_from_jax` (float towers): ``vision_model.*``
+    state -> the JAX tower tree."""
+    vm = {k[len("vision_model."):]: v for k, v in sd.items() if k.startswith("vision_model.")}
+    weight = _np(vm["embeddings.patch_embedding.weight"])
+    tree: Dict[str, Any] = {
+        "embeddings": {
+            "class_embedding": _np(vm["embeddings.class_embedding"]),
+            "patch_embedding": {"kernel": weight.reshape(weight.shape[0], -1).T},
+            "position_embedding": _np(vm["embeddings.position_embedding.weight"]),
+        },
+        "pre_layrnorm": {"scale": _np(vm["pre_layrnorm.weight"]),
+                         "bias": _np(vm["pre_layrnorm.bias"])},
+        "post_layernorm": {"scale": _np(vm["post_layernorm.weight"]),
+                           "bias": _np(vm["post_layernorm.bias"])},
+    }
+    layers = _nested_to_jax({k[len("encoder.layers."):]: v for k, v in vm.items()
+                             if k.startswith("encoder.layers.")
+                             and not k.endswith("temporal_embedding")})
+    for i, layer in enumerate(layers):
+        temb = vm.get(f"encoder.layers.{i}.temporal_embedding")
+        if temb is not None:
+            layer["temporal_embedding"] = _np(temb).reshape(-1, temb.shape[-1])
+    tree["layers"] = layers
+    return tree
+
+
+def _text_from_jax(tree: Mapping[str, Any]) -> State:
+    out: State = {"text_model.embeddings.token_embedding.weight": _t(tree["token_embedding"]),
+                  "text_model.embeddings.position_embedding.weight":
+                      _t(tree["position_embedding"])}
+    _put_tree(out, {"final_layer_norm": tree["final_layer_norm"]}, "text_model.")
+    for i, layer in enumerate(tree["layers"]):
+        _put_tree(out, layer, f"text_model.encoder.layers.{i}.")
+    return out
+
+
+def _text_to_jax(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    tm = {k[len("text_model."):]: v for k, v in sd.items() if k.startswith("text_model.")}
+    return {
+        "token_embedding": _np(tm["embeddings.token_embedding.weight"]),
+        "position_embedding": _np(tm["embeddings.position_embedding.weight"]),
+        "layers": _nested_to_jax({k[len("encoder.layers."):]: v for k, v in tm.items()
+                                  if k.startswith("encoder.layers.")}),
+        "final_layer_norm": {"scale": _np(tm["final_layer_norm.weight"]),
+                             "bias": _np(tm["final_layer_norm.bias"])},
+    }
+
+
+def binding_from_jax(tree: Mapping[str, Any]) -> State:
+    """JAX binding tree ({"modalities": {name: {"tower", "projection",
+    "logit_scale"}}, "text": {"encoder", "projection"}}, numpy leaves) ->
+    state dict of :class:`videollamb_torch.models.binding.LanguageBind`.
+    Projections are (in, out) in JAX and (out, in) Linear weights here."""
+    state: State = {}
+    for name, mod in tree["modalities"].items():
+        pre = f"modalities.{name}."
+        state.update({pre + "tower." + k: v for k, v in _tower_from_jax(mod["tower"]).items()})
+        state[pre + "projection.weight"] = _t(np.asarray(mod["projection"]).T)
+        state[pre + "logit_scale"] = _t(mod["logit_scale"])
+    state.update({"text.encoder." + k: v
+                  for k, v in _text_from_jax(tree["text"]["encoder"]).items()})
+    state["text.projection.weight"] = _t(np.asarray(tree["text"]["projection"]).T)
+    return state
+
+
+def binding_to_jax(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """Inverse of :func:`binding_from_jax`: a ``LanguageBind`` state dict ->
+    the JAX binding tree, numpy leaves (bf16 as f32)."""
+    names = sorted({k.split(".")[1] for k in state if k.startswith("modalities.")})
+    tree: Dict[str, Any] = {"modalities": {}}
+    for name in names:
+        pre = f"modalities.{name}."
+        tower = {k[len(pre + "tower."):]: v for k, v in state.items()
+                 if k.startswith(pre + "tower.")}
+        tree["modalities"][name] = {
+            "tower": _tower_to_jax(tower),
+            "projection": _np(state[pre + "projection.weight"]).T,
+            "logit_scale": _np(state[pre + "logit_scale"]),
+        }
+    text = {k[len("text.encoder."):]: v for k, v in state.items() if k.startswith("text.encoder.")}
+    tree["text"] = {"encoder": _text_to_jax(text),
+                    "projection": _np(state["text.projection.weight"]).T}
+    return tree

@@ -6,11 +6,11 @@ stacked beside the base weights: each adapted projection becomes a
 :class:`MultiLoRALinear` around its base module (an ``nn.Linear``, a
 ``QuantLinear`` or a ``LoRALinear``) holding ``lora_a`` (K, d_in, r) and
 ``lora_b`` (K, r, d_out). The row adapters of a call are an index vector
-(B,) set on the LM with :func:`adapter_rows` around it; each projection
-gathers its rows' adapters and adds ``(x @ A) @ B`` after the base
-projection, so one base-weight read serves every adapter of the batch. A row
-with index -1, or a call made outside :func:`adapter_rows`, runs exactly the
-base model.
+(B,) set on the LM, for the calling thread, with :func:`adapter_rows`
+around it; each projection gathers its rows' adapters and adds
+``(x @ A) @ B`` after the base projection, so one base-weight read serves
+every adapter of the batch. A row with index -1, or a call made outside
+:func:`adapter_rows`, runs exactly the base model.
 
 Adapters of different ranks co-serve: smaller ranks are padded with zeros
 to the widest (zero A columns and B rows add nothing). The alpha / r scale
@@ -22,6 +22,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import threading
 from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
@@ -31,12 +32,14 @@ from torch import nn
 from videollamb_torch.models.lm.lora import LORA_TARGETS, LoRALinear, _targets
 
 
-class AdapterRows:
-    """The row adapter indices of the LM call in flight (None: base model),
-    shared by every MultiLoRALinear of one LM."""
+class AdapterRows(threading.local):
+    """The row adapter indices of the LM call in flight on this thread
+    (None: base model), shared by every MultiLoRALinear of one LM. Per
+    thread, because threads share the LM: a server's worker steps its
+    engine under adapter rows while a stream tick on a handler thread runs
+    the same LM on the base model."""
 
-    def __init__(self):
-        self.idx: Optional[torch.Tensor] = None
+    idx: Optional[torch.Tensor] = None
 
 
 class MultiLoRALinear(nn.Module):

@@ -26,8 +26,10 @@ prompt tokenized verbatim), and the request fields of the JAX package's CLI:
 Each output line: {"id": ..., "text": ..., "tokens": N}, with
 "token_logprobs" (and "top_logprobs": [[[id, logprob], ...], ...]) on rows
 that asked for logprobs, and "error" on rows the engine dropped. It runs on
-the card unless ``--device cpu`` is given. Row fields and options the port
-does not implement yet are refused with an error that names them.
+the card unless ``--device cpu`` is given; ``--device-preprocess`` resizes
+and normalises the frames there too (``data/device_preprocess.py``). Image
+and audio rows are refused with an error that names them (ROADMAP.md
+section A, item 7).
 """
 
 from __future__ import annotations
@@ -39,7 +41,11 @@ from typing import Any, Dict, List
 
 # Row fields of the JAX package's batch CLI that the port does not serve yet.
 UNPORTED_FIELDS = {"image": "image rows", "audio": "audio rows"}
-UNPORTED_FLAGS = {"device_preprocess": "--device-preprocess"}
+
+
+class UnportedRow(ValueError):
+    """A row asks for what the port does not serve yet (image and audio
+    rows); the HTTP server answers it with a 400."""
 
 
 def _sampling_controls(row: Dict[str, Any]) -> Dict[str, Any]:
@@ -92,6 +98,7 @@ def build_requests(lines: List[Dict[str, Any]], chat) -> List[Any]:
     from videollamb_torch.constants import DEFAULT_X_TOKEN
     from videollamb_torch.data.video_reader import load_video
     from videollamb_torch.models.assembly import MultimodalBatch
+    from videollamb_torch.serve.chat import video_batch
     from videollamb_torch.serve.server import Request
 
     def text_batch(ids_list):
@@ -118,8 +125,9 @@ def build_requests(lines: List[Dict[str, Any]], chat) -> List[Any]:
     for row in lines:
         for key, what in UNPORTED_FIELDS.items():
             if row.get(key):
-                raise ValueError(f"request {row.get('id')!r}: {key!r} ({what}) is not "
-                                 "supported by the PyTorch port yet")
+                raise UnportedRow(f"request {row.get('id')!r}: {key!r} ({what}) is not "
+                                  "supported by the PyTorch port yet (ROADMAP.md section A, "
+                                  "item 7)")
         if row.get("raw"):
             if row.get("video"):
                 raise ValueError("'raw' rows are text-only (no template to place media tags in)")
@@ -129,7 +137,7 @@ def build_requests(lines: List[Dict[str, Any]], chat) -> List[Any]:
         videos = None
         if row.get("video"):
             frames = chat.processors["VIDEO"](load_video(row["video"], fps=1.0, max_frames=512))
-            videos = torch.from_numpy(frames)[None].to(chat.device, chat.dtype)
+            videos = video_batch(frames, chat.device, chat.dtype)
         chat.reset()
         if row.get("system") is not None:
             chat.conv.system = row["system"]
@@ -209,11 +217,9 @@ def main(argv=None):
     parser.add_argument("--load-8bit", action="store_true",
                         help="weight-only int8 LM (models/lm/quant.py)")
     parser.add_argument("--device-preprocess", action="store_true",
-                        help="not supported by the port yet")
+                        help="resize / crop / normalise the frames on the device "
+                             "(data/device_preprocess.py)")
     args = parser.parse_args(argv)
-    for attr, flag in UNPORTED_FLAGS.items():
-        if getattr(args, attr):
-            sys.exit(f"{flag} is not supported by the PyTorch port yet")
     if args.quantize_kv and not args.paged:
         sys.exit("--quantize-kv needs --paged")
 
@@ -223,7 +229,8 @@ def main(argv=None):
     device = resolve_device(args.device)
     tokenizer, model, cfg, processors, _ = load_pretrained_model(
         args.model_path, args.model_base, video_tower_path=args.video_tower,
-        dtype="float32" if args.fp32 else "bfloat16", load_8bit=args.load_8bit, device=device)
+        dtype="float32" if args.fp32 else "bfloat16", load_8bit=args.load_8bit, device=device,
+        device_preprocess=args.device_preprocess)
     chat = Chat(tokenizer, model, cfg, processors)
     eos = int(tokenizer.eos_token_id or 2)
     if args.paged:

@@ -3,7 +3,8 @@
 Port of ``Chat.generate_text`` and ``Chat.ask_about_video`` of
 ``videollamb_tpu/serve/chat.py`` (reference llava/serve/cli.py:25-111):
 conversation template -> ``tokenizer_x_token`` -> multimodal generate ->
-stop-string trim, and of ``Chat.generate_speculative`` (prompt-lookup or
+stop-string trim, of ``Chat.stream_text`` (the gradio demo's per-token
+stream) and of ``Chat.generate_speculative`` (prompt-lookup or
 draft-model speculation, greedy-exact). Text lengths are padded to bucket
 multiples, as in the JAX package. :class:`KVChatSession` ports the
 multi-turn chat with KV reuse (``--kv-reuse``); mixed-modality turns are not
@@ -27,6 +28,12 @@ from videollamb_torch.models.engine import generate
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
+
+
+def video_batch(frames, device, dtype) -> torch.Tensor:
+    """A processed (T, C, H, W) clip, a numpy array or a tensor (the device
+    processor's), as a (1, T, C, H, W) batch on ``device``."""
+    return torch.as_tensor(frames)[None].to(device, dtype)
 
 
 class Chat:
@@ -75,7 +82,7 @@ class Chat:
         batch = MultimodalBatch(
             input_ids=torch.from_numpy(ids).to(dev),
             attention_mask=torch.from_numpy(mask).to(dev),
-            videos=(torch.from_numpy(np.asarray(videos)[None]).to(dev, self.dtype)
+            videos=(video_batch(videos, dev, self.dtype)
                     if videos is not None else None))
         stopper = KeywordStopper([self.stop_str()], self.tokenizer)
         eos = int(self.tokenizer.eos_token_id or 2)
@@ -91,6 +98,59 @@ class Chat:
             tokens = tokens[:-1]
         text = self.tokenizer.decode(tokens, skip_special_tokens=True).strip()
         return stopper.trim(text)
+
+    @torch.no_grad()
+    def stream_text(self, prompt: str, *, videos=None, images=None,
+                    max_new_tokens: int = 512, temperature: float = 0.2,
+                    do_sample: bool = True, seed: int = 0):
+        """Incremental generation: yields the partial decoded text after every
+        token (the reference's TextIteratorStreamer path, gradio_demo.py:33-110).
+        The same prefill and cached decode steps as ``generate_text``, with the
+        loop on the host so a UI can render tokens as they arrive. Image
+        prompts wait for the image path (ROADMAP.md section A, item 7)."""
+        from videollamb_torch.models.assembly import prepare_multimodal_embeds
+        from videollamb_torch.models.engine import sample_token
+        from videollamb_torch.models.lm.llama import (
+            embed_tokens,
+            init_kv_cache,
+            llama_decode_step,
+            llama_prefill,
+        )
+
+        if images is not None:
+            raise NotImplementedError("image prompts are not ported yet "
+                                      "(ROADMAP.md section A, item 7)")
+        ids, mask = self._prepare_ids(prompt, "VIDEO")
+        dev = self.device
+        batch = MultimodalBatch(
+            input_ids=torch.from_numpy(ids).to(dev),
+            attention_mask=torch.from_numpy(mask).to(dev),
+            videos=video_batch(videos, dev, self.dtype) if videos is not None else None)
+        spliced = prepare_multimodal_embeds(self.model, self.cfg, batch)
+        cache = init_kv_cache(self.cfg.lm, 1, self.cfg.max_length + _round_up(max_new_tokens, 64),
+                              dtype=self.dtype, device=dev)
+        lm = self.model.lm
+        logits, cache = llama_prefill(lm, self.cfg.lm, spliced.embeds, spliced.attention_mask,
+                                      cache)
+        stopper = KeywordStopper([self.stop_str()], self.tokenizer)
+        stop_ids = set(stopper.stop_token_ids())
+        eos = int(self.tokenizer.eos_token_id or 2)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        toks = []
+        for _ in range(max_new_tokens):
+            nxt = int(sample_token(logits[:1].float(), gen, do_sample=do_sample,
+                                   temperature=temperature, top_p=1.0)[0])
+            if nxt == eos or nxt in stop_ids:
+                break
+            toks.append(nxt)
+            text = self.tokenizer.decode(toks, skip_special_tokens=True)
+            trimmed = stopper.trim(text)
+            yield trimmed
+            if trimmed != text.strip():
+                break
+            ids_t = torch.tensor([[nxt]], dtype=torch.long, device=dev)
+            logits, cache = llama_decode_step(lm, self.cfg.lm,
+                                              embed_tokens(lm, ids_t).to(cache.k.dtype), cache)
 
     @torch.no_grad()
     def generate_speculative(self, prompt: str, *, videos: Optional[np.ndarray] = None,
@@ -114,7 +174,7 @@ class Chat:
         batch = MultimodalBatch(
             input_ids=torch.from_numpy(ids).to(dev),
             attention_mask=torch.from_numpy(mask).to(dev),
-            videos=(torch.from_numpy(np.asarray(videos)[None]).to(dev, self.dtype)
+            videos=(video_batch(videos, dev, self.dtype)
                     if videos is not None else None))
         spliced = prepare_multimodal_embeds(self.model, self.cfg, batch)
         max_len = self.cfg.max_length + _round_up(max_new_tokens, 64)
@@ -214,7 +274,7 @@ class KVChatSession:
         arr, mask = self._padded(ids)
         batch = MultimodalBatch(
             input_ids=arr, attention_mask=mask,
-            videos=torch.from_numpy(np.asarray(self.frames)[None]).to(chat.device, chat.dtype))
+            videos=video_batch(self.frames, chat.device, chat.dtype))
         spliced = prepare_multimodal_embeds(chat.model, chat.cfg, batch)
         self.cache = init_kv_cache(
             chat.cfg.lm, 1, chat.cfg.max_length + _round_up(self.max_new_tokens, 64),

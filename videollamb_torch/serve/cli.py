@@ -13,7 +13,6 @@ import argparse
 import sys
 
 UNPORTED = {
-    "device_preprocess": "--device-preprocess",
     "image_file": "--image-file",
     "image_tower": "--image-tower",
 }
@@ -32,7 +31,8 @@ def main(args) -> None:
     device = resolve_device(args.device)
     tokenizer, model, cfg, processors, _ = load_pretrained_model(
         args.model_path, args.model_base, video_tower_path=args.video_tower,
-        dtype="float32" if args.fp32 else "bfloat16", device=device)
+        dtype="float32" if args.fp32 else "bfloat16", device=device,
+        device_preprocess=args.device_preprocess)
     conv_mode = "mistral_instruct" if "mistral" in args.model_path.lower() else "llava_v1"
     if args.conv_mode and args.conv_mode != conv_mode:
         print(f"[WARNING] auto conv mode {conv_mode}, using {args.conv_mode}")
@@ -100,7 +100,8 @@ def parse_args(argv=None):
                         help="torch device (default cuda; cpu runs the plain "
                              "PyTorch versions of the kernels)")
     parser.add_argument("--device-preprocess", action="store_true",
-                        help="not supported by the port yet")
+                        help="resize / crop / normalise the frames on the device "
+                             "(data/device_preprocess.py)")
     parser.add_argument("--kv-reuse", action="store_true",
                         help="multi-turn KV reuse (greedy video chat, used when "
                              "--temperature 0): later turns extend the cache instead "

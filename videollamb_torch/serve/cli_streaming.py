@@ -17,7 +17,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import sys
 import time
 
 
@@ -70,7 +69,8 @@ def parse_args(argv=None):
                         help="torch device (default cuda; cpu runs the plain "
                              "PyTorch versions of the kernels)")
     parser.add_argument("--device-preprocess", action="store_true",
-                        help="not supported by the port yet")
+                        help="resize / crop / normalise the frames on the device "
+                             "(data/device_preprocess.py)")
     parser.add_argument("--output", type=str, default="stream_history.json")
     parser.add_argument("--no-sleep", action="store_true", help="don't pace to real time")
     parser.add_argument("--incremental", action="store_true",
@@ -88,11 +88,10 @@ def run(args) -> None:
     from videollamb_torch.serve.chat import Chat
     from videollamb_torch.serve.streaming import LiveInfer
 
-    if args.device_preprocess:
-        sys.exit("--device-preprocess is not supported by the PyTorch port yet")
     device = resolve_device(args.device)
     tokenizer, model, cfg, processors, _ = load_pretrained_model(
-        args.model_path, args.model_base, video_tower_path=args.video_tower, device=device)
+        args.model_path, args.model_base, video_tower_path=args.video_tower, device=device,
+        device_preprocess=args.device_preprocess)
     chat = Chat(tokenizer, model, cfg, processors)
     if args.reencode_cache:
         from videollamb_torch.data.video_reader import ffmpeg_reencode_cached

@@ -140,6 +140,25 @@ class StreamingSession:
         self.num_video_frames = self.video_tensor.shape[0]
         self.video_duration = self.num_video_frames / self.frame_fps
 
+    def append_video(self, video_path: str) -> int:
+        """Append a video chunk to the live stream (the HTTP streams API
+        feeds a session chunk by chunk as the camera produces them; the CLI
+        loads one file up front through ``load_videos``). Frames join at the
+        stream's fps behind the buffered tail, concatenated on the session's
+        device; returns the number of frames appended. The encode prefetch
+        stays valid: its window names existing indices only."""
+        from videollamb_torch.data.video_reader import load_video
+
+        raw = load_video(video_path, fps=self.frame_fps, max_frames=512)
+        t = torch.as_tensor(self.chat.processors["VIDEO"](raw)).to(self.device)
+        if self.video_tensor is None:
+            self.video_tensor = t
+        else:
+            self.video_tensor = torch.cat([torch.as_tensor(self.video_tensor).to(self.device), t])
+        self.num_video_frames = self.video_tensor.shape[0]
+        self.video_duration = self.num_video_frames / self.frame_fps
+        return int(t.shape[0])
+
     def _take_frames(self, start: int, end: int) -> torch.Tensor:
         """Encoded frames [start, end): from the prefetch when its window
         matches, else encoded now. Re-arms the prefetch for the next window

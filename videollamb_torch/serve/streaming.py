@@ -43,6 +43,10 @@ def encode_frames(chat: Chat, frames) -> torch.Tensor:
     return feats[:, 0].float()
 
 
+# The reference's response budget of one answer (inference.py:203-239).
+LIVEINFER_MAX_NEW_TOKENS = 512
+
+
 class LiveInfer:
     def __init__(self, chat: Chat, frame_fps: float = 1.0):
         self.chat = chat
@@ -126,13 +130,15 @@ class LiveInfer:
             self.chat.conv.append_message(self.chat.conv.roles[1], None)
         prompt = self.chat.conv.get_prompt()
 
-        frames = np.stack([x[1] for x in self.all_frame_tensors_queue])
+        buffered = [x[1] for x in self.all_frame_tensors_queue]
+        frames = torch.stack(buffered) if torch.is_tensor(buffered[0]) else np.stack(buffered)
         num_select = max(8, frames.shape[0] - frames.shape[0] % 8)
         idx = np.linspace(0, frames.shape[0] - 1, num_select, dtype=int)
         frames = frames[idx]
 
         response = self.chat.generate_text(
-            prompt, videos=frames, max_new_tokens=512, temperature=0.2, do_sample=True)
+            prompt, videos=frames, max_new_tokens=LIVEINFER_MAX_NEW_TOKENS, temperature=0.2,
+            do_sample=True)
         if query is not None:
             self.chat.conv.messages[-1][1] = response
         query_str = f"(Video Time = {video_time}s) User: {query}"

@@ -120,7 +120,8 @@ def main(argv=None, tokenizer=None, log_fn=None):
     loaded_tokenizer, model, model_cfg, _, _ = load_pretrained_model(
         args.model_name_or_path, video_tower_path=args.video_tower,
         image_tower_path=args.image_tower, dtype="bfloat16" if args.bf16 else "float32",
-        load_tokenizer=tokenizer is None, device=args.device, bridge_seed=args.seed)
+        load_tokenizer=tokenizer is None, device=args.device, bridge_seed=args.seed,
+        projector_type=args.mm_projector_type)
     tokenizer = tokenizer or loaded_tokenizer
     if args.pretrain_mm_mlp_adapter:
         sd = torch.load(args.pretrain_mm_mlp_adapter, map_location="cpu", weights_only=True)

@@ -69,6 +69,24 @@
    and 16) and the base: aggregate tok/s, peak pages, K4 / K5 / K6
    launches. Every choice answer is a choice, every json_object answer
    parses, min_tokens holds, logprobs are finite, <= 0 and sorted.
+3c. The eval harness (``eval_phase``), after the serving surfaces, on the
+   same model with a seeded full-width LanguageBind image tower (ViT-L/14 at
+   224, no temporal layers) as ``model.image_tower``, over a synthetic set
+   written with cv2 and numpy under ``build/eval_smoke/``: 8 MC questions of
+   5 options (MVBench and EgoSchema formats, 8 frames, 16 new tokens)
+   through ``videoqa_mc.run_inference``, ``run_inference_batched`` with 4
+   slots and with ``constrained`` (every answer an option letter; batched
+   answers equal to sequential ones reported, not asserted: bf16), ``acc``
+   over the merged shards; ``rank_options_by_likelihood`` on 2 questions x 5
+   options; the open-ended, consistency and both MovieChat scripts on 2
+   samples each; NIAVH (64-frame haystack, 8-frame needle, lengths 32 and
+   64, depths 0, 0.5, 1, 4 new tokens) in full then streaming mode; one
+   mixed video + image + audio row; an image question and a two-image row
+   through the image tower, and the question again through the video
+   tower. Seconds per
+   item are printed; K1-K3 must launch. K3 is then held against its plain
+   version at the likelihood forward's own shape (its key lengths come from
+   this run).
 4. Speculative decoding at full depth in bf16: ``Chat.generate_speculative``
    with prompt lookup and with an int8 copy of the LM as the draft, beside
    plain greedy (accepted lengths, rounds, rates, and where the chains part,
@@ -322,6 +340,7 @@ def kernel_phase(g: torch.Generator, system_len: int) -> dict:
     # later draw of ``g`` (and each later phase's data) is the same as before
     # they were added.
     g_bind = torch.Generator(device=dev).manual_seed(int(g.initial_seed()) + 70)
+    g_image = torch.Generator(device=dev).manual_seed(int(g.initial_seed()) + 71)
 
     def heads(x, h):  # (B, N, h * e) -> (B, h, N, e), contiguous
         b, n, d = x.shape
@@ -402,9 +421,10 @@ def kernel_phase(g: torch.Generator, system_len: int) -> dict:
     # a tick (also the binding image tower's one image), and a catch-up window
     # of 4 frames; at the 16-frame clips of the LiveInfer, KV-chat and HTTP
     # phases; then at the binding video tower's 8 frames and the binding audio
-    # tower's one 112 x 1036 mel image (8 x 74 patches and CLS: N = 593).
+    # tower's one 112 x 1036 mel image (8 x 74 patches and CLS: N = 593); then
+    # at the eval phase's two-image row through the LLM's image tower.
     for frames, tokens, gen in ((1, n, g), (4, n, g), (16, n, g), (8, n, g_bind),
-                                (1, AUDIO_TOKENS, g_bind)):
+                                (1, AUDIO_TOKENS, g_bind), (2, n, g_image)):
         q, k, v = (randn(frames, tokens, d, scale=0.125, gen=gen),
                    randn(frames, tokens, d, gen=gen), randn(frames, tokens, d, gen=gen))
         err = compare(f"spatial ({frames}, {tokens}, {d})",
@@ -2159,6 +2179,374 @@ def surfaces_phase(model, cfg, seed: int) -> dict:
                 launches={"http": http_launches, "embed": embed_launches})
 
 
+# ---------------------------------------------------------------------------
+# The eval harness over the 7B model, with an image tower
+# ---------------------------------------------------------------------------
+
+EVAL_NEW = 16  # new tokens of every generated eval answer
+EVAL_SLOTS = 4  # the batched MC engine's slots
+MC_OPTIONS = ["runs", "sits down", "picks up a cup", "opens the door", "waves"]
+NIAVH_LENGTHS, NIAVH_DEPTHS = "32,64", "0.0,0.5,1.0"
+# NIAVH's answers are a word; the stream also answers, with an empty query, at
+# every boundary its detector cuts (about one in four frames), so its new
+# tokens set most of the phase's time.
+NIAVH_NEW = 4
+
+
+class EvalTokenizer(SmokeTokenizer):
+    """``SmokeTokenizer`` whose ``decode`` writes back the words it hashed (so
+    a constrained answer reads as its option letter), with the legacy
+    round-length rule the training templates' masking expects."""
+
+    legacy = True
+
+    def __init__(self, vocab_size: int):
+        super().__init__(vocab_size)
+        self.words: dict = {}
+
+    def __call__(self, text: str):
+        out = super().__call__(text)
+        for word, i in zip(text.replace("</s>", " </s> ").split(), out.input_ids[1:]):
+            self.words.setdefault(i, word)
+        return out
+
+    def decode(self, tokens, skip_special_tokens: bool = True) -> str:
+        return " ".join(self.words.get(int(t), str(int(t))) for t in tokens
+                        if not (skip_special_tokens and int(t) < 3))
+
+
+def write_eval_set(root: str, seed: int) -> dict:
+    """The synthetic eval set in ``root``: four 16-frame 320 x 240 mp4v clips,
+    a 64-frame haystack of four still scenes, an 8-frame needle clip, a PNG
+    and a WAV, and the
+    ground-truth JSON of each eval script (MC questions in the MVBench format,
+    names with their extension and a type, and in the EgoSchema format, names
+    without). Drawn from their own generator."""
+    import wave
+
+    import cv2
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 80)
+
+    def clip(path, frames, value=None, scene=None):
+        """A clip whose frames scroll, or are constant ``value``, or hold a
+        new still scene every ``scene`` frames."""
+        writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), 8, (320, 240))
+        if not writer.isOpened():
+            raise RuntimeError(f"cv2 cannot write {path} (mp4v)")
+        base = rng.integers(0, 255, (240, 320, 3), dtype=np.uint8)
+        for i in range(frames):
+            if scene and i % scene == 0:
+                base = rng.integers(0, 255, (240, 320, 3), dtype=np.uint8)
+            writer.write(np.full_like(base, value) if value is not None
+                         else base if scene else np.roll(base, 7 * i, axis=0))
+        writer.release()
+        return path
+
+    vids = os.path.join(root, "videos")
+    os.makedirs(vids, exist_ok=True)
+    names = [f"clip{i}" for i in range(4)]
+    for name in names:
+        clip(os.path.join(vids, f"{name}.mp4"), 16)
+    cv2.imwrite(os.path.join(vids, "still.png"), rng.integers(0, 255, (300, 400, 3),
+                                                              dtype=np.uint8))
+    with wave.open(os.path.join(vids, "tone.wav"), "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(16000)
+        w.writeframes((rng.uniform(-0.3, 0.3, 32000) * 32767).astype(np.int16).tobytes())
+    files = {"video_dir": vids,
+             # Four still scenes: the stream's boundary detector cuts (and
+             # answers, with an empty query) at scene changes.
+             "haystack": clip(os.path.join(root, "haystack.mp4"), 64, scene=16),
+             "needle": clip(os.path.join(root, "needle.mp4"), 8, value=250)}
+    questions = ["what does the person do", "what happens next", "which action is shown",
+                 "what does the person do first"]
+    gt = {}
+    for fmt, ext in (("mvbench", ".mp4"), ("egoschema", "")):
+        gt[f"{fmt}_q"] = [{"question_id": f"{fmt}{i}", "video_name": names[i] + ext,
+                           "question": q, "option": {str(j): o for j, o in enumerate(MC_OPTIONS)}}
+                          for i, q in enumerate(questions)]
+        gt[f"{fmt}_a"] = [dict(answer=i % 5, **({"type": f"t{i % 2}"} if ext else {}))
+                          for i in range(4)]
+    gt["oe_q"] = [{"question_id": i, "video_name": names[i], "question": q}
+                  for i, q in enumerate(questions[:2])]
+    gt["oe_a"] = [{"answer": "runs"}, {"answer": "sits down"}]
+    gt["consistency"] = [{"question_id": i, "video_name": names[i], "Q1": questions[i],
+                          "Q2": questions[i + 2], "A": MC_OPTIONS[i]} for i in range(2)]
+    gt["moviechat_ws"] = [{"video_name": names[i],
+                           "global": [{"video_name": names[i], "question": questions[0]}],
+                           "breakpoint": [{"video_name": names[i], "question": questions[1],
+                                           "time": 4}]} for i in range(2)]
+    gt["mixed_q"] = [{"question_id": 0, "question": "compare the scenes", "video_name": names[0],
+                      "image_name": "still.png", "audio_name": "tone.wav"}]
+    gt["mixed_a"] = [{"answer": "the same"}]
+    gt["needles"] = [{"needle": files["needle"], "question": "what was the secret word shown",
+                      "answer": "banana"}]
+    for name, rows in gt.items():
+        files[name] = os.path.join(root, f"{name}.json")
+        with open(files[name], "w") as f:
+            json.dump(rows, f)
+    return files
+
+
+def k3_likelihood_row(lengths, s: int, g: torch.Generator) -> dict:
+    """K3 at the likelihood forward's own shape: (n, 32, S, 128) through
+    ``multihead_attention`` on (n, S, 32, 128) projections, causal, each row's
+    spliced length its key mask; held against the plain version, with ms,
+    plain ms, SDPA ms and the bound."""
+    import torch.nn.functional as F
+
+    from videollamb_torch.ops.attention import multihead_attention
+    from videollamb_torch.ops.flash_attention import flash_attention_reference
+
+    n = len(lengths)
+    q, k, v = (torch.randn((n, s, 32, 128), generator=g, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    mask = torch.arange(s, device="cuda")[None] < torch.tensor(lengths, device="cuda")[:, None]
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    err = compare(f"flash through multihead_attention ({n}, {s}, 32, 128), valid keys "
+                  f"{list(lengths)} (the likelihood forward)",
+                  multihead_attention(q, k, v, causal=True, k_mask=mask),
+                  flash_attention_reference(qt, kt, vt, mask, causal=True).transpose(1, 2))
+    causal = torch.ones((s, s), dtype=torch.bool, device="cuda").tril()
+    sdpa_mask = (causal[None] & mask[:, None, :])[:, None]
+    pairs = sum(sum(min(i + 1, int(length)) for i in range(s)) for length in lengths)
+    return dict(
+        shape=[n, s, 32, 128], layout="(B, S, H, Dh) projections through multihead_attention; "
+        "the likelihood forward's option rows", lengths=[int(x) for x in lengths],
+        max_abs_err=err,
+        ms=cuda_ms(lambda: multihead_attention(q, k, v, causal=True, k_mask=mask)),
+        plain_ms=cuda_ms(lambda: flash_attention_reference(qt, kt, vt, mask, causal=True)),
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                                  attn_mask=sdpa_mask)),
+        # q read and out written at every row; K and V read only up to each
+        # row's length (the causal key mask ends there and masked tiles are
+        # skipped).
+        bound=bound(2 * q.numel() * 2 + 2 * sum(int(x) for x in lengths) * 32 * 128 * 2
+                    + mask.numel(), 4 * 32 * 128 * pairs, "bf16"))
+
+
+def eval_phase(model, cfg, g: torch.Generator, seed: int) -> dict:
+    """The eval harness (``videollamb_torch.eval``) over VideoLLaMB-7B in bf16
+    with a seeded full-width LanguageBind image tower (ViT-L/14 at 224, no
+    temporal layers) as ``model.image_tower``, on the synthetic set of
+    ``write_eval_set``: multiple choice sequentially, batched (4 slots) and
+    constrained to the option letters, with ``acc`` over the merged shards;
+    likelihood ranking (K3 at (5, 32, S, 128) with ragged key masks); the
+    open-ended, consistency and both MovieChat scripts; NIAVH in full and
+    streaming mode; one mixed video + image + audio row; an image question and
+    a two-image row through the image tower, and the question again through
+    the video tower at one frame. Random weights:
+    this measures the protocol, not accuracy. K1-K3 must launch."""
+    import argparse
+
+    import cv2
+    import numpy as np
+
+    from videollamb_torch.config import VisionConfig
+    from videollamb_torch.data.processing import ImageProcessor, VideoProcessor
+    from videollamb_torch.eval import (
+        acc,
+        niavh,
+        videoqa,
+        videoqa_consistency,
+        videoqa_likelihood,
+        videoqa_mc,
+        videoqa_mixed,
+        videoqa_moviechat,
+    )
+    from videollamb_torch.data.video_reader import load_video
+    from videollamb_torch.models.assembly import MultimodalBatch
+    from videollamb_torch.models.engine import generate
+    from videollamb_torch.models.vision.clip_vit import init_vision_params
+    from videollamb_torch.models.vision.modalities import AudioProcessor
+    from videollamb_torch.serve.chat import Chat
+
+    root = os.path.join("build", "eval_smoke")
+    os.makedirs(root, exist_ok=True)
+    files = write_eval_set(root, seed)
+    img = cfg.vision.image_size
+    model.image_tower = init_vision_params(VisionConfig(add_time_attn=False), seed=seed + 90,
+                                           dtype=torch.bfloat16, device="cuda")
+    # Audio rides the image path: mel images on the tower's own 224 x 224 grid.
+    chat = Chat(EvalTokenizer(cfg.lm.vocab_size), model, cfg, {
+        "VIDEO": VideoProcessor(size=img), "IMAGE": ImageProcessor(size=img),
+        "AUDIO": AudioProcessor(num_mel_bins=img, target_length=img)})
+    out_dir = os.path.join(root, "out")
+
+    def args(name, **kw):
+        return argparse.Namespace(**{**dict(
+            video_dir=files["video_dir"], output_dir=out_dir, output_name=name, num_chunks=1,
+            chunk_idx=0, num_frames=8, max_new_tokens=EVAL_NEW, temperature=0.0,
+            names_have_extension=False, image_dir=None, audio_dir=None), **kw})
+
+    timings, report = {}, {}
+
+    def timed(label, n, fn):
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        timings[label] = dict(seconds=secs, items=n, seconds_per_item=secs / n)
+        print(f"[eval] {label}: {n} in {secs:.2f} s, {secs / n:.3f} s each")
+        return res
+
+    torch.cuda.synchronize()
+    zero_counters()
+    # Multiple choice: MVBench then EgoSchema format, in each mode.
+    mc = {}
+    for mode in ("sequential", "batched", "constrained"):
+        def run_mode():
+            out = []
+            for fmt in ("mvbench", "egoschema"):
+                a = args(f"{mode}_{fmt}", gt_file_question=files[f"{fmt}_q"],
+                         gt_file_answers=files[f"{fmt}_a"],
+                         names_have_extension=fmt == "mvbench",
+                         constrained=mode == "constrained")
+                out.append(videoqa_mc.run_inference(a, chat) if mode == "sequential" else
+                           videoqa_mc.run_inference_batched(a, chat, num_slots=EVAL_SLOTS))
+            return out
+
+        results = timed(f"MC {mode}", 8, run_mode)
+        mc[mode] = [json.loads(line) for r in results for line in open(r["output"])]
+        if len(mc[mode]) != 8:
+            raise AssertionError(f"MC {mode}: {len(mc[mode])} records of 8")
+    same = sum(a["pred"] == b["pred"] for a, b in zip(mc["sequential"], mc["batched"]))
+    bad = [r for r in mc["constrained"] if r["pred"] not in videoqa_mc.OPTIONS[:len(MC_OPTIONS)]]
+    if bad:
+        raise AssertionError(f"constrained MC answers outside the option letters: {bad}")
+    merged = acc.merge_shards([os.path.join(out_dir, f"sequential_{f}.json")
+                               for f in ("mvbench", "egoschema")],
+                              os.path.join(out_dir, "merge.jsonl"))
+    overall, per_type, total = acc.compute_accuracy(merged)
+    if total != 8 or set(per_type) != {"t0", "t1"}:
+        raise AssertionError(f"acc over the merged shards: {total} records, types {per_type}")
+    print(f"[eval] batched answers equal to sequential: {same} of 8 (bf16: reported, not "
+          f"asserted); constrained answers {[r['pred'] for r in mc['constrained']]}; acc over "
+          f"the merged sequential shards {overall:.3f} of {total} (random weights)")
+    report["mc"] = dict(batched_equal_sequential=same, constrained=[r["pred"] for r in
+                                                                    mc["constrained"]],
+                        accuracy=overall, n=total)
+
+    # Likelihood ranking: 2 questions x 5 options; the forward's spliced
+    # lengths and buffer give K3's shape.
+    shapes = []
+    forward = videoqa_likelihood.videollamb_forward
+
+    def recording_forward(*a, **kw):
+        logits, spliced = forward(*a, **kw)
+        shapes.append((spliced.lengths.tolist(), int(spliced.embeds.shape[1])))
+        return logits, spliced
+
+    videoqa_likelihood.videollamb_forward = recording_forward
+    try:
+        frames = chat.processors["VIDEO"](load_video(
+            os.path.join(files["video_dir"], "clip0.mp4"), num_frames=8))
+        picks = timed("likelihood ranking (5 options)", 2, lambda: [
+            videoqa_likelihood.rank_options_by_likelihood(chat, q, MC_OPTIONS, frames)
+            for q in ("what does the person do", "what happens next")])
+    finally:
+        videoqa_likelihood.videollamb_forward = forward
+    if not all(0 <= p < len(MC_OPTIONS) for p in picks):
+        raise AssertionError(f"likelihood picks {picks}")
+    print(f"[eval] likelihood picks {picks}; spliced lengths {[s[0] for s in shapes]} in a "
+          f"{shapes[0][1]}-token buffer")
+    report["likelihood"] = dict(picks=picks, spliced_lengths=[s[0] for s in shapes],
+                                buffer=shapes[0][1])
+
+    # Open-ended eval scripts, 2 samples each.
+    oe = dict(gt_file_question=files["oe_q"], gt_file_answers=files["oe_a"])
+    for label, n, fn in (
+            ("open-ended", 2, lambda: videoqa.run_inference(args("oe", **oe), chat)),
+            ("consistency", 4, lambda: videoqa_consistency.run_inference(
+                args("consistency", gt_file=files["consistency"]), chat)),
+            ("MovieChat flat", 2, lambda: videoqa_moviechat.run_inference(args("mc_flat", **oe),
+                                                                           chat)),
+            ("MovieChat global / breakpoint", 4,
+             lambda: videoqa_moviechat.run_inference_global_breakpoint(
+                 args("mc_ws", gt_file_question=files["moviechat_ws"]), chat))):
+        res = timed(label, n, fn)
+        rows = [json.loads(line) for line in open(res["output"])]
+        if len(rows) != 2:
+            raise AssertionError(f"{label}: {len(rows)} records")
+
+    # NIAVH, full then streaming.
+    grids = {}
+    for mode in ("full", "streaming"):
+        a = argparse.Namespace(
+            haystack_video=files["haystack"], needle_json=files["needles"],
+            lengths=NIAVH_LENGTHS, depths=NIAVH_DEPTHS, needle_frames=8, mode=mode,
+            stream_open_frames=32, stream_seq_len=2048, output_dir=out_dir,
+            output_name=f"niavh_{mode}", max_new_tokens=NIAVH_NEW, temperature=0.0)
+        n_cases = len(NIAVH_LENGTHS.split(",")) * len(NIAVH_DEPTHS.split(","))
+        summary = timed(f"NIAVH {mode}", n_cases, lambda: niavh.run_pressure_test(a, chat))
+        if summary["n"] != n_cases:
+            raise AssertionError(f"NIAVH {mode}: {summary['n']} cases of {n_cases}")
+        grids[mode] = summary["grid"]
+        print(f"[eval] NIAVH {mode} grid {summary['grid']} (random weights: protocol only)")
+    report["niavh"] = grids
+
+    # One mixed video + image + audio row; an image question through the
+    # image tower, a two-image row through it, and the question again through
+    # the video tower at one frame.
+    res = timed("mixed video + image + audio row", 1, lambda: videoqa_mixed.run_inference(
+        args("mixed", gt_file_question=files["mixed_q"], gt_file_answers=files["mixed_a"]),
+        chat))
+    row = json.loads(open(res["output"]).readline())
+    if row["modalities"] != ["VIDEO", "IMAGE", "AUDIO"] or not row["pred"]:
+        raise AssertionError(f"mixed row {row}")
+    image = chat.processors["IMAGE"](cv2.cvtColor(
+        cv2.imread(os.path.join(files["video_dir"], "still.png")), cv2.COLOR_BGR2RGB))
+    image2 = chat.processors["IMAGE"](load_video(
+        os.path.join(files["video_dir"], "clip1.mp4"), num_frames=1)[0])
+    answers = {}
+    chat.conv.append_message(chat.conv.roles[0], "<image>\ndescribe the image")
+    chat.conv.append_message(chat.conv.roles[1], None)
+    prompt = chat.conv.get_prompt()
+    answers["image tower"] = timed("generate_text(images=) through the image tower", 1,
+                                   lambda: chat.generate_text(prompt, images=image,
+                                                              max_new_tokens=EVAL_NEW,
+                                                              do_sample=False))
+    chat.reset()
+    chat.conv.append_message(chat.conv.roles[0], "<image>\n<image>\ncompare the images")
+    chat.conv.append_message(chat.conv.roles[1], None)
+    ids, mask, tags = chat._prepare_multi_ids(chat.conv.get_prompt())
+    two = MultimodalBatch(
+        input_ids=torch.from_numpy(ids).cuda(), attention_mask=torch.from_numpy(mask).cuda(),
+        images=torch.from_numpy(np.stack([image, image2])[None]).to("cuda", torch.bfloat16))
+    result = timed("a two-image row (1, 2, 3, 224, 224) through the image tower", 1,
+                   lambda: generate(model, cfg, two, max_new_tokens=EVAL_NEW, do_sample=False,
+                                    max_seq_len=cfg.max_length + 64))
+    if tags != ["IMAGE", "IMAGE"] or int(result.lengths[0]) != EVAL_NEW:
+        raise AssertionError(f"two-image row: tags {tags}, {int(result.lengths[0])} tokens")
+    chat.reset()
+    model.image_tower = None
+    answers["video tower"] = timed("generate_text(images=) through the video tower", 1,
+                                   lambda: chat.generate_text(prompt, images=image,
+                                                              max_new_tokens=EVAL_NEW,
+                                                              do_sample=False))
+    print(f"[eval] one image question: {len(answers['image tower'].split())} tokens through "
+          f"the image tower, {len(answers['video tower'].split())} through the video tower at "
+          f"one frame; the answers differ: {answers['image tower'] != answers['video tower']}")
+    launches = read_counters()
+    print(f"[eval] launches K1 {launches['spatial_attention']}, K2 "
+          f"{launches['temporal_attention']}, K3 {launches['flash_attention']}")
+    for name in ("spatial_attention", "temporal_attention", "flash_attention"):
+        if not launches[name]:
+            raise AssertionError(f"eval phase: kernel {name} was never launched")
+    # K3 held against its plain version at the likelihood forward's shape
+    # (after the counters are read: these launches are not the path's).
+    # Its operands come from a generator of their own, so that the later
+    # phases' draws from ``g`` stay as they were.
+    g_k3 = torch.Generator(device="cuda").manual_seed(int(g.initial_seed()) + 72)
+    k3_row = k3_likelihood_row(shapes[0][0], shapes[0][1], g_k3)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(timings=timings, **report, launches=launches, k3_likelihood=k3_row)
+
+
 def write_peft_adapter(path: str, cfg, seed: int) -> None:
     """A seeded PEFT LoRA directory (r = 8, alpha 16 on q_proj and v_proj of
     every layer; ``adapter_config.json`` and ``adapter_model.bin``). PEFT's
@@ -2988,6 +3376,9 @@ def main() -> int:
     t0 = time.perf_counter()
     surfaced = surfaces_phase(model, cfg, args.seed)
     print(f"[http] serving-surfaces phase took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    evaluated = eval_phase(model, cfg, g, args.seed)
+    print(f"[eval] eval phase took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     int8_lm = lm_variant(model, "int8").lm
@@ -3012,6 +3403,9 @@ def main() -> int:
                     temporal_core=enc["old_temporal (K9)"]["temporal_core"],
                     temporal_core_fm=enc["K10 for K2"]["temporal_core_fm"],
                     block_attention=enc["K11 for K1"]["block_attention"])
+    kernels["flash_attention"]["shapes"].append(evaluated["k3_likelihood"])
+    kernels["flash_attention"]["max_abs_err"] = max(kernels["flash_attention"]["max_abs_err"],
+                                                    evaluated["k3_likelihood"]["max_abs_err"])
     rows = []
     for name, (source, replaces) in SOURCES.items():
         r = kernels[name]
@@ -3028,7 +3422,8 @@ def main() -> int:
         if name in ("spatial_attention", "temporal_attention", "flash_attention"):
             rows[-1]["path_launches"] = {"stream": streamed["launches"][name],
                                          "liveinfer": lived["launches"][name],
-                                         "kv_chat": chatted["launches"][name]}
+                                         "kv_chat": chatted["launches"][name],
+                                         "eval": evaluated["launches"][name]}
         rows[-1].setdefault("path_launches", {})["train"] = trained["launches"][name]
         if name in ("spatial_attention", "temporal_attention", "flash_attention",
                     "gathered_paged_attention", "paged_fresh_write"):
@@ -3057,6 +3452,8 @@ def main() -> int:
                       "encode": {k: v for k, v in encoded.items() if k != "launches"},
                       "gradients": graded, "features": featured,
                       "surfaces": {k: v for k, v in surfaced.items() if k != "launches"},
+                      "eval": {k: v for k, v in evaluated.items()
+                               if k not in ("launches", "k3_likelihood")},
                       "train": {k: v for k, v in trained.items() if k != "launches"}}))
     print(card)
     print(json.dumps({"kernels": rows}))

@@ -10,9 +10,10 @@ logprobs (within LOGPROB_ATOL), SSE event sequences, status codes,
 streamed, with logprobs, with a video, concurrent clients), cancel, the
 streams API with ``append_video``, adapter load and unload with a 409 while
 an adapter request is in flight, a stream ticking while an adapter request
-decodes, ``/metrics``' counters over a batch of requests, the port's HTTP
-400 for image and audio rows, and health degradation on an engine error
-(last: it leaves both servers degraded).
+decodes, ``/metrics``' counters over a batch of requests, image, audio and
+mixed rows (OpenAI ``image_url`` / ``audio_url`` / ``input_audio`` parts
+included), and health degradation on an engine error (last: it leaves both
+servers degraded).
 Also the gradio demo's callbacks through a stub ``gradio`` module.
 """
 
@@ -64,11 +65,17 @@ def start_servers(max_length: int = 128, embedders=(None, None), model_name="vid
 
     cfg, tree, model, pcfg = tiny_models(max_length=max_length)
     params = jax.tree.map(jnp.asarray, tree)
+    from videollamb_torch.models.vision.modalities import AudioProcessor
+    from videollamb_tpu.models.vision.modalities import AudioProcessor as JAudio
+
     size = cfg.vision.image_size
-    jchat = JChat(_tokenizer(), params, cfg, {"VIDEO": JVideo(size=size),
-                                              "IMAGE": JImage(size=size)}, text_bucket=32)
-    pchat = Chat(_tokenizer(), model, pcfg, {"VIDEO": VideoProcessor(size=size),
-                                             "IMAGE": ImageProcessor(size=size)}, text_bucket=32)
+    # Audio mel images at the tiny tower's image size: audio rides the image path.
+    jchat = JChat(_tokenizer(), params, cfg, {
+        "VIDEO": JVideo(size=size), "IMAGE": JImage(size=size),
+        "AUDIO": JAudio(num_mel_bins=size, target_length=size)}, text_bucket=32)
+    pchat = Chat(_tokenizer(), model, pcfg, {
+        "VIDEO": VideoProcessor(size=size), "IMAGE": ImageProcessor(size=size),
+        "AUDIO": AudioProcessor(num_mel_bins=size, target_length=size)}, text_bucket=32)
     built = {
         "jax": jax_make_server(jchat, JEngine(params, cfg, num_slots=2, eos_token_id=2), port=0,
                                k=2, timeout_s=120, model_name=model_name,
@@ -227,17 +234,49 @@ def test_generate_with_video_and_concurrent_clients_equal_jax(servers, tmp_path)
     assert_same(got, want)
 
 
+def write_wav(path, seconds=0.5, sr=16000):
+    import wave
+
+    wav = 0.3 * np.sin(2 * np.pi * 330 * np.linspace(0, seconds, int(sr * seconds)))
+    with wave.open(str(path), "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(sr)
+        w.writeframes((wav * 32767).astype(np.int16).tobytes())
+    return str(path)
+
+
 def test_image_and_audio_rows_are_400_on_the_port(servers, tmp_path):
-    url, _ = servers["torch"]
-    for field in ("image", "audio"):
-        status, out = call(url, "/v1/generate", {"prompt": "describe the scene",
-                                                 field: str(tmp_path / "x"),
-                                                 "max_new_tokens": 2})
-        assert status == 400 and f"'{field}'" in out["error"] and "item 7" in out["error"]
-        status, out = call(url, "/v1/chat/completions", {"messages": [{"role": "user", "content": [
-            {"type": f"{field}_url", f"{field}_url": {"url": str(tmp_path / "x")}},
-            {"type": "text", "text": "describe the scene"}]}]})
-        assert status == 400 and "item 7" in out["error"]["message"]
+    """(The name dates from before the image path.) Image, audio and mixed
+    rows on /v1/generate, and OpenAI ``image_url`` (a path and a ``data:``
+    URI), ``audio_url`` and ``input_audio`` parts on /v1/chat/completions:
+    the port's responses equal the JAX server's."""
+    import base64
+
+    cv2 = pytest.importorskip("cv2")
+    image = str(tmp_path / "x.png")
+    cv2.imwrite(image, np.random.default_rng(5).integers(0, 255, (60, 70, 3)).astype(np.uint8))
+    audio = write_wav(tmp_path / "x.wav")
+    png = base64.b64encode(open(image, "rb").read()).decode()
+    wav = base64.b64encode(open(audio, "rb").read()).decode()
+    text = {"type": "text", "text": "describe the scene"}
+    calls = [
+        ("/v1/generate", {"prompt": "describe the scene", "image": image, "max_new_tokens": 4}),
+        ("/v1/generate", {"prompt": "describe the scene", "audio": audio, "max_new_tokens": 4}),
+        ("/v1/generate", {"prompt": "describe the scene", "image": image, "audio": audio,
+                          "video": write_clip(tmp_path / "v.mp4"), "max_new_tokens": 4}),
+        ("/v1/chat/completions", {"max_tokens": 4, "messages": [{"role": "user", "content": [
+            {"type": "image_url", "image_url": {"url": image}}, text]}]}),
+        ("/v1/chat/completions", {"max_tokens": 4, "messages": [{"role": "user", "content": [
+            {"type": "image_url", "image_url": {"url": f"data:image/png;base64,{png}"}},
+            {"type": "audio_url", "audio_url": {"url": audio}}, text]}]}),
+        ("/v1/chat/completions", {"max_tokens": 4, "messages": [{"role": "user", "content": [
+            {"type": "input_audio", "input_audio": {"data": wav, "format": "wav"}}, text]}]}),
+    ]
+    for path, body in calls:
+        got, want = both(servers, lambda url, _: call(url, path, body))
+        assert got[0] == want[0] == 200, (path, body, got, want)
+        assert_same(got[1], want[1])
 
 
 def _running_uid(srv, timeout=60.0):
@@ -567,16 +606,29 @@ def test_gradio_callbacks_with_a_stub_module(servers, tmp_path, monkeypatch):
     assert got[2] == "Loaded 16 video frames." and got[3][-1][-1][0] == "describe the scene"
     assert got[4][-1][1] == got[3][-1][-1][1] and got[5] is False
     assert got[7] == ([], "Cleared.") and got[8] is True and got[9] == 0
-    # Wording: the port names the modalities it serves.
-    assert got[0] == "Upload a video first." and want[0] == "Upload a video or an image first."
-    assert got[1][-1][-1][1] == "Please upload a video first."
-    assert_same(got[2:], want[2:])
-    mod, widgets = _stub_gradio()
-    monkeypatch.setitem(sys.modules, "gradio", mod)
-    gradio_demo.build_demo(servers["torch"][1].chat)
-    media = {"frames": None, "image": None, "first": True}
-    status, media = widgets["Video"][0].events[0][1][0](None, "img.png", media)
-    assert "item 7" in status and media["image"] is None
+    assert got[0] == "Upload a video or an image first."
+    assert got[1][-1][-1][1] == "Please upload a video or image first."
+    assert_same(got, want)
+    # An uploaded image: the status, then the streamed turn through
+    # stream_text(images=), equal to the JAX demo's.
+    from PIL import Image
+
+    # gr.Image(type="pil") hands the callback a PIL image.
+    image = Image.fromarray(
+        np.random.default_rng(6).integers(0, 255, (60, 70, 3)).astype(np.uint8))
+    chats = {}
+    for side, module in (("torch", gradio_demo), ("jax", jax_demo)):
+        mod, widgets = _stub_gradio()
+        monkeypatch.setitem(sys.modules, "gradio", mod)
+        chat = servers[side][1].chat
+        module.build_demo(chat)
+        media = {"frames": None, "image": None, "first": True}
+        status, media = widgets["Image"][0].events[0][1][0](None, image, media)
+        reply = widgets["Textbox"][1].events[0][2]["fn"]
+        chats[side] = (status, list(reply("describe the scene", [], media, 0.0, 1.0, 4)),
+                       media["first"], [list(m) for m in chat.conv.messages])
+    assert chats["torch"][0] == "Loaded image." and chats["torch"][2] is False
+    assert_same(chats["torch"], chats["jax"])
 
 
 def test_entry_points_default_to_the_card(monkeypatch, tmp_path):

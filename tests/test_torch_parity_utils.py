@@ -171,6 +171,27 @@ def write_reference_checkpoint(root: str, seed: int = 0):
     return model_dir, tower_dir
 
 
+def write_image_tower(root: str, seed: int) -> str:
+    """A reference-format LanguageBind image tower dir (no temporal layers)."""
+    from videollamb_tpu.models.vision.clip_vit import init_vision_params
+
+    vision = dataclasses.replace(checkpoint_config().vision, add_time_attn=False)
+    tree = np_tree(init_vision_params(jax.random.PRNGKey(seed), vision))
+    path = os.path.join(root, "LanguageBind_Image")
+    os.makedirs(path, exist_ok=True)
+    torch.save({k: torch.from_numpy(np.ascontiguousarray(v))
+                for k, v in export_vision_state_dict(tree).items()},
+               os.path.join(path, "pytorch_model.bin"))
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump({"vision_config": {
+            "hidden_size": vision.hidden_size, "intermediate_size": vision.intermediate_size,
+            "num_hidden_layers": vision.num_hidden_layers,
+            "num_attention_heads": vision.num_attention_heads,
+            "image_size": vision.image_size, "patch_size": vision.patch_size,
+            "hidden_act": "quick_gelu"}}, f)
+    return path
+
+
 def load_both(model_dir: str, tower_dir: str):
     """(JAX params, JAX cfg, port model, port cfg) of one checkpoint, f32 on the
     CPU. The configs say float32 too: the JAX engines take their cache and

@@ -10,8 +10,8 @@ tiny reference-format checkpoint in f32.
   sampling controls, logprobs, adapter, shared_prefix) build the requests
   that the JAX ``build_requests`` builds, and a batch of such rows through
   the paged engine gives the JAX engine's tokens and logprobs.
-- Row fields the port does not serve yet (image and audio rows) are refused
-  with an error that names them; ``--device-preprocess`` reaches the loader.
+- Image and audio rows build the JAX batch CLI's requests;
+  ``--device-preprocess`` reaches the loader.
 """
 
 from __future__ import annotations
@@ -104,11 +104,35 @@ def test_batch_cli_end_to_end(checkpoint, tmp_path):
 
 
 @pytest.mark.parametrize("field,value", [("image", "x.png"), ("audio", "x.wav")])
-def test_batch_cli_refuses_unported_row_fields(field, value):
-    from videollamb_torch.serve.batch_cli import build_requests
+def test_batch_cli_refuses_unported_row_fields(chats, tmp_path, field, value):
+    """(The name dates from before the image path.) An image row and an audio
+    row (a WAV as the default 112 x 1036 mel image) build the JAX batch CLI's
+    request: equal ids and mask, the same pixels under ``images``."""
+    import wave
 
-    with pytest.raises(ValueError, match=f"'{field}'.*not supported by the PyTorch port"):
-        build_requests([{"id": 1, "prompt": "hi", field: value}], chat=None)
+    import cv2
+
+    from videollamb_torch.serve.batch_cli import build_requests
+    from videollamb_tpu.serve.batch_cli import build_requests as jax_build_requests
+
+    path = str(tmp_path / value)
+    rng = np.random.default_rng(2)
+    if field == "image":
+        cv2.imwrite(path, rng.integers(0, 255, (60, 70, 3)).astype(np.uint8))
+    else:
+        with wave.open(path, "wb") as w:
+            w.setnchannels(1)
+            w.setsampwidth(2)
+            w.setframerate(16000)
+            w.writeframes((rng.uniform(-0.3, 0.3, 8000) * 32767).astype(np.int16).tobytes())
+    jchat, chat = chats
+    row = {"id": 1, "prompt": "what is happening", field: path, "max_new_tokens": 4}
+    (want,) = jax_build_requests([row], jchat)
+    (got,) = build_requests([row], chat)
+    assert got.batch.input_ids.tolist() == np.asarray(want.batch.input_ids).tolist()
+    assert got.batch.attention_mask.tolist() == np.asarray(want.batch.attention_mask).tolist()
+    assert got.batch.videos is None and want.batch.videos is None and got.batch.blocks is None
+    np.testing.assert_array_equal(got.batch.images.numpy(), np.asarray(want.batch.images))
 
 
 @pytest.mark.parametrize("flag", ["--device-preprocess"])

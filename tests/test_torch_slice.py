@@ -3,8 +3,8 @@
 A seeded reference-format checkpoint (model dir + LanguageBind tower dir)
 is loaded by both packages' ``load_pretrained_model``; greedy ``generate``
 must give the same tokens, token for token, in f32. Also: the port's
-``Chat.ask_about_video`` with a tiny tokenizer, the CLI's refusal of the
-flags it does not implement, and that no port module imports jax.
+``Chat.ask_about_video`` with a tiny tokenizer, the CLI's image flags
+against the JAX CLI, and that no port module imports jax.
 """
 
 from __future__ import annotations
@@ -99,17 +99,56 @@ def test_chat_ask_about_video(checkpoint, tmp_path):
 
 
 @pytest.mark.parametrize("flag", [["--image-tower", "tower"], ["--image-file", "x.png"]])
-def test_cli_rejects_unported_flags(flag):
-    from videollamb_torch.serve import cli
+def test_cli_rejects_unported_flags(checkpoint, tmp_path, monkeypatch, capsys, flag):
+    """(The name dates from before the image path.) ``--image-file`` through
+    the video tower at one frame, or through the ``--image-tower`` dir: the
+    port's CLI prints the JAX CLI's greedy answers, turn by turn, both in f32
+    (the JAX config is set to f32 too: its Chat casts inputs to
+    ``cfg.dtype``). Both cases load the video tower, without which the JAX
+    package cannot encode (``_tower_features`` reads ``params["video_tower"]``
+    first)."""
+    import builtins
 
-    args = cli.parse_args(["--model-path", "unused", "--video-file", "v.mp4", *flag])
-    with pytest.raises(SystemExit, match="not supported by the PyTorch port"):
-        cli.main(args)
+    import cv2
+
+    import videollamb_tpu.models.builder as jax_builder
+    from test_torch_parity_utils import write_image_tower
+    from videollamb_torch.serve import cli
+    from videollamb_tpu.serve import cli as jax_cli
+
+    model_dir, tower_dir = checkpoint
+    tiny_tokenizer(model_dir)
+    image = str(tmp_path / "x.png")
+    cv2.imwrite(image, np.random.default_rng(4).integers(0, 255, (60, 70, 3)).astype(np.uint8))
+    towers = ["--video-tower", tower_dir]
+    if flag[0] == "--image-tower":
+        towers += ["--image-tower", write_image_tower(str(tmp_path), seed=9)]
+    argv = ["--model-path", model_dir, *towers, "--image-file", image, "--fp32",
+            "--temperature", "0", "--max-new-tokens", "6"]
+    load = jax_builder.load_pretrained_model
+
+    def load_f32(*args, **kwargs):
+        tok, params, cfg, processors, n = load(*args, **kwargs)
+        return tok, params, dataclasses.replace(cfg, dtype="float32"), processors, n
+
+    monkeypatch.setattr(jax_builder, "load_pretrained_model", load_f32)
+    out = {}
+    for side, run in (("torch", lambda: cli.main(cli.parse_args(argv + ["--device", "cpu"]))),
+                      ("jax", lambda: jax_cli.main(jax_cli.parse_args()))):
+        lines = iter(["describe it", "what is happening in this video", ""])
+        monkeypatch.setattr(builtins, "input", lambda prompt="": next(lines))
+        monkeypatch.setattr(sys, "argv", ["cli", *argv])
+        capsys.readouterr()
+        run()
+        out[side] = capsys.readouterr().out
+    assert out["torch"] == out["jax"]
+    assert out["torch"].count("ASSISTANT: ") == 2
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port, the training modules and the
-    serving surfaces included, leaves jax and every module of the JAX package out of sys.modules."""
+    """Importing every module of the port, the training modules, the serving
+    surfaces and the eval drivers included, leaves jax and every module of the
+    JAX package out of sys.modules."""
     code = (
         "import pkgutil, importlib, sys\n"
         "import videollamb_torch\n"
@@ -124,6 +163,10 @@ def test_port_imports_no_jax():
         "'data.audio_reader', 'models.binding', 'models.vision.modalities', 'serve.embeddings', "
         "'serve.openai_api', 'serve.streams_api', 'serve.http_server', 'serve.gradio_demo')}\n"
         "assert surfaces <= set(names), sorted(surfaces - set(names))\n"
+        "evals = {'videollamb_torch.eval.' + m for m in ('videoqa_mc', 'videoqa', "
+        "'videoqa_consistency', 'videoqa_moviechat', 'videoqa_likelihood', 'videoqa_mixed', "
+        "'niavh', 'acc', 'gpt_judge')}\n"
+        "assert evals <= set(names), sorted(evals - set(names))\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'videollamb_tpu')]\n"
         "assert not bad, bad\n"
         "print(len(names))\n"

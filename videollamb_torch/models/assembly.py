@@ -1,11 +1,17 @@
 """VideoLLaMB assembly: tower -> Memory Bridge -> splice -> Llama.
 
-Port of the video and text paths of ``videollamb_tpu/models/assembly.py``
-(reference llava_arch.py:331-348 and :492-660). :class:`VideoLLaMB` holds
-the three parts under the names of the JAX parameter tree (``video_tower``,
-``mm_projector``, ``lm``); each part loads its reference state dict by
-name (see ``models/convert.py``). Image, anyres and mixed-modality batches
-are not ported yet.
+Port of the video, image, mixed-modality and text paths of
+``videollamb_tpu/models/assembly.py`` (reference llava_arch.py:265-348 and
+:492-660). :class:`VideoLLaMB` holds the parts under the names of the JAX
+parameter tree (``video_tower``, ``mm_projector``, ``lm`` and the optional
+``image_tower``); each part loads its reference state dict by name (see
+``models/convert.py``). An image goes through the image tower when the
+model has one, else through the video tower at T = 1 (no temporal
+attention), then through the bridge's one-pass image branch. A mixed row
+(``MultimodalBatch.blocks``) encodes each block with its own encoder and
+binds the k-th block to the k-th sentinel; audio blocks (mel images) ride
+the image path, as in the JAX package. Anyres batches, which need the
+grid-preserving projectors, are not ported (ROADMAP.md section A, item 7).
 
 Training enters through :func:`videollamb_forward` (packed rows included,
 with ``segment_ids``) and :func:`causal_lm_loss`; a ``torch.Generator``
@@ -23,7 +29,11 @@ from torch import nn
 
 from videollamb_torch.config import ModelConfig
 from videollamb_torch.constants import IGNORE_INDEX
-from videollamb_torch.models.bridge.rmt_r import RMTRBridge, rmt_r_video_forward
+from videollamb_torch.models.bridge.rmt_r import (
+    RMTRBridge,
+    rmt_r_image_forward,
+    rmt_r_video_forward,
+)
 from videollamb_torch.models.lm.llama import LlamaForCausalLM, embed_tokens, llama_forward
 from videollamb_torch.models.splice import (
     SplicedBatch,
@@ -35,23 +45,31 @@ from videollamb_torch.models.vision.clip_vit import CLIPVisionTower, vision_enco
 
 class VideoLLaMB(nn.Module):
     def __init__(self, video_tower: Optional[CLIPVisionTower], mm_projector: RMTRBridge,
-                 lm: LlamaForCausalLM):
+                 lm: LlamaForCausalLM, image_tower: Optional[CLIPVisionTower] = None):
         super().__init__()
         self.video_tower = video_tower
         self.mm_projector = mm_projector
         self.lm = lm
+        self.image_tower = image_tower
 
 
 class MultimodalBatch(NamedTuple):
-    """Host-assembled batch; ``videos`` is None for text-only batches.
+    """Host-assembled batch; ``videos`` and ``images`` are None for text-only
+    batches.
 
-    input_ids carry the VIDEO sentinel (-201) on multimodal rows.
+    input_ids carry X sentinels on multimodal rows (-200 image, -201 video,
+    -202 audio; up to K per row, the k-th binding visual block k).
     """
 
     input_ids: torch.Tensor                 # (B, T)
     attention_mask: torch.Tensor            # (B, T)
     labels: Optional[torch.Tensor] = None   # (B, T)
     videos: Optional[torch.Tensor] = None   # (B, T_v, C, H, W); packed: (B, K, T_v, C, H, W)
+    images: Optional[torch.Tensor] = None   # (B, C, H, W); multi-image rows: (B, K, C, H, W)
+    # A mixed-modality row (B = 1): ordered ("VIDEO"|"IMAGE"|"AUDIO", pixels)
+    # blocks, video (T, C, H, W), image and audio (C, H, W); block k binds
+    # the k-th sentinel (mm_utils.tokenizer_multi_x_token).
+    blocks: Optional[Tuple[Tuple[str, torch.Tensor], ...]] = None
     # Packed rows (train/dataset.PackedCollator): segments 1..S per row, 0 =
     # padding; the k-th sentinel of a row binds video slot k where
     # video_block_mask (B, K) is true.
@@ -66,12 +84,23 @@ def _check_supported(cfg: ModelConfig) -> None:
             f"bridge only (got tower={cfg.tower!r}, bridge={cfg.bridge.kind!r})")
 
 
+def _tower_features(model: VideoLLaMB, cfg: ModelConfig, pixels: torch.Tensor,
+                    tower_key: str = "video_tower") -> torch.Tensor:
+    """(B, T, C, H, W) -> (B, T, N, D) tower features. An image (T = 1) with
+    no image tower goes through the video tower, whose temporal attention a
+    single frame skips."""
+    _check_supported(cfg)
+    tower = getattr(model, tower_key)
+    if tower is None:
+        tower = model.video_tower
+    if tower is None:
+        raise ValueError("the model was loaded without a video tower")
+    return vision_encode(tower, pixels, cfg.vision)
+
+
 def _bridge_outputs(model: VideoLLaMB, cfg: ModelConfig, videos: torch.Tensor,
                     generator: Optional[torch.Generator]):
-    _check_supported(cfg)
-    if model.video_tower is None:
-        raise ValueError("the model was loaded without a video tower")
-    feats = vision_encode(model.video_tower, videos, cfg.vision)  # (B, T, N, D)
+    feats = _tower_features(model, cfg, videos)  # (B, T, N, D)
     return [rmt_r_video_forward(model.mm_projector, cfg.bridge, f, generator) for f in feats]
 
 
@@ -94,8 +123,45 @@ def encode_videos_retro(model: VideoLLaMB, cfg: ModelConfig, videos: torch.Tenso
             torch.stack([o.all_masks for o in outs]))
 
 
+def encode_images(model: VideoLLaMB, cfg: ModelConfig, images: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, C, H, W) -> the bridge's image tokens (B, P, lm_d) and mask (B, P)
+    (reference encode_images, llava_arch.py:265): one bridge pass over each
+    image's pooled features, every token valid."""
+    feats = _tower_features(model, cfg, images[:, None], "image_tower")[:, 0]  # (B, N, D)
+    tokens, _ = rmt_r_image_forward(model.mm_projector, cfg.bridge, feats)
+    return tokens, torch.ones(tokens.shape[:2], dtype=torch.bool, device=tokens.device)
+
+
+def encode_mixed(model: VideoLLaMB, cfg: ModelConfig,
+                 blocks: Tuple[Tuple[str, torch.Tensor], ...],
+                 generator: Optional[torch.Generator] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The blocks of one mixed row -> the K-block splice input: each block
+    through its own encoder, right-padded to the widest block.
+
+    Returns x_embeds (1, K, N_max, lm_d) and x_mask (1, K, N_max)."""
+    outs = []
+    for modality, pixels in blocks:
+        if modality == "VIDEO":
+            e, m = encode_videos(model, cfg, pixels[None], generator)
+        elif modality in ("IMAGE", "AUDIO"):
+            e, m = encode_images(model, cfg, pixels[None])
+        else:
+            raise ValueError(f"unknown modality {modality!r}")
+        outs.append((e[0], m[0].bool()))
+    n_max = max(e.shape[0] for e, _ in outs)
+    first = outs[0][0]
+    x_embeds = first.new_zeros((1, len(outs), n_max, first.shape[-1]))
+    x_mask = torch.zeros((1, len(outs), n_max), dtype=torch.bool, device=first.device)
+    for i, (e, m) in enumerate(outs):
+        x_embeds[0, i, : e.shape[0]] = e
+        x_mask[0, i, : m.shape[0]] = m
+    return x_embeds, x_mask
+
+
 def _no_visual(text_embeds: torch.Tensor, *lead: int):
-    """A zero visual block that inserts nothing, for batches without videos."""
+    """A zero visual block that inserts nothing, for batches without media."""
     return (text_embeds.new_zeros((*lead, 1, text_embeds.shape[-1])),
             torch.zeros((*lead, 1), dtype=torch.bool, device=text_embeds.device))
 
@@ -103,8 +169,18 @@ def _no_visual(text_embeds: torch.Tensor, *lead: int):
 def _prepare(model: VideoLLaMB, cfg: ModelConfig, batch: MultimodalBatch,
              generator: Optional[torch.Generator] = None) -> SplicedBatch:
     text_embeds = embed_tokens(model.lm, batch.input_ids)
-    if batch.videos is not None:
+    if batch.blocks is not None:
+        x_embeds, x_mask = encode_mixed(model, cfg, batch.blocks, generator)
+    elif batch.videos is not None:
         x_embeds, x_mask = encode_videos(model, cfg, batch.videos, generator)
+    elif batch.images is not None and batch.images.dim() == 5:
+        # Multi-image rows: image k of a row binds its k-th sentinel.
+        b, k = batch.images.shape[:2]
+        tok, msk = encode_images(model, cfg, batch.images.flatten(0, 1))
+        x_embeds = tok.reshape(b, k, *tok.shape[1:])
+        x_mask = msk.reshape(b, k, *msk.shape[1:])
+    elif batch.images is not None:
+        x_embeds, x_mask = encode_images(model, cfg, batch.images)
     else:
         x_embeds, x_mask = _no_visual(text_embeds, batch.input_ids.shape[0])
     return splice_multimodal(batch.input_ids, batch.attention_mask, batch.labels,
@@ -114,7 +190,7 @@ def _prepare(model: VideoLLaMB, cfg: ModelConfig, batch: MultimodalBatch,
 @torch.no_grad()
 def prepare_multimodal_embeds(model: VideoLLaMB, cfg: ModelConfig,
                               batch: MultimodalBatch) -> SplicedBatch:
-    """Encode the videos, embed the text, splice into a ``cfg.max_length`` buffer."""
+    """Encode the media, embed the text, splice into a ``cfg.max_length`` buffer."""
     return _prepare(model, cfg, batch)
 
 

@@ -16,8 +16,11 @@ quantises the LM to weight-only int8 after the cast
 ``DeviceVideoProcessor`` (``data/device_preprocess.py``: resize, crop and
 normalise on the model's device) in place of the host ``VideoProcessor``.
 
-The image tower is not ported yet. The model loads onto the card unless the
-caller passes ``device="cpu"``.
+``image_tower_path`` loads a LanguageBind image tower dir as
+``VideoLLaMB.image_tower`` (with temporal layers only where its weights
+have them); the ViT dims come from the video tower's config.json, else the
+image tower's, as in the JAX package. The model loads onto the card unless
+the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -205,9 +208,6 @@ def load_pretrained_model(
     Returns (tokenizer, model, config, processors, context_len), the tuple
     the reference returns; the tokenizer is None unless ``load_tokenizer``.
     """
-    if image_tower_path:
-        raise NotImplementedError("load_pretrained_model(image_tower_path=...) is not ported yet "
-                                  "(ROADMAP.md section A, item 7)")
     device = resolve_device(device)
     wanted = torch.bfloat16 if dtype == "bfloat16" else torch.float32
     is_lora = os.path.exists(os.path.join(model_path, "adapter_config.json"))
@@ -218,15 +218,26 @@ def load_pretrained_model(
     cfg = config_from_json(cfg_dir)
     lm_sd, bridge_sd = split_reference_state(_resolve_state(model_path, model_base))
 
-    video_tower = None
-    if video_tower_path:
-        vision = vision_config_from_tower_json(video_tower_path)
+    # Tower dirs carry the ViT dims (config.json only knows mm_hidden_size);
+    # the towers rebuild from their own config (languagebind/__init__.py:248-251).
+    tower_cfg_dir = video_tower_path or image_tower_path
+    if tower_cfg_dir:
+        vision = vision_config_from_tower_json(tower_cfg_dir)
         if vision is not None:
             cfg = dataclasses.replace(cfg, vision=dataclasses.replace(
                 vision, select_layer=cfg.vision.select_layer,
                 select_feature=cfg.vision.select_feature))
+    video_tower = image_tower = None
+    if video_tower_path:
         video_tower = _load(lambda: CLIPVisionTower(cfg.vision),
                             tower_state(load_state_dict(video_tower_path)), device, wanted)
+    if image_tower_path:
+        state = tower_state(load_state_dict(image_tower_path))
+        # An image encodes at T = 1, which never runs temporal attention:
+        # the module has temporal layers only where the checkpoint does.
+        icfg = dataclasses.replace(
+            cfg.vision, add_time_attn=any(".temporal_attn." in k for k in state))
+        image_tower = _load(lambda: CLIPVisionTower(icfg), state, device, wanted)
     lm = _load(lambda: LlamaForCausalLM(cfg.lm), lm_sd, device, wanted)
     if bridge_sd or bridge_seed is None:
         bridge = _load(lambda: RMTRBridge(cfg.bridge, cfg.lm.hidden_size), bridge_sd,
@@ -241,7 +252,7 @@ def load_pretrained_model(
         from videollamb_torch.models.lm.quant import quantize_llama_params
 
         lm = quantize_llama_params(lm)
-    model = VideoLLaMB(video_tower, bridge, lm)
+    model = VideoLLaMB(video_tower, bridge, lm, image_tower)
 
     tokenizer = None
     if load_tokenizer:

@@ -7,8 +7,8 @@ Linear orientation, so the mapping is mostly prefixes:
   ``VideoLLaMB.lm`` unchanged;
 - bridge: ``model.mm_projector.*`` (or ``mm_projector.*``) loads into
   ``VideoLLaMB.mm_projector`` with the prefix removed;
-- tower: the tower dir's ``vision_model.*`` loads into
-  ``VideoLLaMB.video_tower`` unchanged.
+- towers: a tower dir's ``vision_model.*`` loads into
+  ``VideoLLaMB.video_tower`` (or ``VideoLLaMB.image_tower``) unchanged.
 
 :func:`from_jax_params` turns a JAX parameter tree (numpy leaves, as
 ``videollamb_tpu``'s initialisers and converters produce) into a state dict
@@ -22,9 +22,9 @@ that hold quantised kernels first. LoRA leaves (``{proj}_lora_a`` (L, d_in,
 r) and ``{proj}_lora_b``) become ``<proj>.lora_a`` / ``.lora_b`` of a
 ``LoRALinear`` whose base weight is ``<proj>.base.*``.
 
-:func:`to_jax_params` is the inverse for the LM and the bridge (the leaves
-training updates), so a training step of each package can be compared leaf
-by leaf.
+:func:`to_jax_params` is the inverse for the LM, the bridge (the leaves
+training updates) and a float image tower, so a training step of each
+package can be compared leaf by leaf.
 
 :func:`binding_from_jax` / :func:`binding_to_jax` carry the LanguageBind
 binding tree (``models/binding.py``: per-modality towers, projections and
@@ -236,7 +236,8 @@ def _bridge_to_jax(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
 
 def to_jax_params(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
     """A :class:`VideoLLaMB` state dict (or any part of it) -> the JAX tree of
-    its ``lm`` and ``mm_projector`` entries, numpy leaves (bf16 as f32)."""
+    its ``lm``, ``mm_projector`` and ``image_tower`` entries, numpy leaves
+    (bf16 as f32)."""
     tree: Dict[str, Any] = {}
     lm = {k[3:]: v for k, v in state.items() if k.startswith("lm.")}
     if lm:
@@ -245,15 +246,19 @@ def to_jax_params(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
               if k.startswith("mm_projector.")}
     if bridge:
         tree["mm_projector"] = _bridge_to_jax(bridge)
+    image = {k[len("image_tower."):]: v for k, v in state.items()
+             if k.startswith("image_tower.")}
+    if image:
+        tree["image_tower"] = _tower_to_jax(image)
     return tree
 
 
 def from_jax_params(tree: Mapping[str, Any]) -> State:
-    """JAX parameter tree ({'lm', 'mm_projector', 'video_tower'}, numpy leaves)
-    -> state dict of :class:`videollamb_torch.models.assembly.VideoLLaMB`."""
+    """JAX parameter tree ({'lm', 'mm_projector', 'video_tower', 'image_tower'},
+    numpy leaves) -> state dict of :class:`videollamb_torch.models.assembly.VideoLLaMB`."""
     state: State = {}
     parts = (("lm", _lm_from_jax), ("mm_projector", _bridge_from_jax),
-             ("video_tower", _tower_from_jax))
+             ("video_tower", _tower_from_jax), ("image_tower", _tower_from_jax))
     for key, fn in parts:
         if key in tree:
             state.update({f"{key}.{k}": v for k, v in fn(tree[key]).items()})

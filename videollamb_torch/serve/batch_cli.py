@@ -7,6 +7,7 @@ Port of ``videollamb_tpu/serve/batch_cli.py``:
         --requests in.jsonl --output out.jsonl --paged --quantize-kv --num-slots 8
 
 Each input line: {"id": ..., "prompt": ..., "video": <path, optional>,
+"image": <path, optional>, "audio": <WAV path, optional>,
 "max_new_tokens": ..., "temperature": ...}, optionally with "system",
 "system_suffix", "history" ([[user, assistant], ...]) or "raw" (a text-only
 prompt tokenized verbatim), and the request fields of the JAX package's CLI:
@@ -19,17 +20,20 @@ prompt tokenized verbatim), and the request fields of the JAX package's CLI:
   "min_tokens", "top_k";
 - "logprobs": true and "top_logprobs": N;
 - "adapter": the name of a multi-LoRA adapter of the engine;
-- "shared_prefix": true (paged engine, rows with a video): the system,
-  history and video become an automatically cached prefix and only the
+- "shared_prefix": true (paged engine, rows with media): the system,
+  history and media become an automatically cached prefix and only the
   question is prefilled per request (``--prefix-cache-size`` prefixes kept).
+
+A row naming two or three media becomes one mixed-modality request whose
+k-th prompt tag binds block k (reference multi-X request assembly,
+llava/eval/model_videoqa_act.py:117-120); an audio row's WAV becomes a
+log-mel image that rides the image path.
 
 Each output line: {"id": ..., "text": ..., "tokens": N}, with
 "token_logprobs" (and "top_logprobs": [[[id, logprob], ...], ...]) on rows
 that asked for logprobs, and "error" on rows the engine dropped. It runs on
 the card unless ``--device cpu`` is given; ``--device-preprocess`` resizes
-and normalises the frames there too (``data/device_preprocess.py``). Image
-and audio rows are refused with an error that names them (ROADMAP.md
-section A, item 7).
+and normalises the frames there too (``data/device_preprocess.py``).
 """
 
 from __future__ import annotations
@@ -38,14 +42,6 @@ import argparse
 import json
 import sys
 from typing import Any, Dict, List
-
-# Row fields of the JAX package's batch CLI that the port does not serve yet.
-UNPORTED_FIELDS = {"image": "image rows", "audio": "audio rows"}
-
-
-class UnportedRow(ValueError):
-    """A row asks for what the port does not serve yet (image and audio
-    rows); the HTTP server answers it with a 400."""
 
 
 def _sampling_controls(row: Dict[str, Any]) -> Dict[str, Any]:
@@ -96,9 +92,8 @@ def build_requests(lines: List[Dict[str, Any]], chat) -> List[Any]:
     import torch
 
     from videollamb_torch.constants import DEFAULT_X_TOKEN
-    from videollamb_torch.data.video_reader import load_video
+    from videollamb_torch.data.media import load_media_blocks
     from videollamb_torch.models.assembly import MultimodalBatch
-    from videollamb_torch.serve.chat import video_batch
     from videollamb_torch.serve.server import Request
 
     def text_batch(ids_list):
@@ -109,10 +104,9 @@ def build_requests(lines: List[Dict[str, Any]], chat) -> List[Any]:
         mask[0, :len(ids_list)] = 1
         return ids, mask
 
-    def batch_of(ids, mask, videos=None):
+    def batch_of(ids, mask, **media):
         return MultimodalBatch(input_ids=torch.from_numpy(ids).to(chat.device),
-                               attention_mask=torch.from_numpy(mask).to(chat.device),
-                               videos=videos)
+                               attention_mask=torch.from_numpy(mask).to(chat.device), **media)
 
     def request(row, batch, **kw):
         return Request(
@@ -123,21 +117,18 @@ def build_requests(lines: List[Dict[str, Any]], chat) -> List[Any]:
 
     reqs = []
     for row in lines:
-        for key, what in UNPORTED_FIELDS.items():
-            if row.get(key):
-                raise UnportedRow(f"request {row.get('id')!r}: {key!r} ({what}) is not "
-                                  "supported by the PyTorch port yet (ROADMAP.md section A, "
-                                  "item 7)")
         if row.get("raw"):
-            if row.get("video"):
+            if any(row.get(k) for k in ("video", "image", "audio")):
                 raise ValueError("'raw' rows are text-only (no template to place media tags in)")
             ids_list = chat.tokenizer(row["prompt"]).input_ids
             reqs.append(request(row, batch_of(*text_batch(ids_list))))
             continue
-        videos = None
-        if row.get("video"):
-            frames = chat.processors["VIDEO"](load_video(row["video"], fps=1.0, max_frames=512))
-            videos = video_batch(frames, chat.device, chat.dtype)
+        # Every medium the row names, in (video, image, audio) order, on the
+        # model's device in its dtype.
+        media = [(m, torch.as_tensor(px).to(chat.device, chat.dtype))
+                 for m, px in load_media_blocks(
+                     {"VIDEO": row.get("video"), "IMAGE": row.get("image"),
+                      "AUDIO": row.get("audio")}, chat.processors, strict=True)]
         chat.reset()
         if row.get("system") is not None:
             chat.conv.system = row["system"]
@@ -145,29 +136,46 @@ def build_requests(lines: List[Dict[str, Any]], chat) -> List[Any]:
             chat.conv.system = (chat.conv.system or "") + row["system_suffix"]
         history = row.get("history") or []
         question = row["prompt"]
+        # One tag per medium not already placed in the prompt or a prior turn.
         seen = question + "".join(u + (a or "") for u, a in history)
-        if videos is not None and DEFAULT_X_TOKEN["VIDEO"] not in seen:
-            question = DEFAULT_X_TOKEN["VIDEO"] + "\n" + question
+        for modality, _ in reversed(media):
+            if DEFAULT_X_TOKEN[modality] not in seen:
+                question = DEFAULT_X_TOKEN[modality] + "\n" + question
         for user_msg, assistant_msg in history:
             chat.conv.append_message(chat.conv.roles[0], user_msg)
             chat.conv.append_message(chat.conv.roles[1], assistant_msg)
         chat.conv.append_message(chat.conv.roles[0], question)
         chat.conv.append_message(chat.conv.roles[1], None)
-        ids, mask = chat._prepare_ids(chat.conv.get_prompt(),
-                                      "VIDEO" if videos is not None else "IMAGE")
+        fields: Dict[str, Any] = {}
+        if len(media) >= 2:
+            ids, mask, tag_order = chat._prepare_multi_ids(chat.conv.get_prompt())
+            by_mod = dict(media)
+            if sorted(tag_order) != sorted(by_mod):
+                raise ValueError(
+                    f"request {row.get('id')!r}: prompt tags {tag_order} do not match the "
+                    f"attached media {sorted(by_mod)}: remove stray <image>/<video>/<audio> "
+                    "tags or attach the file")
+            fields["blocks"] = tuple((m, by_mod[m]) for m in tag_order)
+        else:
+            modality = media[0][0] if media else None
+            ids, mask = chat._prepare_ids(chat.conv.get_prompt(), modality or "IMAGE")
+            if modality == "VIDEO":
+                fields["videos"] = media[0][1][None]
+            elif modality in ("IMAGE", "AUDIO"):
+                fields["images"] = media[0][1][None]
         if not row.get("shared_prefix"):
-            reqs.append(request(row, batch_of(ids, mask, videos)))
+            reqs.append(request(row, batch_of(ids, mask, **fields)))
             continue
         # Automatic prefix caching (paged engine): the token ids split AFTER
-        # the last media sentinel. System, history and video become the
+        # the last media sentinel. System, history and media become the
         # cached prefix, the question the suffix; splitting the ids (not the
         # prompt string) keeps the prefix's KV independent of the suffix.
-        if videos is None:
+        if not media:
             raise ValueError(f"request {row.get('id')!r}: 'shared_prefix' needs attached media "
                              "(the shared part is system + media)")
         valid = int(mask.sum())
         p = int(np.nonzero(ids[0, :valid] < 0)[0][-1]) + 1
-        prefix = batch_of(ids[:, :p], np.ones((1, p), np.int64), videos)
+        prefix = batch_of(ids[:, :p], np.ones((1, p), np.int64), **fields)
         reqs.append(request(row, batch_of(*text_batch(ids[0, p:valid].tolist())),
                             prefix_batch=prefix))
     return reqs

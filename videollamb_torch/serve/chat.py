@@ -3,12 +3,13 @@
 Port of ``Chat.generate_text`` and ``Chat.ask_about_video`` of
 ``videollamb_tpu/serve/chat.py`` (reference llava/serve/cli.py:25-111):
 conversation template -> ``tokenizer_x_token`` -> multimodal generate ->
-stop-string trim, of ``Chat.stream_text`` (the gradio demo's per-token
-stream) and of ``Chat.generate_speculative`` (prompt-lookup or
-draft-model speculation, greedy-exact). Text lengths are padded to bucket
+stop-string trim, for a video or an image, of ``Chat.stream_text`` (the
+gradio demo's per-token stream), of ``Chat.generate_speculative``
+(prompt-lookup or draft-model speculation, greedy-exact) and of
+``Chat.ask_mixed`` (video, image and audio blocks in one prompt, one
+sentinel per tag in prompt order). Text lengths are padded to bucket
 multiples, as in the JAX package. :class:`KVChatSession` ports the
-multi-turn chat with KV reuse (``--kv-reuse``); mixed-modality turns are not
-ported yet.
+multi-turn chat with KV reuse (``--kv-reuse``).
 """
 
 from __future__ import annotations
@@ -21,19 +22,23 @@ import torch
 from videollamb_torch.config import ModelConfig
 from videollamb_torch.constants import DEFAULT_X_TOKEN, X_TOKEN_INDEX
 from videollamb_torch.conversation import SeparatorStyle, conv_templates
-from videollamb_torch.models.assembly import MultimodalBatch, VideoLLaMB
-from videollamb_torch.mm_utils import KeywordStopper, tokenizer_x_token
-from videollamb_torch.models.engine import generate
+from videollamb_torch.models.assembly import (
+    MultimodalBatch,
+    VideoLLaMB,
+    prepare_multimodal_embeds,
+)
+from videollamb_torch.mm_utils import KeywordStopper, tokenizer_multi_x_token, tokenizer_x_token
+from videollamb_torch.models.engine import generate, generate_spliced
 
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
-def video_batch(frames, device, dtype) -> torch.Tensor:
-    """A processed (T, C, H, W) clip, a numpy array or a tensor (the device
-    processor's), as a (1, T, C, H, W) batch on ``device``."""
-    return torch.as_tensor(frames)[None].to(device, dtype)
+def media_batch(pixels, device, dtype) -> torch.Tensor:
+    """A processed (T, C, H, W) clip or (C, H, W) image, a numpy array or a
+    tensor (the device processor's), as a batch of one on ``device``."""
+    return torch.as_tensor(pixels)[None].to(device, dtype)
 
 
 class Chat:
@@ -63,9 +68,7 @@ class Chat:
     def dtype(self) -> torch.dtype:
         return next(self.model.lm.parameters()).dtype
 
-    def _prepare_ids(self, prompt: str, modality: str):
-        ids = tokenizer_x_token(prompt, self.tokenizer, X_TOKEN_INDEX[modality],
-                                return_tensors="np")
+    def _padded(self, ids):
         t = _round_up(len(ids), self.text_bucket)
         out = np.zeros((1, t), np.int64)
         mask = np.zeros((1, t), np.int64)
@@ -73,31 +76,49 @@ class Chat:
         mask[0, : len(ids)] = 1
         return out, mask
 
-    def generate_text(self, prompt: str, *, videos: Optional[np.ndarray] = None,
-                      max_new_tokens: int = 512, temperature: float = 0.2,
-                      do_sample: bool = True, seed: int = 0) -> str:
-        """One answer to ``prompt``; ``videos`` is a processed (T, C, H, W) clip."""
-        ids, mask = self._prepare_ids(prompt, "VIDEO")
+    def _prepare_ids(self, prompt: str, modality: str):
+        return self._padded(tokenizer_x_token(prompt, self.tokenizer, X_TOKEN_INDEX[modality],
+                                              return_tensors="np"))
+
+    def _prepare_multi_ids(self, prompt: str):
+        """Mixed-modality prompt -> (ids, mask, modalities): every
+        <image> / <video> / <audio> tag becomes its own sentinel, in prompt
+        order (``mm_utils.tokenizer_multi_x_token``)."""
+        ids, modalities = tokenizer_multi_x_token(prompt, self.tokenizer, return_tensors="np")
+        return (*self._padded(ids), modalities)
+
+    def _batch(self, prompt: str, videos, images) -> MultimodalBatch:
+        """The B = 1 batch of a prompt with a processed (T, C, H, W) clip or a
+        (C, H, W) image; the prompt's tag is <video> when a clip is given."""
+        ids, mask = self._prepare_ids(prompt, "VIDEO" if videos is not None else "IMAGE")
         dev = self.device
-        batch = MultimodalBatch(
+        return MultimodalBatch(
             input_ids=torch.from_numpy(ids).to(dev),
             attention_mask=torch.from_numpy(mask).to(dev),
-            videos=(video_batch(videos, dev, self.dtype)
-                    if videos is not None else None))
-        stopper = KeywordStopper([self.stop_str()], self.tokenizer)
-        eos = int(self.tokenizer.eos_token_id or 2)
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        result = generate(
-            self.model, self.cfg, batch, gen, max_new_tokens=max_new_tokens,
-            do_sample=do_sample, temperature=temperature, eos_token_id=eos,
-            pad_token_id=int(self.tokenizer.pad_token_id or 0),
-            max_seq_len=self.cfg.max_length + _round_up(max_new_tokens, 64))
+            videos=media_batch(videos, dev, self.dtype) if videos is not None else None,
+            images=media_batch(images, dev, self.dtype) if images is not None else None)
+
+    def _answer(self, result, eos: int) -> str:
         n = int(result.lengths[0])
         tokens = result.tokens[0, :n].tolist()
         if tokens and tokens[-1] == eos:
             tokens = tokens[:-1]
         text = self.tokenizer.decode(tokens, skip_special_tokens=True).strip()
-        return stopper.trim(text)
+        return KeywordStopper([self.stop_str()], self.tokenizer).trim(text)
+
+    def generate_text(self, prompt: str, *, videos: Optional[np.ndarray] = None,
+                      images: Optional[np.ndarray] = None, max_new_tokens: int = 512,
+                      temperature: float = 0.2, do_sample: bool = True, seed: int = 0) -> str:
+        """One answer to ``prompt``; ``videos`` is a processed (T, C, H, W)
+        clip, ``images`` a processed (C, H, W) image."""
+        eos = int(self.tokenizer.eos_token_id or 2)
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        result = generate(
+            self.model, self.cfg, self._batch(prompt, videos, images), gen,
+            max_new_tokens=max_new_tokens, do_sample=do_sample, temperature=temperature,
+            eos_token_id=eos, pad_token_id=int(self.tokenizer.pad_token_id or 0),
+            max_seq_len=self.cfg.max_length + _round_up(max_new_tokens, 64))
+        return self._answer(result, eos)
 
     @torch.no_grad()
     def stream_text(self, prompt: str, *, videos=None, images=None,
@@ -106,9 +127,7 @@ class Chat:
         """Incremental generation: yields the partial decoded text after every
         token (the reference's TextIteratorStreamer path, gradio_demo.py:33-110).
         The same prefill and cached decode steps as ``generate_text``, with the
-        loop on the host so a UI can render tokens as they arrive. Image
-        prompts wait for the image path (ROADMAP.md section A, item 7)."""
-        from videollamb_torch.models.assembly import prepare_multimodal_embeds
+        loop on the host so a UI can render tokens as they arrive."""
         from videollamb_torch.models.engine import sample_token
         from videollamb_torch.models.lm.llama import (
             embed_tokens,
@@ -117,16 +136,9 @@ class Chat:
             llama_prefill,
         )
 
-        if images is not None:
-            raise NotImplementedError("image prompts are not ported yet "
-                                      "(ROADMAP.md section A, item 7)")
-        ids, mask = self._prepare_ids(prompt, "VIDEO")
         dev = self.device
-        batch = MultimodalBatch(
-            input_ids=torch.from_numpy(ids).to(dev),
-            attention_mask=torch.from_numpy(mask).to(dev),
-            videos=video_batch(videos, dev, self.dtype) if videos is not None else None)
-        spliced = prepare_multimodal_embeds(self.model, self.cfg, batch)
+        spliced = prepare_multimodal_embeds(self.model, self.cfg,
+                                            self._batch(prompt, videos, images))
         cache = init_kv_cache(self.cfg.lm, 1, self.cfg.max_length + _round_up(max_new_tokens, 64),
                               dtype=self.dtype, device=dev)
         lm = self.model.lm
@@ -154,6 +166,7 @@ class Chat:
 
     @torch.no_grad()
     def generate_speculative(self, prompt: str, *, videos: Optional[np.ndarray] = None,
+                             images: Optional[np.ndarray] = None,
                              max_new_tokens: int = 512, ngram: int = 3, k: int = 8,
                              draft_params=None, draft_cfg=None):
         """Greedy generation with speculative decoding (``models/speculative.py``):
@@ -162,21 +175,16 @@ class Chat:
         or an LM of the same hidden size, for instance an int8 copy of this
         one) the draft proposes and shares this model's spliced embeddings.
         Returns (text, stats)."""
-        from videollamb_torch.models.assembly import prepare_multimodal_embeds
         from videollamb_torch.models.lm.llama import init_kv_cache, llama_prefill
         from videollamb_torch.models.speculative import (
             speculative_decode,
             speculative_decode_draft,
         )
 
-        ids, mask = self._prepare_ids(prompt, "VIDEO")
         dev = self.device
-        batch = MultimodalBatch(
-            input_ids=torch.from_numpy(ids).to(dev),
-            attention_mask=torch.from_numpy(mask).to(dev),
-            videos=(video_batch(videos, dev, self.dtype)
-                    if videos is not None else None))
-        spliced = prepare_multimodal_embeds(self.model, self.cfg, batch)
+        modality = "VIDEO" if videos is not None else "IMAGE"
+        spliced = prepare_multimodal_embeds(self.model, self.cfg,
+                                            self._batch(prompt, videos, images))
         max_len = self.cfg.max_length + _round_up(max_new_tokens, 64)
         cache = init_kv_cache(self.cfg.lm, 1, max_len, dtype=self.dtype, device=dev)
         logits, cache = llama_prefill(self.model.lm, self.cfg.lm, spliced.embeds,
@@ -195,7 +203,7 @@ class Chat:
                 self.model, self.cfg.lm, cache, logits, draft_params=d_lm, draft_cfg=d_cfg,
                 draft_cache=d_cache, **common)
         else:
-            prompt_tokens = tokenizer_x_token(prompt, self.tokenizer, X_TOKEN_INDEX["VIDEO"],
+            prompt_tokens = tokenizer_x_token(prompt, self.tokenizer, X_TOKEN_INDEX[modality],
                                               return_tensors="np")
             ctx = [int(t) for t in prompt_tokens if int(t) >= 0]
             toks, _, _, stats = speculative_decode(
@@ -223,6 +231,51 @@ class Chat:
                 draft_cfg=draft_cfg)
         else:
             answer = self.generate_text(prompt, videos=frames, **gen_kwargs)
+        self.conv.messages[-1][1] = answer
+        return answer
+
+    @torch.no_grad()
+    def ask_mixed(self, question: str, blocks, first_turn: bool = True,
+                  max_new_tokens: int = 512, temperature: float = 0.0,
+                  do_sample: bool = False, seed: int = 0) -> str:
+        """A mixed-modality turn. ``blocks`` is an ordered list of
+        ("VIDEO"|"IMAGE"|"AUDIO", processed pixels): a video (T, C, H, W), an
+        image or an audio mel image (C, H, W). On the first turn one tag per
+        block is prepended to the question, beyond those it already places;
+        the k-th tag binds the k-th block of its modality through the
+        K-block splice (``models/assembly.encode_mixed``). Reference protocol:
+        llava/eval/model_videoqa_act.py:117-120's (X, X_modalities)."""
+        if first_turn:
+            need: Dict[str, int] = {}
+            for modality, _ in blocks:
+                need[modality] = need.get(modality, 0) + 1
+            for modality, _ in reversed(blocks):
+                if question.count(DEFAULT_X_TOKEN[modality]) < need[modality]:
+                    question = DEFAULT_X_TOKEN[modality] + "\n" + question
+        self.conv.append_message(self.conv.roles[0], question)
+        self.conv.append_message(self.conv.roles[1], None)
+        ids, mask, tag_order = self._prepare_multi_ids(self.conv.get_prompt())
+        if sorted(tag_order) != sorted(m for m, _ in blocks):
+            raise ValueError(
+                f"prompt tags {tag_order} do not match the supplied blocks "
+                f"{[m for m, _ in blocks]}: every <image>/<video>/<audio> tag needs "
+                "exactly one block of that modality")
+        by_mod: Dict[str, list] = {}
+        for modality, px in blocks:
+            by_mod.setdefault(modality, []).append(px)
+        dev = self.device
+        ordered = tuple((m, torch.as_tensor(by_mod[m].pop(0)).to(dev, self.dtype))
+                        for m in tag_order)
+        batch = MultimodalBatch(input_ids=torch.from_numpy(ids).to(dev),
+                                attention_mask=torch.from_numpy(mask).to(dev), blocks=ordered)
+        eos = int(self.tokenizer.eos_token_id or 2)
+        spliced = prepare_multimodal_embeds(self.model, self.cfg, batch)
+        result = generate_spliced(
+            self.model, self.cfg, spliced, torch.Generator(device=dev).manual_seed(seed),
+            max_new_tokens=max_new_tokens, do_sample=do_sample, temperature=temperature,
+            eos_token_id=eos, pad_token_id=int(self.tokenizer.pad_token_id or 0),
+            max_seq_len=self.cfg.max_length + _round_up(max_new_tokens, 64))
+        answer = self._answer(result, eos)
         self.conv.messages[-1][1] = answer
         return answer
 
@@ -267,14 +320,13 @@ class KVChatSession:
         return arr.to(dev), mask.to(dev)
 
     def _full_prefill(self, ids: list) -> None:
-        from videollamb_torch.models.assembly import prepare_multimodal_embeds
         from videollamb_torch.models.lm.llama import init_kv_cache, llama_prefill
 
         chat = self.chat
         arr, mask = self._padded(ids)
         batch = MultimodalBatch(
             input_ids=arr, attention_mask=mask,
-            videos=video_batch(self.frames, chat.device, chat.dtype))
+            videos=media_batch(self.frames, chat.device, chat.dtype))
         spliced = prepare_multimodal_embeds(chat.model, chat.cfg, batch)
         self.cache = init_kv_cache(
             chat.cfg.lm, 1, chat.cfg.max_length + _round_up(self.max_new_tokens, 64),

@@ -1,36 +1,27 @@
 """Offline chat CLI: ``python -m videollamb_torch.serve.cli --model-path ... --video-file ...``.
 
-Port of ``videollamb_tpu/serve/cli.py`` for video questions (reference
-llava/serve/cli.py:25-111): load the model, preprocess one video, then
-answer questions read from stdin until an empty line or EOF. It runs on
-the card unless ``--device cpu`` is given. The options the port does not
-implement yet exit with an error that says so.
+Port of ``videollamb_tpu/serve/cli.py`` (reference llava/serve/cli.py:25-111):
+load the model, preprocess one video (``--video-file``) or image
+(``--image-file``, through the ``--image-tower`` when one is given, else the
+video tower at one frame), then answer questions read from stdin until an
+empty line or EOF. It runs on the card unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
 
 import argparse
-import sys
-
-UNPORTED = {
-    "image_file": "--image-file",
-    "image_tower": "--image-tower",
-}
 
 
 def main(args) -> None:
+    from videollamb_torch.constants import DEFAULT_X_TOKEN
     from videollamb_torch.data.video_reader import load_video
     from videollamb_torch.models.builder import load_pretrained_model, resolve_device
     from videollamb_torch.serve.chat import Chat
 
-    for attr, flag in UNPORTED.items():
-        if getattr(args, attr, None):
-            sys.exit(f"{flag} is not supported by the PyTorch port yet")
-    if not args.video_file:
-        sys.exit("--video-file is required")
     device = resolve_device(args.device)
     tokenizer, model, cfg, processors, _ = load_pretrained_model(
         args.model_path, args.model_base, video_tower_path=args.video_tower,
+        image_tower_path=args.image_tower,
         dtype="float32" if args.fp32 else "bfloat16", device=device,
         device_preprocess=args.device_preprocess)
     conv_mode = "mistral_instruct" if "mistral" in args.model_path.lower() else "llava_v1"
@@ -52,9 +43,15 @@ def main(args) -> None:
 
         speculative = "draft"
         draft_params = quantize_llama_params(copy.deepcopy(model.lm))
-    frames = processors["VIDEO"](load_video(args.video_file, num_frames=args.num_frames))
+    frames = images = None
+    if args.video_file:
+        frames = processors["VIDEO"](load_video(args.video_file, num_frames=args.num_frames))
+    elif args.image_file:
+        from PIL import Image
+
+        images = processors["IMAGE"](Image.open(args.image_file).convert("RGB"))
     session = None
-    if args.kv_reuse and args.temperature == 0:
+    if args.kv_reuse and frames is not None and args.temperature == 0:
         from videollamb_torch.serve.chat import KVChatSession
 
         session = KVChatSession(chat, max_new_tokens=args.max_new_tokens)
@@ -70,12 +67,20 @@ def main(args) -> None:
         print(f"{chat.conv.roles[1]}: ", end="", flush=True)
         if session is not None:
             out = session.ask(inp, frames if first else None)
-        else:
+        elif frames is not None:
             out = chat.ask_about_video(
                 inp, frames, first_turn=first, temperature=args.temperature,
                 max_new_tokens=args.max_new_tokens, do_sample=args.temperature > 0,
                 speculative=speculative if args.temperature == 0 else None,
                 draft_params=draft_params)
+        else:
+            q = (DEFAULT_X_TOKEN["IMAGE"] + "\n" + inp) if first else inp
+            chat.conv.append_message(chat.conv.roles[0], q)
+            chat.conv.append_message(chat.conv.roles[1], None)
+            out = chat.generate_text(
+                chat.conv.get_prompt(), images=images, temperature=args.temperature,
+                max_new_tokens=args.max_new_tokens, do_sample=args.temperature > 0)
+            chat.conv.messages[-1][1] = out
         print(out)
         first = False
         if args.debug:
@@ -87,8 +92,7 @@ def parse_args(argv=None):
     parser.add_argument("--model-path", type=str, required=True)
     parser.add_argument("--model-base", type=str, default=None)
     parser.add_argument("--video-tower", type=str, default=None)
-    parser.add_argument("--image-tower", type=str, default=None,
-                        help="not supported by the port yet")
+    parser.add_argument("--image-tower", type=str, default=None)
     parser.add_argument("--video-file", type=str, default=None)
     parser.add_argument("--image-file", type=str, default=None)
     parser.add_argument("--num-frames", type=int, default=8)

@@ -2,8 +2,7 @@
 gradio_utils.py:51-120).
 
 Port of ``videollamb_tpu/serve/gradio_demo.py``; it runs on the card unless
-``--device cpu`` is given. Image chat waits for the image path (ROADMAP.md
-section A, item 7): an uploaded image is answered with a status saying so.
+``--device cpu`` is given.
 
 Feature parity with the reference demo: image AND video inputs, a chatbot
 with conversation state, streamer-based incremental output
@@ -21,9 +20,8 @@ import argparse
 TITLE = "VideoLLaMB"
 DESCRIPTION = (
     "Long-video understanding with the recurrent Memory Bridge. Upload a "
-    "video and chat about it."
+    "video or image and chat about it."
 )
-IMAGE_UNPORTED = "Image chat is not ported yet (ROADMAP.md section A, item 7)."
 
 
 def build_demo(chat):
@@ -33,6 +31,8 @@ def build_demo(chat):
         raise ImportError(
             "gradio is required for the web demo: pip install gradio"
         ) from e
+
+    import numpy as np
 
     from videollamb_torch.constants import DEFAULT_X_TOKEN
     from videollamb_torch.data.video_reader import load_video
@@ -46,13 +46,15 @@ def build_demo(chat):
             return (chat.processors["VIDEO"](raw), None,
                     f"Loaded {raw.shape[0]} video frames.", True)
         if image_file:
-            return None, None, IMAGE_UNPORTED, True
-        return None, None, "Upload a video first.", True
+            img = (np.asarray(image_file.convert("RGB")) if hasattr(image_file, "convert")
+                   else np.asarray(image_file))
+            return (None, chat.processors["IMAGE"](img), "Loaded image.", True)
+        return None, None, "Upload a video or an image first.", True
 
     def stream_reply(message, history, media, temperature, top_p, max_tokens):
         frames, image, first = media["frames"], media["image"], media["first"]
         if frames is None and image is None:
-            yield history + [[message, "Please upload a video first."]]
+            yield history + [[message, "Please upload a video or image first."]]
             return
         token = DEFAULT_X_TOKEN["VIDEO" if frames is not None else "IMAGE"]
         question = (token + "\n" + message) if first else message

@@ -21,8 +21,8 @@ different connections decode together in one slot batch.
       ("top_logprobs": N adds the top-N alternatives, N <= 20); the
       engines extract them on-device alongside the token sync.
       -> {"id": ..., "text": ..., "tokens": N}
-      "image" / "audio" rows are refused with HTTP 400: the port serves
-      video and text rows (ROADMAP.md section A, item 7).
+      "image": <path> and "audio": <WAV path> attach an image or an audio
+      clip; a row naming several media is one mixed-modality request.
       With "stream": true the response is text/event-stream: one
       ``data: {"token": <piece>}`` event per committed token and a final
       ``data: {"done": true, "text": <full text>}`` (plus
@@ -84,7 +84,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from videollamb_torch.serve.batch_cli import UnportedRow, build_requests
+from videollamb_torch.serve.batch_cli import build_requests
 
 
 class RequestRejected(Exception):
@@ -299,10 +299,7 @@ class Server:
         chat = Chat(self.chat.tokenizer, self.chat.model, self.chat.cfg,
                     self.chat.processors, conv_mode=self.chat.conv_mode,
                     text_bucket=self.chat.text_bucket)
-        try:
-            req = build_requests([row], chat)[0]
-        except UnportedRow as e:
-            raise RequestRejected(f"rejected: {e}") from e
+        req = build_requests([row], chat)[0]
         if req.uid is None:
             req.uid = self._uid()
         req.top_p = float(row.get("top_p", 1.0))

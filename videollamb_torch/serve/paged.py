@@ -70,16 +70,27 @@ from videollamb_torch.serve.server import Request, ServingEngine, _shared_consum
 
 def batch_signature(batch) -> bytes:
     """Content hash of a MultimodalBatch, the automatic prefix cache key:
-    splicing is deterministic, so equal token ids, masks and video bytes mean
-    equal prefill KV."""
+    splicing is deterministic, so equal token ids, masks and media bytes
+    (videos, images and every mixed block with its modality) mean equal
+    prefill KV."""
     h = hashlib.sha256()
-    for t in (batch.input_ids, batch.attention_mask, batch.videos):
+
+    def put(t) -> None:
         if t is None:
             h.update(b"\x00")
-            continue
+            return
         t = t.detach().contiguous().cpu()
         h.update(f"{t.dtype}{tuple(t.shape)}".encode())
         h.update(t.view(torch.uint8).numpy().tobytes())
+
+    for t in (batch.input_ids, batch.attention_mask, batch.videos, batch.images):
+        put(t)
+    if batch.blocks is None:
+        h.update(b"\x00")
+    else:
+        for modality, pixels in batch.blocks:
+            h.update(modality.encode())
+            put(pixels)
     return h.digest()
 
 

@@ -29,8 +29,10 @@ and take free slots.
 :class:`ServingEngine` is also the base class of the paged engine
 (``serve/paged.py``), which adds prefix caching. Sampling draws from a
 ``torch.Generator``, so sampled tokens differ from the JAX package's
-(``jax.random``); greedy tokens are the same. Not ported yet: image, audio
-and mixed-modality rows.
+(``jax.random``); greedy tokens are the same. Image, audio and mixed rows
+splice at admission like video rows; the host-side prompt-length hints that
+spare JAX's engines one sync there (``Request.prompt_len``,
+``spliced_prompt_len_host``) are not ported (ROADMAP.md section A, item 7).
 """
 
 from __future__ import annotations

@@ -10,7 +10,9 @@
    K1 and K2 also at the encode path's 256 frames; K8-K11 at that path's
    shapes (K11 also causal at (4, 32, 512, 128)); K3 also through
    ``multihead_attention`` on the (B, S, H, Dh) projections the prefill
-   hands it, beside SDPA on the same views; K6 also with the paged step's
+   hands it, beside SDPA on the same views, and with Mistral's sliding
+   window at (1, 32, 4096, 128), window 1024, and (1, 32, 2048, 128),
+   window 4096, beside SDPA with the band as its mask; K6 also with the paged step's
    bf16 query, at the lengths where its 256-token key splits meet, twice
    each, with its host enqueue and CUDA-graph replay times; K4 with its host
    enqueue and CUDA-graph replay times, also at one slot of 1191 tokens, and
@@ -87,6 +89,22 @@
    item are printed; K1-K3 must launch. K3 is then held against its plain
    version at the likelihood forward's own shape (its key lengths come from
    this run).
+3d. The model's breadth (``breadth_phase``), after the eval harness, on
+   the same model and tower: each projector kind of the factory at
+   VideoLLaMB-7B widths (a seeded bf16 projector, tower 1024 -> LM 4096:
+   linear, mlp2x_gelu, transformer, mlp_transformer, rmt_transformer,
+   rmt_r_transformer, qformer2_32, retention) answers one 8-frame request of
+   8 tokens through ``generate`` (spliced and visual token counts, K1-K3
+   launches); llama3 RoPE scaling (Llama-3.1's config) answers one; an
+   mlp2x_gelu stage-1 train step (finite loss, only the projector moves).
+   Depth cuts (2 layers at full width, 1024-token prompt, 4 greedy steps)
+   of the llama3-scaled LM and of Mistral-7B with a window of 256 (the band
+   bites; K3 computes it on the card) against the host in f32. Then
+   Mistral-7B (window 4096) at full depth under the tower and the RMT-R
+   bridge, built beside the resident Llama: the four offline requests
+   (16 tokens) through ``generate``, a paged run on int8 pages (K4, K5) and one on bf16 pages
+   (K6), 40 pages of 64 a slot (inside the window); tok/s and the peak
+   allocated memory.
 4. Speculative decoding at full depth in bf16: ``Chat.generate_speculative``
    with prompt lookup and with an int8 copy of the LM as the draft, beside
    plain greedy (accepted lengths, rounds, rates, and where the chains part,
@@ -537,6 +555,33 @@ def kernel_phase(g: torch.Generator, system_len: int) -> dict:
         library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)),
         bound=bound(4 * q.numel() * 2 + s_, 4 * 32 * 128 * s_ * (s_ + 1) // 2, "bf16")))
     del q, k, v, qt, kt, vt
+    # Mistral's sliding window through multihead_attention on the (1, S, 32,
+    # 128) projections, every key valid: a band of 1024 at 4096 tokens, and a
+    # window of 4096 at 2048 tokens, which does not bite (today's kernel).
+    # SDPA with the band as a bool mask beside it; the bound counts the
+    # band's own pairs.
+    for s_, window in ((4096, 1024), (2048, 4096)):
+        q, k, v = (randn(1, s_, 32, 128) for _ in range(3))
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        pos = torch.arange(s_, device=dev)
+        band = (pos[:, None] >= pos[None]) & (pos[:, None] - pos[None] < window)
+        errs.append(compare(f"flash through multihead_attention (1, {s_}, 32, 128), window "
+                            f"{window}", multihead_attention(q, k, v, causal=True, window=window),
+                            flash_attention_reference(qt, kt, vt, causal=True, window=window)
+                            .transpose(1, 2)))
+        pairs = sum(min(i + 1, window) for i in range(s_))
+        results["flash_attention"]["shapes"].append(dict(
+            shape=[1, s_, 32, 128], window=window, layout="(B, S, H, Dh) projections through "
+            "multihead_attention; Mistral's sliding window, all keys valid",
+            max_abs_err=errs[-1],
+            ms=cuda_ms(lambda: multihead_attention(q, k, v, causal=True, window=window)),
+            plain_ms=cuda_ms(lambda: flash_attention_reference(qt, kt, vt, causal=True,
+                                                               window=window), iters=5),
+            library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                                      attn_mask=band)),
+            bound=bound(4 * q.numel() * 2, 4 * 32 * 128 * pairs, "bf16")))
+        del q, k, v, qt, kt, vt, band
+    torch.cuda.empty_cache()
     results["flash_attention"]["max_abs_err"] = max(errs)
 
     # K4-K6: one decode step's attention and install at 7B, 8 slots, ragged
@@ -2547,6 +2592,259 @@ def eval_phase(model, cfg, g: torch.Generator, seed: int) -> dict:
     return dict(timings=timings, **report, launches=launches, k3_likelihood=k3_row)
 
 
+# The breadth phase: the projector kinds of the factory, RoPE scaling, a
+# stage-1 mlp2x_gelu train step and Mistral-7B, on the resident tower.
+BREADTH_PROJECTORS = ["linear", "mlp2x_gelu", "transformer1x", "mlp_transformer1x",
+                      "rmt_transformer1x", "rmt_r_transformer1x", "qformer2_32",
+                      "retention_transformer1x"]
+BREADTH_NEW = 8
+# Llama-3.1's rope_scaling (its config.json).
+LLAMA3_SCALING = dict(rope_type="llama3", factor=8.0, low_freq_factor=1.0,
+                      high_freq_factor=4.0, original_max_position_embeddings=8192)
+# The depth-cut LM checks: 2 layers at full width and a 1024-token prompt, so
+# that a window of 256 bites on three quarters of the rows; then greedy steps.
+CUT_LAYERS, CUT_PROMPT, CUT_WINDOW, CUT_STEPS = 2, 1024, 256, 4
+K123 = ("spatial_attention", "temporal_attention", "flash_attention")
+
+
+def lm_reference(lm_cfg, label: str, seed: int) -> dict:
+    """A depth-cut LM (``CUT_LAYERS`` layers of ``lm_cfg``) prefills a
+    ``CUT_PROMPT``-token prompt and takes ``CUT_STEPS`` greedy decode steps on
+    the card (kernels, bf16) and on the host (plain versions, f32) from the
+    same weights, both fed the host's greedy tokens. Every logits row within
+    ``PATH_REL_L2``; the card's greedy token must be the host's wherever the
+    host's top two lie further apart than the card's largest logit error."""
+    from videollamb_torch.models.lm.llama import (
+        embed_tokens,
+        init_kv_cache,
+        init_llama_params,
+        llama_decode_step,
+        llama_prefill,
+    )
+
+    cfg = dataclasses.replace(lm_cfg, num_hidden_layers=CUT_LAYERS)
+    gpu = init_llama_params(cfg, seed=seed, dtype=torch.bfloat16, device="cuda")
+    cpu = copy.deepcopy(gpu).float().cpu()
+    ids = torch.randint(4, cfg.vocab_size, (1, CUT_PROMPT),
+                        generator=torch.Generator().manual_seed(seed))
+    runs = {}
+    zero_counters()
+    for name, lm, dev, dtype in (("card", gpu, "cuda", torch.bfloat16),
+                                 ("host", cpu, "cpu", torch.float32)):
+        cache = init_kv_cache(cfg, 1, CUT_PROMPT + CUT_STEPS, dtype=dtype, device=dev)
+        logits, cache = llama_prefill(lm, cfg, embed_tokens(lm, ids.to(dev)),
+                                      torch.ones((1, CUT_PROMPT), dtype=torch.long, device=dev),
+                                      cache)
+        runs[name] = dict(lm=lm, dev=dev, cache=cache, logits=[logits[0].float().cpu()])
+    k3 = read_counters()["flash_attention"]
+    for _ in range(CUT_STEPS):
+        tok = int(runs["host"]["logits"][-1].argmax())
+        for r in runs.values():
+            logits, r["cache"] = llama_decode_step(
+                r["lm"], cfg, embed_tokens(r["lm"], torch.tensor([[tok]], device=r["dev"])),
+                r["cache"])
+            r["logits"].append(logits[0].float().cpu())
+    errs, agree, ties = [], 0, 0
+    for c, h in zip(runs["card"]["logits"], runs["host"]["logits"]):
+        if not torch.isfinite(c).all():
+            raise AssertionError(f"{label}: non-finite logits on the card")
+        errs.append(float((c - h).norm() / h.norm()))
+        top2 = h.topk(2).values
+        if int(c.argmax()) == int(h.argmax()):
+            agree += 1
+        elif float(top2[0] - top2[1]) <= float((c - h).abs().max()):
+            ties += 1
+        else:
+            raise AssertionError(f"{label}: the card's greedy token {int(c.argmax())} is not "
+                                 f"the host's {int(h.argmax())}")
+    ok = max(errs) <= PATH_REL_L2 and k3 == CUT_LAYERS
+    print(f"[breadth] depth cut, {label}: prefill of {CUT_PROMPT} + {CUT_STEPS} greedy steps, "
+          f"card bf16 (K3 x {k3}) vs host f32, logits rel_l2 "
+          f"{[f'{e:.3e}' for e in errs]} tol {PATH_REL_L2}, greedy tokens equal "
+          f"{agree}/{len(errs)} (ties within the error: {ties}) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label}: kernel path disagrees with the plain path")
+    del gpu, runs
+    torch.cuda.empty_cache()
+    return dict(rel_l2=errs, greedy_equal=agree, greedy_ties=ties, k3_launches=k3)
+
+
+def breadth_answer(model, cfg, g: torch.Generator, label: str, frames: int = 8) -> dict:
+    """One offline request (40 ids, ``frames`` frames) of ``BREADTH_NEW``
+    greedy tokens through ``generate``; K1-K3 must launch."""
+    from videollamb_torch.models.assembly import prepare_multimodal_embeds
+    from videollamb_torch.models.bridge.builder import bridge_token_count
+    from videollamb_torch.models.engine import generate
+
+    batch = make_batch(cfg, g, [40], frames)
+    spliced = int(prepare_multimodal_embeds(model, cfg, batch).attention_mask.sum())
+    bridge = bridge_token_count(cfg.bridge, 1 + (cfg.vision.image_size // cfg.vision.patch_size)
+                                ** 2, frames)
+    torch.cuda.synchronize()
+    zero_counters()
+    t0 = time.perf_counter()
+    res = generate(model, cfg, batch, max_new_tokens=BREADTH_NEW, do_sample=False,
+                   max_seq_len=cfg.max_length + 64, eos_token_id=-1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in read_counters().items() if k in K123}
+    toks = res.tokens
+    if (toks.shape != (1, BREADTH_NEW) or int(toks.min()) < 0
+            or int(toks.max()) >= cfg.lm.vocab_size):
+        raise AssertionError(f"{label}: bad tokens {toks.tolist()}")
+    if not all(launches.values()):
+        raise AssertionError(f"{label}: a kernel of K1-K3 was never launched: {launches}")
+    print(f"[breadth] {label}: {spliced} spliced tokens, {spliced - 39} of them visual (the "
+          f"projector gives {bridge}), {BREADTH_NEW} tokens in {wall * 1e3:.1f} ms, launches "
+          f"K1 {launches['spatial_attention']} K2 {launches['temporal_attention']} K3 "
+          f"{launches['flash_attention']}, tokens {toks[0].tolist()}")
+    return dict(spliced_tokens=spliced, visual_tokens=spliced - 39, projector_tokens=bridge,
+                wall_s=wall, launches=launches)
+
+
+def projector_train_step(model, cfg, seed: int) -> dict:
+    """LLaVA's stage 1 through the train CLI's step: a new f32 mlp2x_gelu
+    projector over the frozen bf16 7B and tower, two steps on one 8-frame
+    batch (the first update runs at lr(0) = 0, the warm-up's start). The
+    projector keeps every tower token, 8 x 257 = 2056, so the splice buffer
+    is 2304 tokens (``--model_max_length 2304``): at 2048 the labelled
+    answer would be cut off and the loss would be 0. The loss must be finite
+    and positive, the projector must move and nothing else may."""
+    from videollamb_torch.config import BridgeConfig, TrainConfig
+    from videollamb_torch.models.assembly import VideoLLaMB
+    from videollamb_torch.models.bridge.builder import init_bridge_params
+    from videollamb_torch.train.step import (
+        create_optimizer,
+        create_train_state,
+        make_train_step,
+        trainable_mask,
+    )
+
+    bcfg = BridgeConfig.from_projector_type("mlp2x_gelu", hidden_size=cfg.bridge.hidden_size)
+    kcfg = dataclasses.replace(cfg, bridge=bcfg, max_length=2304)
+    m = VideoLLaMB(model.video_tower, init_bridge_params(
+        bcfg, cfg.lm.hidden_size, seed=seed + 72, device="cuda"), model.lm)
+    tcfg = TrainConfig(tune_mode="adapter", learning_rate=TRAIN_LR)
+
+    def frozen_sums():
+        return torch.stack([p.detach().float().sum() for n, p in m.named_parameters()
+                            if not n.startswith("mm_projector.")])
+
+    before = frozen_sums()
+    projector_before = [p.detach().clone() for p in m.mm_projector.parameters()]
+    losses, times = [], []
+    with torch.enable_grad():
+        tx = create_optimizer(tcfg, 1000, m)
+        state = create_train_state(m, tx)
+        step = make_train_step(kcfg, tx, remat=True, attn_impl="chunked",
+                               mask=trainable_mask(tcfg, m))
+        batch = train_batch(kcfg, TrainClips(kcfg, 1, seed + 73, frames=8))
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            losses.append(float(metrics["loss"]))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+    moved = any(not torch.equal(a, b) for a, b in zip(projector_before,
+                                                       m.mm_projector.parameters()))
+    still = torch.equal(before, frozen_sums())
+    trained = sum(p.numel() for p in tx.params)
+    ok = all(math.isfinite(x) and x > 0 for x in losses) and moved and still
+    print(f"[breadth] train mlp2x_gelu (stage 1, {trained / 1e6:.1f} M trained parameters): "
+          f"losses {[round(x, 4) for x in losses]}, steps {[round(t, 1) for t in times]} ms, "
+          f"projector moved {moved}, the rest unchanged {still} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the mlp2x_gelu train step failed its checks")
+    del m, state, tx, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(losses=losses, step_ms=times, trained_params=trained)
+
+
+def breadth_phase(model, cfg, g: torch.Generator, seed: int) -> dict:
+    """The model's breadth on the resident VideoLLaMB-7B and its LanguageBind
+    tower: each projector kind answers one request; llama3 RoPE scaling
+    answers one and is held against the host in a depth cut; a stage-1
+    mlp2x_gelu train step; then Mistral-7B's window in a depth cut (the band
+    bites, K3 computes it), and Mistral-7B at full depth under the RMT-R
+    bridge through ``generate`` and the paged engine (int8, then bf16
+    pages), with the Llama LM still resident beside it."""
+    from videollamb_torch.config import BridgeConfig, LlamaConfig, RopeScaling
+    from videollamb_torch.models.assembly import VideoLLaMB
+    from videollamb_torch.models.bridge.builder import init_bridge_params
+    from videollamb_torch.models.lm.llama import init_llama_params
+
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(counters(), 0)
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] += v
+
+    out = {"projectors": {}}
+    for ptype in BREADTH_PROJECTORS:
+        bcfg = BridgeConfig.from_projector_type(ptype, hidden_size=cfg.bridge.hidden_size)
+        bridge = init_bridge_params(bcfg, cfg.lm.hidden_size, seed=seed + 70,
+                                    dtype=torch.bfloat16, device="cuda")
+        res = breadth_answer(VideoLLaMB(model.video_tower, bridge, model.lm),
+                             dataclasses.replace(cfg, bridge=bcfg), g, f"projector {ptype}")
+        out["projectors"][ptype] = res
+        add(res["launches"])
+        del bridge
+    rcfg = dataclasses.replace(cfg, lm=dataclasses.replace(
+        cfg.lm, rope_scaling=RopeScaling(**LLAMA3_SCALING)))
+    out["rope_llama3"] = breadth_answer(model, rcfg, g, "llama3 rope_scaling")
+    add(out["rope_llama3"]["launches"])
+    out["rope_llama3_reference"] = lm_reference(rcfg.lm, "Llama-7B dims, llama3 rope_scaling",
+                                                seed + 71)
+    out["train_mlp2x_gelu"] = projector_train_step(model, cfg, seed)
+    window = lm_reference(LlamaConfig.mistral_7b(sliding_window=CUT_WINDOW),
+                          f"Mistral-7B dims, window {CUT_WINDOW}", seed + 74)
+    out["mistral_window_reference"] = window
+    add({"flash_attention": window["k3_launches"]
+         + out["rope_llama3_reference"]["k3_launches"]})
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mcfg = dataclasses.replace(cfg, lm=LlamaConfig.mistral_7b())
+    t0 = time.perf_counter()
+    mistral = VideoLLaMB(model.video_tower, model.mm_projector,
+                         init_llama_params(mcfg.lm, seed=seed + 75, dtype=torch.bfloat16,
+                                           device="cuda"))
+    torch.cuda.synchronize()
+    print(f"[breadth] Mistral-7B bf16 (window {mcfg.lm.sliding_window}) built in "
+          f"{time.perf_counter() - t0:.1f} s beside the resident Llama-7B, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    offline = slice_phase(mistral, mcfg, g, new=16, label="Mistral-7B bf16")
+    add(offline["launches"])
+    int8 = serve_run(mistral, mcfg, g, quantize_kv=True, prompt_lens=[24, 60, 40, 52], frames=16,
+                     new=16, k=8, label="Mistral-7B, int8 pages")
+    bf16 = serve_run(mistral, mcfg, g, quantize_kv=False, prompt_lens=[40, 30], frames=16,
+                     new=16, k=8, label="Mistral-7B, bf16 pages")
+    add(int8["launches"])
+    add(bf16["launches"])
+    for name in ("gathered_paged_attention", "paged_fresh_write"):
+        if int8["launches"][name] == 0:
+            raise AssertionError(f"kernel {name} was never launched by Mistral's int8 run")
+    if bf16["launches"]["paged_attention_stats"] == 0:
+        raise AssertionError("kernel paged_attention_stats was never launched by Mistral's "
+                             "bf16 run")
+    peak = torch.cuda.max_memory_allocated()
+    del mistral
+    gc.collect()
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    print(f"[breadth] Mistral-7B peak allocated {peak / 2**30:.2f} GiB; phase launches "
+          f"{total}; {seconds:.1f} s")
+    out.update(mistral_offline=offline["stats"], mistral_paged=[
+        {k: v for k, v in r.items() if k != "launches"} for r in (int8, bf16)],
+        mistral_peak_allocated_gib=peak / 2**30, seconds=seconds, launches=total,
+        k3_windowed_launches=window["k3_launches"])
+    return out
+
+
 def write_peft_adapter(path: str, cfg, seed: int) -> None:
     """A seeded PEFT LoRA directory (r = 8, alpha 16 on q_proj and v_proj of
     every layer; ``adapter_config.json`` and ``adapter_model.bin``). PEFT's
@@ -2650,10 +2948,10 @@ TRAIN_GRAD_REL_L2 = 1e-1
 
 
 class TrainClips:
-    """An in-memory dataset of processed 16-frame clips and their conversation
-    ids, with the interface the Trainer reads."""
+    """An in-memory dataset of processed clips (16 frames unless ``frames``
+    says) and their conversation ids, with the interface the Trainer reads."""
 
-    def __init__(self, cfg, n: int, seed: int):
+    def __init__(self, cfg, n: int, seed: int, frames: int = 16):
         import numpy as np
 
         from videollamb_torch.constants import IGNORE_INDEX, VIDEO_TOKEN_INDEX
@@ -2666,7 +2964,8 @@ class TrainClips:
             ids[2] = VIDEO_TOKEN_INDEX
             labels = np.where(np.arange(TRAIN_TEXT) < TRAIN_TEXT // 2, IGNORE_INDEX, ids)
             self.samples.append({"input_ids": ids, "labels": labels.astype(np.int32),
-                                 "video": rng.normal(size=(16, 3, img, img)).astype(np.float32)})
+                                 "video": rng.normal(size=(frames, 3, img, img))
+                                 .astype(np.float32)})
 
     def __len__(self):
         return len(self.samples)
@@ -3379,6 +3678,7 @@ def main() -> int:
     t0 = time.perf_counter()
     evaluated = eval_phase(model, cfg, g, args.seed)
     print(f"[eval] eval phase took {time.perf_counter() - t0:.1f} s")
+    broad = breadth_phase(model, cfg, g, args.seed)
 
     t0 = time.perf_counter()
     int8_lm = lm_variant(model, "int8").lm
@@ -3430,6 +3730,11 @@ def main() -> int:
             rows[-1]["path_launches"]["http"] = surfaced["launches"]["http"][name]
         if name in ("spatial_attention", "temporal_attention"):
             rows[-1]["path_launches"]["embed"] = surfaced["launches"]["embed"][name]
+        if name in ("spatial_attention", "temporal_attention", "flash_attention",
+                    "gathered_paged_attention", "paged_fresh_write", "paged_attention_stats"):
+            rows[-1]["path_launches"]["breadth"] = broad["launches"][name]
+        if name == "flash_attention":  # launches whose sliding window bit
+            rows[-1]["path_launches"]["breadth_windowed"] = broad["k3_windowed_launches"]
         if "host_ms" in r:
             rows[-1].update(host_enqueue_ms=r["host_ms"], graph_replay_ms=r["device_ms"])
         if "shapes" in r:  # every further main-path shape, beside the first one's numbers
@@ -3442,7 +3747,8 @@ def main() -> int:
                  **({"library_graph_replay_ms": x["library_device_ms"]}
                     if "library_device_ms" in x else {}),
                  **({k: x[k] for k in ("layout", "q_dtype", "lengths", "shared_pages",
-                                       "rewound_slot", "rewind", "slots") if k in x}),
+                                       "rewound_slot", "rewind", "slots", "window")
+                     if k in x}),
                  **({"causal": x["causal"]} if "causal" in x else {})} for x in r["shapes"]]
     print(json.dumps({"requests": sliced["stats"] + served["stats"] + quantized["stats"],
                       "speculative": speculated, "weight_gib": quantized["weight_gib"],
@@ -3454,7 +3760,9 @@ def main() -> int:
                       "surfaces": {k: v for k, v in surfaced.items() if k != "launches"},
                       "eval": {k: v for k, v in evaluated.items()
                                if k not in ("launches", "k3_likelihood")},
-                      "train": {k: v for k, v in trained.items() if k != "launches"}}))
+                      "train": {k: v for k, v in trained.items() if k != "launches"},
+                      "breadth": {k: v for k, v in broad.items()
+                                  if k not in ("launches", "k3_windowed_launches")}}))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

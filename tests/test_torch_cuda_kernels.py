@@ -9,7 +9,7 @@ so it also runs where jax is absent:
 
 Shapes are the main path's: 257 tokens x 16 heads of 64 in the tower, (B,
 32, 2048, 128) in the LM prefill (and the transposed (B, S, H, Dh) views it
-takes there), the paged decode step's pools at 7B (plus small GQA cases up
+takes there; with Mistral's sliding window at (1, 32, 4096, 128)), the paged decode step's pools at 7B (plus small GQA cases up
 to 8 query heads a kv head, K6's split boundaries, and K4's and K6's merge
 counters over repeated calls, lengths past the table's width and CUDA-graph
 replay; page tables whose rows share a prefix's full pages, and K5 writing
@@ -189,6 +189,31 @@ def test_flash_kernel_on_projection_views_matches_plain(dev, b, h, s, dh, kind, 
     assert got.stride() == q.stride() and got.transpose(1, 2).is_contiguous()
     want = flash_attention_reference(q, k, v, mask, causal=causal)
     torch.testing.assert_close(got.float(), want.float(), **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,s,dh,window,kind", [
+    (1, 32, 4096, 128, 1024, None),     # Mistral's band at the breadth phase's shape
+    (1, 32, 2048, 128, 4096, None),     # a window that does not bite: today's kernel
+    (2, 4, 300, 128, 64, "right"),      # band edges on tile edges, padded rows
+    (2, 4, 333, 64, 37, "random"),      # band edges inside tiles, partial masks
+    (2, 2, 300, 64, 100, "left"),       # rows without a valid key: the mean of v
+    (1, 2, 200, 128, 1, "right"),       # each row sees itself only
+])
+def test_flash_kernel_window_matches_plain(dev, b, h, s, dh, window, kind):
+    """K3 with a sliding window (causal): the key loop starts at the band's
+    first tile and the band's edge is masked inside its tiles."""
+    q, k, v = (_randn(dev, b, s, h, dh, seed=60 + i).transpose(1, 2) for i in range(3))
+    mask = None if kind is None else _key_mask(dev, b, s, kind, seed=s)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, mask, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want = flash_attention_reference(q, k, v, mask, causal=True, window=window)
+    torch.testing.assert_close(got.float(), want.float(), **TOL)
+    if window < s:  # the band bites: the unwindowed kernel gives other rows
+        full = flash_attention(q, k, v, mask, causal=True)
+        assert (full.float() - got.float()).abs().max() > 1e-2
 
 
 @pytest.mark.cuda

@@ -342,3 +342,100 @@ def test_from_jax_params_fills_every_parameter(cfg):
     assert set(state) == set(want)
     for k, v in state.items():
         assert v.shape == want[k].shape, k
+
+
+# Projector kinds (tests/test_torch_projector*.py): ModelConfig.tiny with the
+# bridge of one kind, a 1-layer, 8-query Q-Former and dropout off.
+PROJECTOR_KINDS = ["identity", "linear", "mlp", "transformer", "mlp_transformer",
+                   "rmt_transformer", "rmt_r_transformer", "rmt_r_transformer_cap", "qformer",
+                   "spatial_pool", "retention"]
+# The kinds whose tokens feed the LM (the JAX package's
+# test_assembly_all_projectors list).
+LM_PROJECTOR_KINDS = ["linear", "mlp", "transformer", "mlp_transformer", "rmt_transformer",
+                      "rmt_r_transformer", "qformer", "retention"]
+
+
+def projector_config(kind: str) -> ModelConfig:
+    base = ModelConfig.tiny(max_length=128)
+    return dataclasses.replace(base, bridge=dataclasses.replace(
+        base.bridge, kind=kind, qformer_layers=1, qformer_queries=8,
+        hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0))
+
+
+def projector_tree(cfg: ModelConfig, seed: int = 0) -> dict:
+    """The JAX package's seeded ``init_bridge_params`` tree (numpy leaves)."""
+    from videollamb_tpu.models.bridge.builder import init_bridge_params
+
+    return np_tree(init_bridge_params(jax.random.PRNGKey(seed), cfg.bridge, cfg.lm.hidden_size))
+
+
+def port_projector(cfg: ModelConfig, tree: dict):
+    """The port's projector module of ``cfg.bridge.kind`` holding ``tree``."""
+    from videollamb_torch.models.bridge.builder import bridge_module
+    from videollamb_torch.models.convert import from_jax_params
+
+    module = bridge_module(port_config(cfg).bridge, cfg.lm.hidden_size)
+    state = from_jax_params({"mm_projector": tree})
+    module.load_state_dict({k[len("mm_projector."):]: v for k, v in state.items()}, strict=True)
+    return module
+
+
+def projector_models(kind: str, seed: int = 0):
+    """(cfg, JAX params, port model) of the whole tiny model with a ``kind``
+    projector, f32 on the CPU."""
+    from videollamb_tpu.models.lm.llama import init_llama_params
+    from videollamb_tpu.models.vision.clip_vit import init_vision_params
+    from videollamb_torch.models.assembly import VideoLLaMB
+    from videollamb_torch.models.bridge.builder import bridge_module
+    from videollamb_torch.models.convert import from_jax_params
+    from videollamb_torch.models.lm.llama import LlamaForCausalLM
+    from videollamb_torch.models.vision.clip_vit import CLIPVisionTower
+
+    cfg = projector_config(kind)
+    k1, _, k3 = jax.random.split(jax.random.PRNGKey(seed), 3)
+    tree = np_tree({"video_tower": init_vision_params(k1, cfg.vision),
+                    "mm_projector": projector_tree(cfg, seed + 1),
+                    "lm": init_llama_params(k3, cfg.lm)})
+    pcfg = port_config(cfg)
+    model = VideoLLaMB(CLIPVisionTower(pcfg.vision),
+                       bridge_module(pcfg.bridge, cfg.lm.hidden_size), LlamaForCausalLM(pcfg.lm))
+    model.load_state_dict(from_jax_params(tree), strict=True)
+    return cfg, jax.tree.map(np.asarray, tree), model.eval()
+
+
+def video_batch(cfg, seed=0, b=2, t=20, frames=8, labels=True):
+    """(jax batch, port batch) of ``b`` right-padded video rows with labels."""
+    import jax.numpy as jnp
+
+    from videollamb_torch.models.assembly import MultimodalBatch as PortBatch
+    from videollamb_tpu.constants import IGNORE_INDEX, VIDEO_TOKEN_INDEX
+    from videollamb_tpu.models.assembly import MultimodalBatch
+
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(4, cfg.lm.vocab_size, size=(b, t)).astype(np.int32)
+    ids[:, 2] = VIDEO_TOKEN_INDEX
+    mask = (np.arange(t)[None] < np.array([[t], [t - 6]])[:b]).astype(np.int32)
+    lab = np.where(mask > 0, ids, IGNORE_INDEX).astype(np.int32)
+    lab[:, :4] = IGNORE_INDEX
+    img = cfg.vision.image_size
+    videos = rng.normal(size=(b, frames, 3, img, img)).astype(np.float32)
+    jb = MultimodalBatch(jnp.asarray(ids), jnp.asarray(mask),
+                         jnp.asarray(lab) if labels else None, jnp.asarray(videos), None)
+    pb = PortBatch(torch.from_numpy(ids).long(), torch.from_numpy(mask).long(),
+                   torch.from_numpy(lab).long() if labels else None, torch.from_numpy(videos))
+    return jb, pb
+
+
+def base_lm_checkpoint(root: str, seed: int = 1):
+    """The seeded tiny checkpoint without its projector weights and without a
+    projector type in config.json: a base LM, stage 1's start."""
+    model_dir, tower_dir = write_reference_checkpoint(root, seed=seed)
+    path = os.path.join(model_dir, "pytorch_model.bin")
+    sd = torch.load(path, weights_only=True)
+    torch.save({k: v for k, v in sd.items() if "mm_projector" not in k}, path)
+    with open(os.path.join(model_dir, "config.json")) as f:
+        raw = json.load(f)
+    raw.pop("mm_projector_type")
+    with open(os.path.join(model_dir, "config.json"), "w") as f:
+        json.dump(raw, f)
+    return model_dir, tower_dir

@@ -3,7 +3,10 @@
 // Replaces videollamb_tpu/ops/flash_attention.py::flash_attention
 // (_flash_kernel): for every query row of every (batch, head), online-softmax
 // attention over the keys with an optional causal mask (q_pos >= k_pos, both
-// counted from 0) and an optional per-key validity mask (B, Skv). K3's own
+// counted from 0), an optional per-key validity mask (B, Skv) and, with the
+// causal mask, an optional sliding window (q_pos - k_pos < window: Mistral's
+// band, which the JAX package leaves to XLA because its Pallas kernel has no
+// window). K3's own
 // numerics, not K11's: s = (q . k) in f32 times the scale; a running max m
 // and sum l per row; p = exp(s - m_running) unnormalised and rounded to bf16
 // before PV; the f32 accumulator rescaled by exp(m_old - m_new) when the max
@@ -32,8 +35,12 @@
 // block's causal diagonal are never loaded, and those whose 64 keys are all
 // masked by k_mask are neither loaded nor multiplied: the block votes on the
 // tile's mask bytes (__syncthreads_or, folded into the ring's barrier) one
-// tile ahead of its copy. Inside a tile that the diagonal, the end of the
-// keys or a partial mask crosses, keys are masked element by element.
+// tile ahead of its copy. With a window, a block's key loop starts at the
+// tile that holds its first row's oldest visible key (row0 - window + 1):
+// tiles wholly older than the band are never loaded either, so a windowed
+// row block reads about window / 64 + 1 tiles whatever its position. Inside a
+// tile that the diagonal, the band's lower edge, the end of the keys or a
+// partial mask crosses, keys are masked element by element.
 // Causal row blocks with the most keys start first.
 //
 // A variant with warp-level mma.sync on ldmatrix operands in place of wgmma
@@ -68,6 +75,19 @@ __device__ __forceinline__ void key_mask(float (&s)[GROUP][2][4], uint64_t bits,
         const int key = 16 * c + 8 * nt + 2 * t + (e & 1);
         if (!((bits >> key) & 1ull)) s[c][nt][e] = -INFINITY;
       }
+}
+
+// Scores of keys older than the window (row - key >= window) become -inf.
+__device__ __forceinline__ void band_mask(float (&s)[2][4], int key0, int rg, int t,
+                                          int window) {
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = key0 + 8 * nt + 2 * t + (e & 1);
+      const int row = rg + (e < 2 ? 0 : 8);
+      if (row - key >= window) s[nt][e] = -INFINITY;
+    }
 }
 
 // Divide by l (summed over the quad here) and store; a row without a valid
@@ -140,7 +160,7 @@ __device__ __forceinline__ void load_halves(__nv_bfloat16* dst, const __nv_bfloa
 // Two blocks an SM (64 KB of ring each at Dh 128): at most 255 registers.
 template <int DH, bool CAUSAL, bool MASKED>
 __global__ void __launch_bounds__(WARPS * 32, 2)
-flash_kernel(const Args p, const uint8_t* __restrict__ kmask) {
+flash_kernel(const Args p, const uint8_t* __restrict__ kmask, int window) {
   constexpr int W = WARPS, NH = DH / 64;
   constexpr int TILE = KT * DH;
   extern __shared__ __align__(1024) unsigned char smem[];
@@ -154,6 +174,8 @@ flash_kernel(const Args p, const uint8_t* __restrict__ kmask) {
 
   int n_kt = (p.skv + KT - 1) / KT;
   if (CAUSAL) n_kt = min(n_kt, (min(p.sq, rb0 + W * 16) - 1) / KT + 1);
+  // First tile of the band (window > 0 comes with CAUSAL only).
+  const int kt0 = window > 0 ? max(0, rb0 - window + 1) / KT : 0;
 
   const long long kv_off = b * p.kv_batch + h * p.kv_head;
   const uint8_t* mrow = MASKED ? kmask + static_cast<long long>(b) * p.skv : nullptr;
@@ -186,10 +208,10 @@ flash_kernel(const Args p, const uint8_t* __restrict__ kmask) {
   // for rows g and g + 8; the max is kept equal across the quad.
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.0f, l1 = 0.0f;
 
-  int live = MASKED ? __syncthreads_or(key_byte(0)) : 1;
-  int next_byte = key_byte(1);
-  fetch(0, live);
-  for (int kt = 0; kt < n_kt; ++kt) {
+  int live = MASKED ? __syncthreads_or(key_byte(kt0)) : 1;
+  int next_byte = key_byte(kt0 + 1);
+  fetch(kt0, live);
+  for (int kt = kt0; kt < n_kt; ++kt) {
     // Every warp is done with the stage that tile kt + 1 refills; the vote
     // says whether that tile has a valid key.
     int live_next = 1;
@@ -225,6 +247,8 @@ flash_kernel(const Args p, const uint8_t* __restrict__ kmask) {
         const int k0 = kt * KT + c * 16;
         if (k0 + 16 > p.skv || (CAUSAL && k0 + 15 > w.row0))
           whole_row::mask<CAUSAL>(s[c], k0, w.row0 + w.g, w.t, p.skv);
+        if (window > 0 && w.row0 + 15 - k0 >= window)
+          band_mask(s[c], k0, w.row0 + w.g, w.t, window);
       }
       if (MASKED) {
         const int a = kt * KT + lane, a2 = a + 32;
@@ -297,24 +321,25 @@ flash_kernel(const Args p, const uint8_t* __restrict__ kmask) {
 }
 
 template <int DH, bool CAUSAL, bool MASKED>
-int launch(const Args& p, const uint8_t* kmask, int batch, cudaStream_t stream) {
+int launch(const Args& p, const uint8_t* kmask, int window, int batch, cudaStream_t stream) {
   const size_t smem = 2ull * 2 * KT * DH * sizeof(__nv_bfloat16);
   const auto kernel = flash_kernel<DH, CAUSAL, MASKED>;
   cudaError_t err = whole_row::prepare(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(static_cast<unsigned>(static_cast<long long>(batch) * p.heads),
             whole_row::rounds_up(p.sq, WARPS * 16));
-  kernel<<<grid, WARPS * 32, smem, stream>>>(p, kmask);
+  kernel<<<grid, WARPS * 32, smem, stream>>>(p, kmask, window);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int DH>
-int dispatch(const Args& p, const uint8_t* kmask, int batch, bool causal, cudaStream_t s) {
+int dispatch(const Args& p, const uint8_t* kmask, int window, int batch, bool causal,
+             cudaStream_t s) {
   if (kmask != nullptr)
-    return causal ? launch<DH, true, true>(p, kmask, batch, s)
-                  : launch<DH, false, true>(p, kmask, batch, s);
-  return causal ? launch<DH, true, false>(p, kmask, batch, s)
-                : launch<DH, false, false>(p, kmask, batch, s);
+    return causal ? launch<DH, true, true>(p, kmask, window, batch, s)
+                  : launch<DH, false, true>(p, kmask, 0, batch, s);
+  return causal ? launch<DH, true, false>(p, kmask, window, batch, s)
+                : launch<DH, false, false>(p, kmask, 0, batch, s);
 }
 
 }  // namespace
@@ -324,14 +349,16 @@ int dispatch(const Args& p, const uint8_t* kmask, int batch, bool causal, cudaSt
 // and a last-dim stride of 1; k, v: (B, H, Skv, dh) bf16 sharing the strides
 // (kv_batch, kv_head, kv_row); rows 16-byte aligned. kmask: (B, Skv) bytes
 // (0 = masked; bool or uint8) or null. dh in {64, 128}; Sq, Skv >= 1;
-// scale > 0 (the wrapper turns another scale into this one).
+// scale > 0 (the wrapper turns another scale into this one); window 0 (none)
+// or, with causal, >= 1: a row sees the keys with 0 <= row - key < window.
 extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v,
                                     const void* kmask, void* out, int b, int heads, int sq,
-                                    int skv, int dh, float scale, int causal,
+                                    int skv, int dh, float scale, int causal, int window,
                                     long long q_batch, long long q_head, long long q_row,
                                     long long kv_batch, long long kv_head, long long kv_row,
                                     void* stream) {
-  if (!(scale > 0.0f)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!(scale > 0.0f) || window < 0 || (window > 0 && !causal))
+    return static_cast<int>(cudaErrorInvalidValue);
   whole_row::Args p{};
   p.q = static_cast<const __nv_bfloat16*>(q);
   p.k = static_cast<const __nv_bfloat16*>(k);
@@ -351,7 +378,7 @@ extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v,
     return static_cast<int>(cudaErrorInvalidValue);
   const uint8_t* mask = static_cast<const uint8_t*>(kmask);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dh == 128) return flash::dispatch<128>(p, mask, b, causal != 0, s);
-  if (dh == 64) return flash::dispatch<64>(p, mask, b, causal != 0, s);
+  if (dh == 128) return flash::dispatch<128>(p, mask, window, b, causal != 0, s);
+  if (dh == 64) return flash::dispatch<64>(p, mask, window, b, causal != 0, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -42,7 +42,7 @@ SIGNATURES = {
     "temporal_core_bntd_bf16": (_I, (_P,) * 4 + (_I,) * 5 + (_P,)),
     "temporal_core_fm_bf16": (_I, (_P,) * 4 + (_I,) * 5 + (_P,)),
     "block_attention_bf16": (_I, (_P,) * 4 + (_I,) * 5 + (ctypes.c_float, _I, _P)),
-    "flash_attention_bf16": (_I, (_P,) * 5 + (_I,) * 5 + (ctypes.c_float, _I)
+    "flash_attention_bf16": (_I, (_P,) * 5 + (_I,) * 5 + (ctypes.c_float, _I, _I)
                              + (ctypes.c_longlong,) * 6 + (_P,)),
     "gathered_paged_attention_int8": (_I, (_P,) * 12 + (_I,) * 6 + (_P,)),
     "paged_fresh_write_int8": (_I, (_P,) * 6 + (_I,) * 5 + (_P,)),

@@ -5,13 +5,17 @@ Port of the video, image, mixed-modality and text paths of
 :492-660). :class:`VideoLLaMB` holds the parts under the names of the JAX
 parameter tree (``video_tower``, ``mm_projector``, ``lm`` and the optional
 ``image_tower``); each part loads its reference state dict by name (see
-``models/convert.py``). An image goes through the image tower when the
-model has one, else through the video tower at T = 1 (no temporal
-attention), then through the bridge's one-pass image branch. A mixed row
+``models/convert.py``). The projector is any kind of the factory
+(``models/bridge/builder.py``): every encoder dispatches through
+``bridge_apply``, one sample at a time. An image goes through the image
+tower when the model has one, else through the video tower at T = 1 (no
+temporal attention), then through the projector's image branch. A mixed row
 (``MultimodalBatch.blocks``) encodes each block with its own encoder and
 binds the k-th block to the k-th sentinel; audio blocks (mel images) ride
-the image path, as in the JAX package. Anyres batches, which need the
-grid-preserving projectors, are not ported (ROADMAP.md section A, item 7).
+the image path, as in the JAX package. Anyres batches (which the
+grid-preserving projectors serve) and the research towers (``cfg.tower``)
+are not ported (ROADMAP.md section A, item 7). The per-segment RMT loss
+(:func:`encode_videos_retro`) is the RMT-R bridge's, as in the JAX package.
 
 Training enters through :func:`videollamb_forward` (packed rows included,
 with ``segment_ids``) and :func:`causal_lm_loss`; a ``torch.Generator``
@@ -29,11 +33,8 @@ from torch import nn
 
 from videollamb_torch.config import ModelConfig
 from videollamb_torch.constants import IGNORE_INDEX
-from videollamb_torch.models.bridge.rmt_r import (
-    RMTRBridge,
-    rmt_r_image_forward,
-    rmt_r_video_forward,
-)
+from videollamb_torch.models.bridge.builder import RMT_R, bridge_apply, bridge_token_count
+from videollamb_torch.models.bridge.rmt_r import rmt_r_video_forward
 from videollamb_torch.models.lm.llama import LlamaForCausalLM, embed_tokens, llama_forward
 from videollamb_torch.models.splice import (
     SplicedBatch,
@@ -44,7 +45,7 @@ from videollamb_torch.models.vision.clip_vit import CLIPVisionTower, vision_enco
 
 
 class VideoLLaMB(nn.Module):
-    def __init__(self, video_tower: Optional[CLIPVisionTower], mm_projector: RMTRBridge,
+    def __init__(self, video_tower: Optional[CLIPVisionTower], mm_projector: nn.Module,
                  lm: LlamaForCausalLM, image_tower: Optional[CLIPVisionTower] = None):
         super().__init__()
         self.video_tower = video_tower
@@ -78,10 +79,10 @@ class MultimodalBatch(NamedTuple):
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.tower is not None or cfg.bridge.kind != "rmt_r_transformer":
+    if cfg.tower is not None:
         raise NotImplementedError(
-            "the port runs the LanguageBind CLIP tower with the rmt_r_transformer "
-            f"bridge only (got tower={cfg.tower!r}, bridge={cfg.bridge.kind!r})")
+            f"the port runs the LanguageBind CLIP tower only (got tower={cfg.tower!r}): "
+            "the research towers are not ported yet")
 
 
 def _tower_features(model: VideoLLaMB, cfg: ModelConfig, pixels: torch.Tensor,
@@ -98,39 +99,43 @@ def _tower_features(model: VideoLLaMB, cfg: ModelConfig, pixels: torch.Tensor,
     return vision_encode(tower, pixels, cfg.vision)
 
 
-def _bridge_outputs(model: VideoLLaMB, cfg: ModelConfig, videos: torch.Tensor,
-                    generator: Optional[torch.Generator]):
-    feats = _tower_features(model, cfg, videos)  # (B, T, N, D)
-    return [rmt_r_video_forward(model.mm_projector, cfg.bridge, f, generator) for f in feats]
+def _stack(outs) -> Tuple[torch.Tensor, torch.Tensor]:
+    return torch.stack([t for t, _ in outs]), torch.stack([m for _, m in outs])
 
 
 def encode_videos(model: VideoLLaMB, cfg: ModelConfig, videos: torch.Tensor,
                   generator: Optional[torch.Generator] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(B, T, C, H, W) -> final-segment bridge tokens (B, N, lm_d) and mask (B, N)."""
-    outs = _bridge_outputs(model, cfg, videos, generator)
-    return (torch.stack([o.tokens for o in outs]),
-            torch.stack([o.token_mask for o in outs]))
+    """(B, T, C, H, W) -> each video's projector tokens (B, N, lm_d) and mask
+    (B, N); for the RMT-R bridge the final segment's (reference
+    encode_videos, llava_arch.py:331-338)."""
+    feats = _tower_features(model, cfg, videos)  # (B, T, N, D)
+    return _stack([bridge_apply(model.mm_projector, cfg.bridge, f, modality="video",
+                                generator=generator) for f in feats])
 
 
 def encode_videos_retro(model: VideoLLaMB, cfg: ModelConfig, videos: torch.Tensor,
                         generator: Optional[torch.Generator] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Every segment's bridge tokens, for the RMT-loss path (reference
-    encode_videos_retro, llava_arch.py:428): (B, S, F*P, lm_d), (B, S, F*P)."""
-    outs = _bridge_outputs(model, cfg, videos, generator)
-    return (torch.stack([o.all_tokens for o in outs]),
-            torch.stack([o.all_masks for o in outs]))
+    encode_videos_retro, llava_arch.py:428): (B, S, F*P, lm_d), (B, S, F*P).
+    The RMT-R bridge's only, as in the JAX package."""
+    if cfg.bridge.kind != RMT_R:
+        raise ValueError(f"the per-segment RMT loss needs the {RMT_R} bridge's segments; "
+                         f"this model's projector is {cfg.bridge.kind!r}")
+    feats = _tower_features(model, cfg, videos)
+    outs = [rmt_r_video_forward(model.mm_projector, cfg.bridge, f, generator) for f in feats]
+    return _stack([(o.all_tokens, o.all_masks) for o in outs])
 
 
 def encode_images(model: VideoLLaMB, cfg: ModelConfig, images: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(B, C, H, W) -> the bridge's image tokens (B, P, lm_d) and mask (B, P)
-    (reference encode_images, llava_arch.py:265): one bridge pass over each
-    image's pooled features, every token valid."""
+    """(B, C, H, W) -> the projector's image tokens (B, P, lm_d) and mask
+    (B, P) (reference encode_images, llava_arch.py:265); for the RMT-R bridge
+    one pass over each image's pooled features, every token valid."""
     feats = _tower_features(model, cfg, images[:, None], "image_tower")[:, 0]  # (B, N, D)
-    tokens, _ = rmt_r_image_forward(model.mm_projector, cfg.bridge, feats)
-    return tokens, torch.ones(tokens.shape[:2], dtype=torch.bool, device=tokens.device)
+    return _stack([bridge_apply(model.mm_projector, cfg.bridge, f, modality="image")
+                   for f in feats])
 
 
 def encode_mixed(model: VideoLLaMB, cfg: ModelConfig,
@@ -251,8 +256,8 @@ def causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor
 
 def measure_block_tokens(cfg: ModelConfig, modality: str = "video") -> int:
     """Spliced tokens one media block expands to, the packing budget unit
-    (``train/dataset.PackedCollator``): the final segment's F x P tokens for a
-    video, P for an image."""
-    if modality == "video":
-        return cfg.bridge.tokens_per_segment
-    return cfg.bridge.tokens_per_frame
+    (``train/dataset.PackedCollator``): for the RMT-R bridge the final
+    segment's F x P tokens for a video, P for an image; a video has
+    ``cfg.num_frames`` frames."""
+    n_tokens = 1 + (cfg.vision.image_size // cfg.vision.patch_size) ** 2
+    return bridge_token_count(cfg.bridge, n_tokens, cfg.num_frames, modality)

@@ -56,7 +56,7 @@ class Attention(nn.Module):
 
 
 class TransformerLayer(nn.Module):
-    """Projector layer: self-attn, cross-attn (unused on the video path), MLP."""
+    """Projector layer: self-attn, cross-attn (the Q-Former's only), MLP."""
 
     def __init__(self, d: int, inter: int):
         super().__init__()
@@ -131,12 +131,20 @@ def attention(p: Attention, hidden: torch.Tensor, *, num_heads: int, eps: float,
 
 def transformer_layer(p: TransformerLayer, hidden: torch.Tensor, *, num_heads: int,
                       eps: float, act: str, key_mask: Optional[torch.Tensor] = None,
+                      encoder_hidden: Optional[torch.Tensor] = None,
+                      encoder_key_mask: Optional[torch.Tensor] = None,
                       attn_dropout: float = 0.0, hidden_dropout: float = 0.0,
                       generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """Self-attention + GELU MLP with residual projection (no cross-attention)."""
+    """Self-attention [+ cross-attention over ``encoder_hidden``, the
+    Q-Former's] + GELU MLP with residual projection."""
     h = attention(p.selfattention, hidden, num_heads=num_heads, eps=eps, key_mask=key_mask,
                   attn_dropout=attn_dropout, hidden_dropout=hidden_dropout,
                   generator=generator)
+    if encoder_hidden is not None:
+        h = attention(p.crossattention, h, num_heads=num_heads, eps=eps,
+                      encoder_hidden=encoder_hidden, key_mask=encoder_key_mask,
+                      attn_dropout=attn_dropout, hidden_dropout=hidden_dropout,
+                      generator=generator)
     inter = _act(act, _dense(p.mlp[0], h))
     return residual_block(p.residual, inter, h, eps=eps, dropout_rate=hidden_dropout,
                           generator=generator)

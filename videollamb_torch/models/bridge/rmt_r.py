@@ -228,18 +228,16 @@ def rmt_r_image_forward(bridge: RMTRBridge, cfg: BridgeConfig,
     return projector_pass(bridge.projector, cfg, pooled, None, read)
 
 
-def init_rmt_r_params(cfg: BridgeConfig, lm_hidden_size: int, *, seed: int = 0,
-                      dtype=torch.float32, device="cpu") -> RMTRBridge:
-    """Bridge with seeded random weights: uniform Linear weights of variance
-    1/fan_in and small uniform biases, N(0, 1) memory tokens, zero
-    ``read_memory_emb``, unit LayerNorms."""
-    bridge = empty_module(lambda: RMTRBridge(cfg, lm_hidden_size), device, dtype)
-    g = generator(device, seed)
+def fill_bridge_(module: nn.Module, g: torch.Generator) -> nn.Module:
+    """Random weights drawn from ``g`` for a projector of any kind (in place):
+    uniform Linear weights of variance 1/fan_in and small uniform biases,
+    N(0, 1) memory tokens, zero ``read_memory_emb`` and ``query_tokens`` (as
+    the JAX package sets them), unit LayerNorms."""
     with torch.no_grad():
-        for name, p in bridge.named_parameters():
+        for name, p in module.named_parameters():
             if "layernorm" in name:
                 p.fill_(1.0 if name.endswith("weight") else 0.0)
-            elif name.endswith("read_memory_emb"):
+            elif name.endswith(("read_memory_emb", "query_tokens")):
                 p.zero_()
             elif name.endswith("memory_tokens"):
                 p.normal_(0.0, 1.0, generator=g)
@@ -248,4 +246,11 @@ def init_rmt_r_params(cfg: BridgeConfig, lm_hidden_size: int, *, seed: int = 0,
                 p.uniform_(-limit, limit, generator=g)
             else:
                 fill_dense_(p, g)
-    return bridge
+    return module
+
+
+def init_rmt_r_params(cfg: BridgeConfig, lm_hidden_size: int, *, seed: int = 0,
+                      dtype=torch.float32, device="cpu") -> RMTRBridge:
+    """Bridge with seeded random weights (:func:`fill_bridge_`)."""
+    return fill_bridge_(empty_module(lambda: RMTRBridge(cfg, lm_hidden_size), device, dtype),
+                        generator(device, seed))

@@ -35,7 +35,7 @@ import torch
 
 from videollamb_torch.config import BridgeConfig, LlamaConfig, ModelConfig, RopeScaling, VisionConfig
 from videollamb_torch.models.assembly import VideoLLaMB
-from videollamb_torch.models.bridge.rmt_r import RMTRBridge, init_rmt_r_params
+from videollamb_torch.models.bridge.builder import RMT_R, bridge_module, init_bridge_params
 from videollamb_torch.models.convert import split_reference_state, tower_state
 from videollamb_torch.models.lm.llama import LlamaForCausalLM
 from videollamb_torch.models.seeded import empty_module
@@ -200,10 +200,12 @@ def load_pretrained_model(
     - else a full checkpoint.
 
     A checkpoint without a projector (a base LM, the start of stage-1
-    training) gets a new seeded one when ``bridge_seed`` is given, and fails
-    to load otherwise. The new projector is built from ``projector_type``
+    training) gets a new seeded one of any kind when ``bridge_seed`` is
+    given, and fails to load otherwise (unless its kind has no parameters).
+    The new projector is built from ``projector_type``
     (``--mm_projector_type``) when given, else from config.json, and the
-    returned config says which.
+    returned config says which. Checkpoint projector weights load for the
+    RMT-R bridge only, as in the JAX package.
 
     Returns (tokenizer, model, config, processors, context_len), the tuple
     the reference returns; the tokenizer is None unless ``load_tokenizer``.
@@ -239,15 +241,22 @@ def load_pretrained_model(
             cfg.vision, add_time_attn=any(".temporal_attn." in k for k in state))
         image_tower = _load(lambda: CLIPVisionTower(icfg), state, device, wanted)
     lm = _load(lambda: LlamaForCausalLM(cfg.lm), lm_sd, device, wanted)
+    if bridge_sd and cfg.bridge.kind != RMT_R:
+        # The JAX package converts projector keys as RMT-R's only (and fails
+        # with a KeyError on another kind's).
+        raise ValueError(
+            f"{model_path} carries mm_projector weights for a {cfg.bridge.kind!r} "
+            f"projector (mm_projector_type {cfg.bridge.projector_type!r}); projector "
+            f"weights load for the {RMT_R} bridge only")
     if bridge_sd or bridge_seed is None:
-        bridge = _load(lambda: RMTRBridge(cfg.bridge, cfg.lm.hidden_size), bridge_sd,
+        bridge = _load(lambda: bridge_module(cfg.bridge, cfg.lm.hidden_size), bridge_sd,
                        device, wanted)
     else:
         if projector_type is not None:
             cfg = dataclasses.replace(cfg, bridge=BridgeConfig.from_projector_type(
                 projector_type, hidden_size=cfg.bridge.hidden_size))
-        bridge = init_rmt_r_params(cfg.bridge, cfg.lm.hidden_size, seed=bridge_seed,
-                                   dtype=wanted, device=device)
+        bridge = init_bridge_params(cfg.bridge, cfg.lm.hidden_size, seed=bridge_seed,
+                                    dtype=wanted, device=device)
     if load_8bit:  # weight-only int8 LM, quantised where it lies
         from videollamb_torch.models.lm.quant import quantize_llama_params
 

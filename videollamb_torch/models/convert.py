@@ -24,7 +24,9 @@ r) and ``{proj}_lora_b``) become ``<proj>.lora_a`` / ``.lora_b`` of a
 
 :func:`to_jax_params` is the inverse for the LM, the bridge (the leaves
 training updates) and a float image tower, so a training step of each
-package can be compared leaf by leaf.
+package can be compared leaf by leaf. The bridge maps by name for every
+projector kind (``models/bridge/variants.py`` keeps the JAX tree's leaf
+names).
 
 :func:`binding_from_jax` / :func:`binding_to_jax` carry the LanguageBind
 binding tree (``models/binding.py``: per-modality towers, projections and
@@ -86,28 +88,33 @@ def tower_state(sd: Mapping[str, torch.Tensor]) -> State:
             if k.startswith("vision_model.") and not k.endswith("position_ids")}
 
 
-def _put_tree(out: State, tree: Mapping[str, Any], prefix: str) -> None:
-    """Generic JAX subtree -> torch names: {kernel,bias} is a Linear,
-    {scale,bias} a LayerNorm, lists index ModuleLists."""
-    for name, node in tree.items():
-        key = f"{prefix}{name}"
-        if isinstance(node, list):
-            for i, child in enumerate(node):
-                _put_tree(out, child, f"{key}.{i}.")
-        elif isinstance(node, dict) and "kernel" in node:
-            if _is_quantized(node["kernel"]):
-                _put_quantized(out, key, node["kernel"])
-            else:
-                out[f"{key}.weight"] = _t(np.asarray(node["kernel"]).T)
-            if "bias" in node:
-                out[f"{key}.bias"] = _t(node["bias"])
-        elif isinstance(node, dict) and "scale" in node:
-            out[f"{key}.weight"] = _t(node["scale"])
-            out[f"{key}.bias"] = _t(node["bias"])
-        elif isinstance(node, dict):
-            _put_tree(out, node, f"{key}.")
+def _put_node(out: State, key: str, node: Any) -> None:
+    """One JAX node under the torch name ``key``: {kernel,bias} is a Linear,
+    {scale,bias} a LayerNorm, a list a ModuleList (of modules or Linears),
+    another dict a module, an array a parameter."""
+    if isinstance(node, list):
+        for i, child in enumerate(node):
+            _put_node(out, f"{key}.{i}", child)
+    elif isinstance(node, dict) and "kernel" in node:
+        if _is_quantized(node["kernel"]):
+            _put_quantized(out, key, node["kernel"])
         else:
-            out[key] = _t(node)
+            out[f"{key}.weight"] = _t(np.asarray(node["kernel"]).T)
+        if "bias" in node:
+            out[f"{key}.bias"] = _t(node["bias"])
+    elif isinstance(node, dict) and "scale" in node:
+        out[f"{key}.weight"] = _t(node["scale"])
+        out[f"{key}.bias"] = _t(node["bias"])
+    elif isinstance(node, dict):
+        _put_tree(out, node, f"{key}.")
+    else:
+        out[key] = _t(node)
+
+
+def _put_tree(out: State, tree: Mapping[str, Any], prefix: str) -> None:
+    """Generic JAX subtree -> torch names (:func:`_put_node` of each child)."""
+    for name, node in tree.items():
+        _put_node(out, f"{prefix}{name}", node)
 
 
 def _bridge_from_jax(tree: Mapping[str, Any]) -> State:

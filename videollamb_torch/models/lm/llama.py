@@ -31,7 +31,12 @@ engines' chunked admission) and one-token decode. Module names follow the HF
   chunked differentiable attention and, with ``remat``, each layer under
   ``torch.utils.checkpoint`` (the JAX ``jax.checkpoint`` of the layer body),
   so the backward keeps only the layer boundaries.
-- Sliding-window attention is not ported yet.
+- Mistral's sliding window (``cfg.sliding_window``) applies wherever the
+  JAX package applies it: the fresh-key attention of the forward and the
+  prefill (``multihead_attention(window=)``, which K3 computes on the card),
+  and the masks over the cache of extend and decode
+  (``q_pos - k_pos < window``). RoPE scaling (``cfg.rope_scaling``) comes
+  with the cos / sin tables (``models/lm/rope.py``).
 """
 
 from __future__ import annotations
@@ -123,11 +128,6 @@ def _rms_norm(norm: RMSNorm, x: torch.Tensor, eps: float) -> torch.Tensor:
     return (y * norm.weight.float()).to(x.dtype)
 
 
-def _check_supported(cfg: LlamaConfig) -> None:
-    if cfg.sliding_window is not None:
-        raise NotImplementedError("sliding-window attention is not ported yet")
-
-
 def proj(module: nn.Module, x: torch.Tensor) -> torch.Tensor:
     """A projection in x's dtype: a plain ``nn.Linear``'s weight is cast to it
     (a no-op when they agree); quantised and adapter modules handle their own."""
@@ -187,7 +187,7 @@ def _layer(layer: LlamaDecoderLayer, cfg: LlamaConfig, x: torch.Tensor, cos, sin
     b, s, d = x.shape
     q, k, v = _qkv(layer, cfg, x, cos, sin)
     attn = multihead_attention(q, k, v, causal=True, k_mask=valid, impl=attn_impl,
-                               segment_ids=segment_ids)
+                               segment_ids=segment_ids, window=cfg.sliding_window)
     x = x + proj(layer.self_attn.o_proj, attn.reshape(b, s, d))
     return _mlp(layer, cfg, x)
 
@@ -196,7 +196,6 @@ def _run_layers(lm: LlamaForCausalLM, cfg: LlamaConfig, x: torch.Tensor,
                 attention_mask: torch.Tensor, position_ids: Optional[torch.Tensor],
                 remat: bool, attn_impl: str,
                 segment_ids: Optional[torch.Tensor]) -> torch.Tensor:
-    _check_supported(cfg)
     b, s, _ = x.shape
     if position_ids is None:
         position_ids = torch.arange(s, device=x.device)[None].expand(b, s)
@@ -247,7 +246,6 @@ def llama_prefill(lm: LlamaForCausalLM, cfg: LlamaConfig, inputs_embeds: torch.T
     Returns the last valid token's logits (B, V) f32 and the cache with
     ``length`` set to each row's valid length.
     """
-    _check_supported(cfg)
     b, s, d = inputs_embeds.shape
     valid = attention_mask.bool()
     lengths = valid.sum(dim=1)
@@ -258,7 +256,8 @@ def llama_prefill(lm: LlamaForCausalLM, cfg: LlamaConfig, inputs_embeds: torch.T
         q, k, v = _qkv(layer, cfg, x, cos, sin)
         cache.k[i, :, :s] = k.to(cache.k.dtype)
         cache.v[i, :, :s] = v.to(cache.v.dtype)
-        attn = multihead_attention(q, k, v, causal=True, k_mask=valid, impl=attn_impl)
+        attn = multihead_attention(q, k, v, causal=True, k_mask=valid, impl=attn_impl,
+                                   window=cfg.sliding_window)
         x = x + layer.self_attn.o_proj(attn.reshape(b, s, d))
         x = _mlp(layer, cfg, x)
     logits = _final(lm, cfg, x)  # (B, S, V)
@@ -278,7 +277,6 @@ def llama_extend(lm: LlamaForCausalLM, cfg: LlamaConfig, inputs_embeds: torch.Te
     (B, S, V) with ``return_all``; the cache with lengths advanced by the
     valid count).
     """
-    _check_supported(cfg)
     b, s, d = inputs_embeds.shape
     s_max = cache.k.shape[2]
     dev = inputs_embeds.device
@@ -292,7 +290,10 @@ def llama_extend(lm: LlamaForCausalLM, cfg: LlamaConfig, inputs_embeds: torch.Te
     # buffer up to there (the masked keys would contribute exactly 0).
     end = min(s_max, int(start.max()) + s)
     k_pos = torch.arange(end, device=dev)
-    mask = (k_pos[None, None] <= pos_ids[:, :, None]) & valid[:, :, None]
+    dist = pos_ids[:, :, None] - k_pos[None, None]
+    mask = (dist >= 0) & valid[:, :, None]
+    if cfg.sliding_window is not None:
+        mask = mask & (dist < cfg.sliding_window)
     write = start[:, None] + torch.arange(s, device=dev)[None]
     keep = write < s_max
     rows = torch.arange(b, device=dev)[:, None].expand(b, s)[keep]
@@ -347,13 +348,15 @@ def llama_decode_step(lm: LlamaForCausalLM, cfg: LlamaConfig, token_embeds: torc
                       cache: KVCache) -> Tuple[torch.Tensor, KVCache]:
     """One decode step: writes each row's token at its current length (in place)
     and returns (logits (B, V) f32, cache with length + 1)."""
-    _check_supported(cfg)
     b = token_embeds.shape[0]
     s_max = cache.k.shape[2]
     pos = cache.length
     cos, sin = rope_cos_sin_cfg(cfg, pos[:, None])
-    k_pos = torch.arange(s_max, device=pos.device)
-    mask = (k_pos[None] <= pos[:, None])[:, None, :]  # (B, 1, S_max)
+    dist = pos[:, None] - torch.arange(s_max, device=pos.device)[None]
+    mask = dist >= 0
+    if cfg.sliding_window is not None:
+        mask = mask & (dist < cfg.sliding_window)
+    mask = mask[:, None, :]  # (B, 1, S_max)
     rows = torch.arange(b, device=pos.device)
     x = token_embeds
     for i, layer in enumerate(lm.model.layers):

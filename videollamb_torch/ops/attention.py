@@ -14,8 +14,10 @@ One entry point for the LM's fresh-key attention, mirroring the JAX
 - ``auto``    -- ``kernel`` for CUDA tensors, ``torch`` otherwise.
 
 All three compute the same math: f32 scores, causal and key-validity
-masks, grouped-query heads and, for packed rows, ``segment_ids`` (a query
-sees only keys of its own segment). The kernel has no segment lane, so
+masks, grouped-query heads, an optional sliding ``window`` (causal only: a
+query at position ``q_pos = i + (Skv - Sq)`` sees key ``k_pos`` when
+``0 <= q_pos - k_pos < window``, Mistral's band) and, for packed rows,
+``segment_ids`` (a query sees only keys of its own segment). The kernel has no segment lane, so
 ``segment_ids`` with ``kernel`` (or ``auto`` on a CUDA tensor) raises: a
 packed batch passes ``chunked`` or ``torch`` itself.
 """
@@ -38,10 +40,14 @@ def multihead_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         k_mask: Optional[torch.Tensor] = None,
                         scale: Optional[float] = None,
                         impl: str = "auto",
-                        segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+                        segment_ids: Optional[torch.Tensor] = None,
+                        window: Optional[int] = None) -> torch.Tensor:
     """q (B, Sq, H, Dh), k/v (B, Skv, Hkv, Dh) -> (B, Sq, H, Dh) in q's dtype.
 
-    ``segment_ids`` (B, S) needs Sq == Skv (a forward without a cache)."""
+    ``segment_ids`` (B, S) needs Sq == Skv (a forward without a cache).
+    ``window`` needs ``causal``; the kernel computes the band itself (K3's
+    key-tile loop starts at the window's first tile), and so counts causal
+    positions from 0 on both sides: it takes Sq == Skv only."""
     h, dh = q.shape[2], q.shape[3]
     hkv = k.shape[2]
     if scale is None:
@@ -51,25 +57,30 @@ def multihead_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if impl == "kernel" and segment_ids is not None:
         raise ValueError("the flash kernel has no segment lane: pass impl='chunked' "
                          "or impl='torch' with segment_ids")
+    if window is not None and not causal:
+        raise ValueError("a sliding window needs causal attention")
     if impl == "kernel":
+        if window is not None and q.shape[1] != k.shape[1]:
+            raise ValueError("the flash kernel's window takes Sq == Skv (a prefill); "
+                             f"got Sq {q.shape[1]}, Skv {k.shape[1]}")
         if hkv != h:
             k = k.repeat_interleave(h // hkv, dim=2)
             v = v.repeat_interleave(h // hkv, dim=2)
         # The kernel reads the transposed views as they lie and writes out with
         # q's strides, so the transpose back is the dense (B, Sq, H, Dh).
         out = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                              k_mask, causal=causal, scale=scale)
+                              k_mask, causal=causal, scale=scale, window=window)
         return out.transpose(1, 2)
     if impl == "chunked":
         return _chunked_attention(q, k, v, causal=causal, k_mask=k_mask, scale=scale,
-                                  segment_ids=segment_ids)
+                                  segment_ids=segment_ids, window=window)
     if impl == "torch":
         return _torch_attention(q, k, v, causal=causal, k_mask=k_mask, scale=scale,
-                                segment_ids=segment_ids)
+                                segment_ids=segment_ids, window=window)
     raise ValueError(f"unknown attention impl {impl!r} (auto, kernel, chunked, torch)")
 
 
-def _torch_attention(q, k, v, *, causal, k_mask, scale, segment_ids=None):
+def _torch_attention(q, k, v, *, causal, k_mask, scale, segment_ids=None, window=None):
     b, sq, h, dh = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     g = h // hkv
@@ -77,8 +88,11 @@ def _torch_attention(q, k, v, *, causal, k_mask, scale, segment_ids=None):
     s = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float()) * scale
     mask = torch.ones((b, sq, skv), dtype=torch.bool, device=q.device)
     if causal:
-        q_pos = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
-        mask = mask & (q_pos >= torch.arange(skv, device=q.device)[None, :])[None]
+        dist = (torch.arange(sq, device=q.device)[:, None] + (skv - sq)
+                - torch.arange(skv, device=q.device)[None, :])
+        mask = mask & (dist >= 0)[None]
+        if window is not None:
+            mask = mask & (dist < window)[None]
     if k_mask is not None:
         mask = mask & k_mask.bool()[:, None, :]
     if segment_ids is not None:
@@ -90,20 +104,24 @@ def _torch_attention(q, k, v, *, causal, k_mask, scale, segment_ids=None):
 
 
 def _chunk_step(m_prev, l_prev, acc, qg, kc, vc, kmc, seg_q, seg_kc, lo: int,
-                q_off: Optional[int], scale: float):
+                q_off: Optional[int], scale: float, window: Optional[int] = None):
     """One key block of the online softmax: returns the updated (m, l, acc).
 
     qg (B, Sq, Hkv, G, Dh), kc/vc (B, bkv, Hkv, Dh), kmc (B, bkv) key
     validity, seg_q (B, Sq) / seg_kc (B, bkv) segment ids or None, ``lo`` the
     block's first key position, ``q_off`` the first query's position when
-    causal (Skv - Sq), else None; m/l (B, Hkv, G, Sq, 1) and acc
+    causal (Skv - Sq), else None, ``window`` the causal band or None;
+    m/l (B, Hkv, G, Sq, 1) and acc
     (B, Hkv, G, Sq, Dh) are f32. The block's mask is built here, so a
     recompute needs only these inputs."""
     sq, bkv = qg.shape[1], kc.shape[1]
     valid = kmc[:, None, :].expand(-1, sq, -1)
     if q_off is not None:
-        q_pos = torch.arange(sq, device=qg.device)[:, None] + q_off
-        valid = valid & (q_pos >= torch.arange(lo, lo + bkv, device=qg.device)[None, :])[None]
+        dist = (torch.arange(sq, device=qg.device)[:, None] + q_off
+                - torch.arange(lo, lo + bkv, device=qg.device)[None, :])
+        valid = valid & (dist >= 0)[None]
+        if window is not None:
+            valid = valid & (dist < window)[None]
     if seg_q is not None:
         valid = valid & (seg_q[:, :, None] == seg_kc[:, None, :])
     s = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), kc.float()) * scale
@@ -117,7 +135,7 @@ def _chunk_step(m_prev, l_prev, acc, qg, kc, vc, kmc, seg_q, seg_kc, lo: int,
 
 
 def _chunked_attention(q, k, v, *, causal, k_mask, scale, block_kv: int = BLOCK_KV,
-                       segment_ids=None):
+                       segment_ids=None, window=None):
     """Online softmax over key blocks, differentiable.
 
     The running max m, sum l and accumulator are f32; keys past Skv (when
@@ -154,7 +172,7 @@ def _chunked_attention(q, k, v, *, causal, k_mask, scale, block_kv: int = BLOCK_
         hi = lo + bkv
         args = (m, l, acc, qg, k[:, lo:hi], v[:, lo:hi], km[:, lo:hi], segment_ids,
                 None if seg_k is None else seg_k[:, lo:hi], lo,
-                skv - sq if causal else None, scale)
+                skv - sq if causal else None, scale, window)
         if remat:
             m, l, acc = checkpoint(_chunk_step, *args, use_reentrant=False)
         else:

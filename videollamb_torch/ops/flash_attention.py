@@ -3,16 +3,20 @@ block attention for short sequences (kernel K11).
 
 Port of ``videollamb_tpu/ops/flash_attention.py::flash_attention``:
 attention on (B, H, S, Dh) with an optional causal mask (``q_pos >=
-k_pos``, both counted from 0, as in the TPU kernel) and an optional
-per-key validity mask (B, Skv). Grouped-query heads are repeated by the
-caller (``ops/attention.py``).
+k_pos``, both counted from 0, as in the TPU kernel), an optional
+per-key validity mask (B, Skv) and, with causal, an optional sliding
+``window`` (``q_pos - k_pos < window``: Mistral's band, which the JAX
+package computes in XLA because its Pallas kernel has none; here the
+kernel's key-tile loop starts at the band's first tile). Grouped-query
+heads are repeated by the caller (``ops/attention.py``).
 
 - :func:`flash_attention` launches ``csrc/flash_attention.cu`` on a CUDA
   tensor and runs :func:`flash_attention_reference` on a CPU tensor.
 - :func:`flash_attention_reference` is the plain PyTorch statement.
 
 A query row with no valid key (no key both valid in ``k_mask`` and
-causally visible) gives the mean of v over all Skv keys, as the JAX
+visible: causally and inside the window) gives the mean of v over all Skv
+keys, as the JAX
 package's ``_xla_attention`` does: its finite -1e30 mask makes such a row's
 softmax uniform. The kernel writes that mean in its epilogue (rows with
 l == 0); the plain version sets those rows with
@@ -53,16 +57,20 @@ _NO_GRAD_ATTENTION = ("for gradients use the chunked route, "
 
 
 def _fill_rows_without_keys(out: torch.Tensor, v: torch.Tensor,
-                            k_mask: Optional[torch.Tensor], causal: bool) -> torch.Tensor:
+                            k_mask: Optional[torch.Tensor], causal: bool,
+                            window: Optional[int] = None) -> torch.Tensor:
     """Rows with no valid, visible key take the mean of v over all keys."""
     if k_mask is None:
         return out
     sq = out.shape[2]
     valid = k_mask.bool()
-    if causal:  # a key j <= i is valid iff the running count at min(i, Skv-1) > 0
-        seen = valid.long().cumsum(dim=1)
-        rows = torch.arange(sq, device=out.device).clamp(max=valid.shape[1] - 1)
-        has_key = seen[:, rows] > 0  # (B, Sq)
+    if causal:  # the valid keys in (i - window, min(i, Skv-1)] are a difference of counts
+        seen = torch.nn.functional.pad(valid.long().cumsum(dim=1), (1, 0))  # seen[j]: keys < j
+        rows = torch.arange(sq, device=out.device)
+        hi = rows.clamp(max=valid.shape[1] - 1) + 1
+        lo = ((rows - window + 1).clamp(min=0, max=valid.shape[1]) if window is not None
+              else torch.zeros_like(rows))
+        has_key = (seen[:, hi] - seen[:, lo]) > 0  # (B, Sq)
     else:
         has_key = valid.any(dim=1, keepdim=True).expand(-1, sq)
     mean_v = v.mean(dim=2, keepdim=True, dtype=torch.float32).to(out.dtype)  # (B, H, 1, Dh)
@@ -72,18 +80,22 @@ def _fill_rows_without_keys(out: torch.Tensor, v: torch.Tensor,
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                               k_mask: Optional[torch.Tensor] = None, *,
                               causal: bool = False,
-                              scale: Optional[float] = None) -> torch.Tensor:
+                              scale: Optional[float] = None,
+                              window: Optional[int] = None) -> torch.Tensor:
     """(B, H, Sq, Dh) attention in plain PyTorch; returns q's dtype."""
     b, h, sq, dh = q.shape
     skv = k.shape[2]
+    _check_window(window, causal)
     if scale is None:
         scale = 1.0 / math.sqrt(dh)
     s = (q.float() @ k.float().transpose(-1, -2)) * scale  # (B, H, Sq, Skv)
     valid = torch.ones((b, 1, sq, skv), dtype=torch.bool, device=q.device)
     if causal:
-        pos_q = torch.arange(sq, device=q.device)[:, None]
-        pos_k = torch.arange(skv, device=q.device)[None, :]
-        valid = valid & (pos_q >= pos_k)
+        dist = (torch.arange(sq, device=q.device)[:, None]
+                - torch.arange(skv, device=q.device)[None, :])
+        valid = valid & (dist >= 0)
+        if window is not None:
+            valid = valid & (dist < window)
     if k_mask is not None:
         valid = valid & k_mask.bool()[:, None, None, :]
     s = s.masked_fill(~valid, NEG_INF)
@@ -91,7 +103,13 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.exp(s - m) * valid
     l = p.sum(dim=-1, keepdim=True)
     out = (p.to(v.dtype).float() @ v.float()) / torch.where(l == 0, 1.0, l)
-    return _fill_rows_without_keys(out.to(q.dtype), v, k_mask, causal)
+    return _fill_rows_without_keys(out.to(q.dtype), v, k_mask, causal, window)
+
+
+def _check_window(window: Optional[int], causal: bool) -> None:
+    if window is not None and (not causal or window < 1):
+        raise ValueError(f"a window needs causal attention and at least one key; "
+                         f"got window={window}, causal={causal}")
 
 
 def _strides(x: torch.Tensor):
@@ -117,11 +135,15 @@ def _scaled(q: torch.Tensor, scale: float):
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     k_mask: Optional[torch.Tensor] = None, *, causal: bool = False,
-                    scale: Optional[float] = None) -> torch.Tensor:
+                    scale: Optional[float] = None,
+                    window: Optional[int] = None) -> torch.Tensor:
     """Flash attention forward: (B, H, Sq, Dh) q, (B, H, Skv, Dh) k/v, any
-    strides; returns (B, H, Sq, Dh) with q's strides."""
+    strides; returns (B, H, Sq, Dh) with q's strides. ``window`` (causal
+    only) bounds each row's keys to the ``window`` positions ending at it."""
     if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, k_mask, causal=causal, scale=scale)
+        return flash_attention_reference(q, k, v, k_mask, causal=causal, scale=scale,
+                                          window=window)
+    _check_window(window, causal)
     b, h, sq, dh = q.shape
     skv = k.shape[2]
     if (q.device.type != "cuda" or q.dtype != torch.bfloat16 or dh not in (64, 128)
@@ -149,7 +171,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         mask = mask.contiguous()
     kb.check(kb.kernels().flash_attention_bf16(
         kb.ptr(q), kb.ptr(k), kb.ptr(v), kb.ptr(mask) if mask is not None else None,
-        kb.ptr(out), b, h, sq, skv, dh, float(scale), int(causal), *_strides(q),
+        kb.ptr(out), b, h, sq, skv, dh, float(scale), int(causal),
+        0 if window is None or window >= sq else int(window), *_strides(q),
         *_strides(k), kb.current_stream(q.device)), "flash_attention_bf16")
     flash_attention.launches += 1
     return out

@@ -79,6 +79,10 @@ class StreamingSession:
                  max_new_tokens: int = 128, temperature: float = 0.0, seed: int = 0):
         self.chat = chat
         self.cfg: ModelConfig = chat.cfg
+        if self.cfg.bridge.kind != "rmt_r_transformer":
+            raise ValueError(
+                "a streaming session steps the rmt_r_transformer bridge's recurrence "
+                f"(rmt_r_stream_step); this model's projector is {self.cfg.bridge.kind!r}")
         self.frame_fps = frame_fps
         self.max_open_frames = max_open_frames
         self.cache_segments = cache_segments

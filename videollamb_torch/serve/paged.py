@@ -33,6 +33,12 @@ pages run out.
 card), otherwise the model's dtype in head-major pages (kernel K6). The
 paged engine does not speculate (``speculative`` stays None), as in the JAX
 package.
+
+A sliding-window LM (Mistral) is served when a slot's context limit
+(``pages_per_seq * page_size``) is at most the window, where the window
+cannot bite; otherwise the engine refuses it. Its decode (K4 / K6) has no
+window term, as in the JAX package, whose paged decode therefore reads keys
+past the window that its admission and its dense decode mask.
 """
 
 from __future__ import annotations
@@ -109,6 +115,13 @@ class PagedServingEngine(ServingEngine):
         self.total_pages = total_pages or (1 + num_slots * per_slot)
         self.pages_per_seq = pages_per_seq or per_slot
         self.max_seq_len = self.pages_per_seq * page_size
+        window = cfg.lm.sliding_window
+        if window is not None and self.max_seq_len > window:
+            raise ValueError(
+                f"the paged decode has no sliding-window term: a slot's context limit "
+                f"({self.pages_per_seq} pages x {page_size} = {self.max_seq_len} tokens) "
+                f"must be at most the LM's window ({window}); pass pages_per_seq <= "
+                f"{window // page_size}")
         self.cache = init_paged_cache(cfg.lm, num_slots, self.total_pages, page_size,
                                       self.pages_per_seq, self._dtype, quantize=quantize_kv,
                                       device=self.device)

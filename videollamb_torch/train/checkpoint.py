@@ -15,8 +15,11 @@ a LoRA record is the adapters and the projector, not the 7B base.
   model with :func:`restore_adapter`, and beside them the reference-format
   ``mm_projector.bin`` (keys ``model.mm_projector.*``, the values of
   ``export_rmt_r_state_dict``), which the reference's
-  ``--pretrain_mm_mlp_adapter`` loads. The JAX package skips that file on
-  any error; the port raises, so a broken export cannot pass unseen.
+  ``--pretrain_mm_mlp_adapter`` loads, for the RMT-R bridge. Another
+  projector kind has no reference-format export: the record alone holds it,
+  and a line says so (the JAX package prints and skips there). The JAX
+  package skips that file on any error; the port raises on an RMT-R
+  bridge's, so a broken export cannot pass unseen.
 - ``save_total_limit`` rotation, :func:`latest_checkpoint` and
   :func:`maybe_resume`, as in the JAX package.
 """
@@ -90,7 +93,11 @@ def save_checkpoint(output_dir: str, state: TrainState, *, step: Optional[int] =
     torch.save(record, tmp)
     os.replace(tmp, os.path.join(path, RECORD))
 
-    if adapter_only:
+    if adapter_only and not isinstance(model.mm_projector, RMTRBridge):
+        # As the JAX package, which prints and skips the export there.
+        print(f"mm_projector.bin export skipped: a {type(model.mm_projector).__name__} "
+              f"projector has no reference-format export (its weights are in {RECORD})")
+    elif adapter_only:
         sd = export_rmt_r_state_dict(model.mm_projector, prefix="model.mm_projector.")
         if include_embed_tokens:
             sd["model.embed_tokens.weight"] = params["lm.model.embed_tokens.weight"].detach().cpu()

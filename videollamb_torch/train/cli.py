@@ -4,7 +4,10 @@ Port of ``videollamb_tpu/train/cli.py`` (reference llava/train/train.py:887-1141
 and scripts/finetune_video_image.slurm) with the same flags, plus
 ``--device`` (``cuda`` by default; ``--device cpu`` trains on the host).
 The model loads from a reference-format checkpoint; a checkpoint without a
-projector starts a seeded one. The trained parameters are f32 masters; the
+projector starts a seeded one of the ``--mm_projector_type`` kind (any kind
+of the factory, ``models/bridge/builder.py``: the classic LLaVA stage 1 is an
+``mlp2x_gelu`` pretrain). ``--rmt_loss`` needs the RMT-R bridge's segments:
+the Trainer refuses another kind before the first step. The trained parameters are f32 masters; the
 frozen base and towers stay in bf16 with ``--bf16 True`` (the default), and
 every product runs in the activations' dtype, as the JAX ``_proj`` casts.
 
@@ -104,7 +107,6 @@ def main(argv=None, tokenizer=None, log_fn=None):
             "--sequence_parallel / --model_parallel above 1 are not ported yet "
             "(ROADMAP.md section A, item 8: the multi-GPU step factories)")
 
-    from videollamb_torch.config import BridgeConfig
     from videollamb_torch.data.processing import VideoProcessor
     from videollamb_torch.models.builder import load_pretrained_model
     from videollamb_torch.models.lm.lora import add_lora_params
@@ -113,9 +115,6 @@ def main(argv=None, tokenizer=None, log_fn=None):
     from videollamb_torch.train.step import param_labels
     from videollamb_torch.train.trainer import Trainer
 
-    if BridgeConfig.from_projector_type(args.mm_projector_type).kind != "rmt_r_transformer":
-        raise NotImplementedError(
-            f"--mm_projector_type {args.mm_projector_type}: the port trains the RMT-R bridge")
     set_default_conversation(args.version)
     loaded_tokenizer, model, model_cfg, _, _ = load_pretrained_model(
         args.model_name_or_path, video_tower_path=args.video_tower,

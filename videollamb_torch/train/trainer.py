@@ -31,6 +31,7 @@ import torch
 
 from videollamb_torch.config import ModelConfig, TrainConfig
 from videollamb_torch.models.assembly import MultimodalBatch, measure_block_tokens
+from videollamb_torch.models.bridge.builder import RMT_R
 from videollamb_torch.train.checkpoint import maybe_resume, save_checkpoint
 from videollamb_torch.train.dataset import Collator, PackedCollator, modality_grouped_indices
 from videollamb_torch.train.step import (
@@ -202,6 +203,10 @@ class Trainer:
             # The retro path splices without segment routing: packed rows
             # would attend across conversations.
             raise ValueError("pack_sequences is incompatible with rmt_loss")
+        if train_cfg.rmt_loss and model_cfg.bridge.kind != RMT_R:
+            raise ValueError(
+                f"rmt_loss trains on every segment of the {RMT_R} bridge; this model's "
+                f"projector is {model_cfg.bridge.projector_type!r}")
         self.log_fn = log_fn or (lambda m: print(m, flush=True))
         self.process_count = process_count
         self.process_index = process_index

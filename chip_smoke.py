@@ -7,7 +7,8 @@
    plain PyTorch version at the shapes the main paths give it, with
    CUDA-event times of both, of one PyTorch library call computing the same
    function where there is one, and the least time the card could take.
-   K1 and K2 also at the encode path's 256 frames; K8-K11 at that path's
+   K1 and K2 also at the encode path's 256 frames, K1 at the anyres patch
+   stack (5, 257, 1024) and the RMT tower's step (1, 385, 1024); K8-K11 at that path's
    shapes (K11 also causal at (4, 32, 512, 128)); K3 also through
    ``multihead_attention`` on the (B, S, H, Dh) projections the prefill
    hands it, beside SDPA on the same views, and with Mistral's sliding
@@ -105,6 +106,30 @@
    (16 tokens) through ``generate``, a paged run on int8 pages (K4, K5) and one on bf16 pages
    (K6), 40 pages of 64 a slot (inside the window); tok/s and the peak
    allocated memory.
+3e. Anyres images (``images_phase``), after the breadth, on the same LM:
+   a seeded ViT-L/14 image tower (224, no temporal layers), a seeded
+   mlp2x_gelu projector and ``image_newline``, LLaVA-NeXT's pinpoints at
+   224; a 640 x 480 and a 300 x 900 PNG (written under
+   ``build/images_smoke/``) answer 16 tokens through ``generate`` under
+   'spatial_unpad' and 'flat' (TTFT, tok/s, visual tokens; K1 23 launches
+   a patch stack, K3 32 a prefill); a depth cut (2 tower and 2 LM layers)
+   against the host in f32 (logits rel_l2, the last greedy token); K3 held
+   against its plain version at the anyres prefill's lengths; stage-1
+   mlp2x_gelu steps on 2 'pad' image rows and on 5 rows packed into one
+   2048-token row (loss, ms a step, peak allocated); the paged engine (int8
+   pages, 8 slots) admits 8 single-image requests with ``prompt_len`` (the
+   RMT-R host formula) and 8 video requests at once, with convoy admission
+   and again one request at a time: equal tokens, host readbacks per
+   admitting call, admission ms.
+3f. The research towers (``towers_phase``): each kind ``resolve_tower``
+   gives at its published width and depth, seeded bf16 (ViT-B/16, MAE,
+   ViViT 16x2 over 32 frames, VideoMAE over 16, the RMT tower over 8 frames
+   (K1 184 launches an encode), DeformCLIP at ViT-L/14, Deformable-DETR
+   with ResNet-50 and 6 layers of 256, EgoVLP over 4 frames), under a
+   seeded mlp2x_gelu projector of its width: encode ms, visual tokens, 8
+   tokens through ``generate`` on the resident LM in a buffer that fits
+   them; a 2-layer depth cut of each, card bf16 against host f32 (feature
+   rel_l2).
 4. Speculative decoding at full depth in bf16: ``Chat.generate_speculative``
    with prompt lookup and with an int8 copy of the LM as the draft, beside
    plain greedy (accepted lengths, rounds, rates, and where the chains part,
@@ -220,6 +245,10 @@ REWIND = 3
 # The LanguageBind audio tower's tokens: a 112 x 1036 mel image in 14-pixel
 # patches (8 x 74) and CLS.
 AUDIO_TOKENS = 8 * 74 + 1
+# The images phase's anyres stack (a 2 x 2 grid of 224-pixel patches and the
+# base image) and the RMT tower's sequence (128 read memories + CLS + 256).
+ANYRES_PATCHES = 5
+RMT_TOKENS = 128 + 257
 
 
 def card_line() -> str:
@@ -441,8 +470,13 @@ def kernel_phase(g: torch.Generator, system_len: int) -> dict:
     # phases; then at the binding video tower's 8 frames and the binding audio
     # tower's one 112 x 1036 mel image (8 x 74 patches and CLS: N = 593); then
     # at the eval phase's two-image row through the LLM's image tower.
+    # Last, at the images phase's anyres patch stack (the base image and a
+    # 2 x 2 grid: 5 frames) and at the RMT tower's frame step (128 memories
+    # before 257 tokens: N = 385).
+    g_res = torch.Generator(device=dev).manual_seed(int(g.initial_seed()) + 72)
     for frames, tokens, gen in ((1, n, g), (4, n, g), (16, n, g), (8, n, g_bind),
-                                (1, AUDIO_TOKENS, g_bind), (2, n, g_image)):
+                                (1, AUDIO_TOKENS, g_bind), (2, n, g_image),
+                                (ANYRES_PATCHES, n, g_res), (1, RMT_TOKENS, g_res)):
         q, k, v = (randn(frames, tokens, d, scale=0.125, gen=gen),
                    randn(frames, tokens, d, gen=gen), randn(frames, tokens, d, gen=gen))
         err = compare(f"spatial ({frames}, {tokens}, {d})",
@@ -2845,6 +2879,498 @@ def breadth_phase(model, cfg, g: torch.Generator, seed: int) -> dict:
     return out
 
 
+# The images phase: anyres rows through a LanguageBind ViT-L/14 image tower
+# (224, no temporal layers) and an mlp2x_gelu projector, on LLaVA-NeXT's
+# pinpoints at 224 (2 x 1, 1 x 2, 2 x 2, 3 x 1, 1 x 3 patches).
+IMAGE_PINPOINTS = ((224, 448), (448, 224), (448, 448), (672, 224), (224, 672))
+IMAGE_SIZES = ((640, 480), (300, 900))  # (w, h) of the two PNGs
+IMAGE_NEW = 16
+IMAGE_TEXT = 40  # prompt ids, the IMAGE sentinel at 2
+IMAGE_SLOTS = 8  # the paged engine's slots in the convoy run
+CONVOY_NEW = 8
+IMAGE_TRAIN_ROWS = 5  # image conversations packed into one 2048-token row
+# The towers phase: each research tower kind at its published width and
+# depth, the frames it takes, and a name that resolves to it.
+TOWERS = (("vit", "google/vit-base-patch16-224", 4),
+          ("vitmae", "facebook/vit-mae-base", 4),
+          ("vivit", "google/vivit-b-16x2-kinetics400", 32),
+          ("videomae", "MCG-NJU/videomae-base", 16),
+          ("rmt_languagebind_video", "LanguageBind/RMTLanguageBind_Video", 8),
+          ("deform_clip", "deform_clip-vit-large", 4),
+          ("deformable", "deformable-detr", 1),
+          ("egovlp", "EgoVLP", 4))
+TOWER_NEW = 8
+
+
+def write_images(root: str, seed: int) -> list:
+    """The phase's PNGs (seeded smooth gradients plus noise), as PIL images."""
+    import cv2
+    import numpy as np
+    from PIL import Image
+
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    images = []
+    for i, (w, h) in enumerate(IMAGE_SIZES):
+        yy, xx = np.mgrid[0:h, 0:w]
+        arr = np.stack([xx * 255 // w, yy * 255 // h, (xx + yy) * 127 // (w + h)], -1)
+        arr = np.clip(arr + rng.integers(-20, 20, arr.shape), 0, 255).astype(np.uint8)
+        path = os.path.join(root, f"image_{i}.png")
+        cv2.imwrite(path, arr[..., ::-1])
+        images.append(Image.open(path).convert("RGB"))
+    return images
+
+
+def anyres_batch(cfg, g: torch.Generator, image, processor):
+    """One anyres row: IMAGE_TEXT ids (the sentinel at 2), the image's patch
+    stack and grid spec, on the card."""
+    from videollamb_torch.constants import IMAGE_TOKEN_INDEX
+    from videollamb_torch.mm_utils import process_anyres_image
+    from videollamb_torch.models.anyres import anyres_spec
+    from videollamb_torch.models.assembly import MultimodalBatch
+
+    stack = torch.from_numpy(process_anyres_image(image, processor, list(cfg.image_grid_pinpoints)))
+    spec = anyres_spec(image.size, cfg.image_grid_pinpoints, cfg.vision.image_size,
+                       cfg.vision.num_patches_per_side)
+    ids = torch.randint(4, cfg.lm.vocab_size, (1, IMAGE_TEXT), generator=g, device="cuda")
+    ids[:, 2] = IMAGE_TOKEN_INDEX
+    return MultimodalBatch(input_ids=ids, attention_mask=torch.ones_like(ids),
+                           images=stack[None].to("cuda", torch.bfloat16),
+                           image_specs=torch.from_numpy(spec)[None].to("cuda"))
+
+
+def image_answer(m, cfg, batch, label: str) -> dict:
+    """TTFT (a one-token ``generate``) and IMAGE_NEW greedy tokens; K1 must
+    launch once per tower layer on the whole patch stack, K3 once per LM layer."""
+    from videollamb_torch.models.assembly import prepare_multimodal_embeds
+    from videollamb_torch.models.engine import generate
+
+    spliced = int(prepare_multimodal_embeds(m, cfg, batch).attention_mask.sum())
+    kw = dict(do_sample=False, max_seq_len=cfg.max_length + 64, eos_token_id=-1)
+    generate(m, cfg, batch, max_new_tokens=1, **kw)  # warm
+    torch.cuda.synchronize()
+    zero_counters()
+    t0 = time.perf_counter()
+    generate(m, cfg, batch, max_new_tokens=1, **kw)
+    torch.cuda.synchronize()
+    ttft = time.perf_counter() - t0
+    launches = {k: v for k, v in read_counters().items() if k in K123}
+    t0 = time.perf_counter()
+    res = generate(m, cfg, batch, max_new_tokens=IMAGE_NEW, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    toks = res.tokens
+    layers = len(m.image_tower.vision_model.encoder.layers) + cfg.vision.select_layer + 1
+    ok = (toks.shape == (1, IMAGE_NEW) and 0 <= int(toks.min())
+          and int(toks.max()) < cfg.lm.vocab_size
+          and launches["spatial_attention"] == layers
+          and launches["flash_attention"] == cfg.lm.num_hidden_layers)
+    p = batch.images.shape[1]
+    print(f"[images] {label}: {p} patches of 224, {spliced} spliced tokens, "
+          f"{spliced - IMAGE_TEXT + 1} visual; TTFT {ttft * 1e3:.1f} ms, "
+          f"{(IMAGE_NEW - 1) / max(wall - ttft, 1e-9):.1f} tok/s after it; launches K1 "
+          f"{launches['spatial_attention']} (at ({p}, 257, 1024)) K3 {launches['flash_attention']}"
+          f"; tokens {toks[0].tolist()} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"images {label}: bad tokens or launches {launches}")
+    return dict(patches=p, spliced_tokens=spliced, visual_tokens=spliced - IMAGE_TEXT + 1,
+                ttft_ms=ttft * 1e3, tok_s=(IMAGE_NEW - 1) / max(wall - ttft, 1e-9),
+                wall_ms=wall * 1e3, launches=launches)
+
+
+def anyres_reference(m, cfg, batch, seed: int) -> dict:
+    """A depth cut (a seeded 2-layer image tower and 2-layer LM at full
+    width, the phase's projector and newline) of the anyres model, card bf16
+    against host f32 from the same weights: the spliced logits within
+    PATH_REL_L2, the last row's greedy token equal (or the host's top two
+    within the card's error)."""
+    from videollamb_torch.config import VisionConfig
+    from videollamb_torch.models.assembly import VideoLLaMB, videollamb_forward
+    from videollamb_torch.models.lm.llama import init_llama_params
+    from videollamb_torch.models.vision.clip_vit import init_vision_params
+
+    kcfg = dataclasses.replace(cfg, max_length=1152, lm=dataclasses.replace(
+        cfg.lm, num_hidden_layers=CUT_LAYERS))
+    kw = dict(dtype=torch.bfloat16, device="cuda")
+    card = VideoLLaMB(None, m.mm_projector, init_llama_params(kcfg.lm, seed=seed + 105, **kw),
+                      init_vision_params(VisionConfig(add_time_attn=False,
+                                                      num_hidden_layers=CUT_LAYERS),
+                                         seed=seed + 106, **kw),
+                      m.image_newline.detach().clone())
+    host = copy.deepcopy(card).float().cpu()
+    zero_counters()
+    got = videollamb_forward(card, kcfg, batch)
+    k1 = read_counters()["spatial_attention"]
+    hbatch = batch._replace(input_ids=batch.input_ids.cpu(),
+                            attention_mask=batch.attention_mask.cpu(),
+                            images=batch.images.float().cpu(), image_specs=batch.image_specs.cpu())
+    want = videollamb_forward(host, kcfg, hbatch)
+    valid = want[1].attention_mask[0].bool()
+    c, h = got[0][0].float().cpu()[valid], want[0][0][valid]
+    rel = float((c - h).norm() / h.norm())
+    last_c, last_h = c[-1], h[-1]
+    top2 = last_h.topk(2).values
+    agree = int(last_c.argmax()) == int(last_h.argmax())
+    tie = float(top2[0] - top2[1]) <= float((last_c - last_h).abs().max())
+    ok = rel <= PATH_REL_L2 and (agree or tie) and k1 > 0
+    print(f"[images] depth cut (2 tower + 2 LM layers, {int(valid.sum())} spliced tokens): card "
+          f"bf16 (K1 x {k1}) vs host f32, logits rel_l2 {rel:.3e} tol {PATH_REL_L2}, last "
+          f"greedy token equal {agree} (tie within the error: {tie and not agree}) -> "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("images: the anyres depth cut disagrees with the host")
+    del card, host
+    return dict(rel_l2=rel, greedy_equal=agree, k1_launches=k1)
+
+
+def image_train_rows(cfg, images, n: int, seed: int) -> list:
+    """n 'pad' image conversations: each PNG squared (expand2square) and
+    processed, 120 ids with the IMAGE sentinel at 2, the second half labelled."""
+    import numpy as np
+
+    from videollamb_torch.constants import IGNORE_INDEX, IMAGE_TOKEN_INDEX
+    from videollamb_torch.data.processing import ImageProcessor
+    from videollamb_torch.mm_utils import expand2square
+
+    proc = ImageProcessor(size=cfg.vision.image_size)
+    bg = tuple(int(x * 255) for x in proc.image_mean)
+    pixels = [proc(expand2square(im, bg)) for im in images]
+    rng = np.random.default_rng(seed)
+    rows = []
+    for i in range(n):
+        ids = rng.integers(4, cfg.lm.vocab_size, size=120).astype(np.int32)
+        ids[2] = IMAGE_TOKEN_INDEX
+        labels = np.where(np.arange(120) < 60, IGNORE_INDEX, ids).astype(np.int32)
+        rows.append({"input_ids": ids, "labels": labels, "image": pixels[i % len(pixels)]})
+    return rows
+
+
+def image_train_steps(m, cfg, images, seed: int) -> dict:
+    """Stage 1 on image rows: a new f32 mlp2x_gelu projector over the frozen
+    bf16 7B and image tower, two steps on 2 'pad' rows (``Collator``) and two
+    on 5 rows packed into one 2048-token row (``PackedCollator`` with
+    ``block_tokens_image``). Finite positive losses; the projector moves."""
+    from videollamb_torch.config import TrainConfig
+    from videollamb_torch.models.assembly import VideoLLaMB, measure_block_tokens
+    from videollamb_torch.models.bridge.builder import init_bridge_params
+    from videollamb_torch.train.dataset import Collator, PackedCollator
+    from videollamb_torch.train.step import (
+        create_optimizer,
+        create_train_state,
+        make_train_step,
+        trainable_mask,
+    )
+    from videollamb_torch.train.trainer import pin_batch, to_device
+
+    rows = image_train_rows(cfg, images, IMAGE_TRAIN_ROWS, seed + 111)
+    dev = torch.device("cuda")
+    batches = {
+        "pad rows": Collator(max_length=cfg.max_length)(rows[:2]),
+        "packed rows": PackedCollator(max_length=cfg.max_length,
+                                      block_tokens=measure_block_tokens(cfg, "video"),
+                                      block_tokens_image=measure_block_tokens(cfg, "image"),
+                                      k_max=IMAGE_TRAIN_ROWS, rows_bucket=1)(rows)}
+    tcfg = TrainConfig(tune_mode="adapter", learning_rate=TRAIN_LR)
+    out = {}
+    for label, batch in batches.items():
+        s = VideoLLaMB(None, init_bridge_params(cfg.bridge, cfg.lm.hidden_size, seed=seed + 112,
+                                                device="cuda"), m.lm, m.image_tower)
+        before = [p.detach().clone() for p in s.mm_projector.parameters()]
+        batch = to_device(pin_batch(batch, dev), dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        losses, times = [], []
+        with torch.enable_grad():
+            tx = create_optimizer(tcfg, 1000, s)
+            state = create_train_state(s, tx)
+            step = make_train_step(cfg, tx, remat=True, attn_impl="chunked",
+                                   mask=trainable_mask(tcfg, s))
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, metrics = step(state, batch)
+                losses.append(float(metrics["loss"]))
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        moved = any(not torch.equal(a, b) for a, b in zip(before, s.mm_projector.parameters()))
+        ok = all(math.isfinite(x) and x > 0 for x in losses) and moved
+        shape = tuple(batch.input_ids.shape)
+        segs = int(batch.segment_ids.max()) if batch.segment_ids is not None else shape[0]
+        print(f"[images] train mlp2x_gelu on {label}: batch {shape}, {segs} conversations, "
+              f"losses {[round(x, 4) for x in losses]}, steps {[round(t, 1) for t in times]} ms"
+              f", peak allocated {peak:.2f} GiB, projector moved {moved} -> "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"images: the {label} train step failed its checks")
+        out[label] = dict(batch=list(shape), conversations=segs, losses=losses, step_ms=times,
+                          peak_gib=peak)
+        del s, state, tx, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def convoy_run(model, cfg, g: torch.Generator, prefetch: bool, seed: int) -> dict:
+    """IMAGE_SLOTS single-image requests (``prompt_len`` set: the host formula
+    of the RMT-R bridge applies) and IMAGE_SLOTS 8-frame video requests,
+    interleaved and submitted at once to the paged engine with int8 pages.
+    With ``prefetch`` the engine reads back each convoy's prompt lengths in
+    one copy; without, each admission reads its own. Copies and the admission
+    ms (the ``_admit`` calls' wall time) are counted."""
+    import numpy as np
+
+    from videollamb_torch.constants import IMAGE_TOKEN_INDEX
+    from videollamb_torch.models.assembly import MultimodalBatch
+    from videollamb_torch.serve.paged import PagedServingEngine
+    from videollamb_torch.serve.server import Request
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    img = cfg.vision.image_size
+    reqs = []
+    for i in range(2 * IMAGE_SLOTS):
+        if i % 2:
+            batch = make_batch(cfg, gen, [40], 8)
+            reqs.append(Request(uid=i, batch=batch, max_new_tokens=CONVOY_NEW))
+        else:
+            ids = torch.randint(4, cfg.lm.vocab_size, (1, 40), generator=gen, device="cuda")
+            ids[:, 2] = IMAGE_TOKEN_INDEX
+            batch = MultimodalBatch(input_ids=ids, attention_mask=torch.ones_like(ids),
+                                    images=torch.randn((1, 3, img, img), generator=gen,
+                                                       device="cuda").to(torch.bfloat16))
+            reqs.append(Request(uid=i, batch=batch, max_new_tokens=CONVOY_NEW, prompt_len=40))
+    engine = PagedServingEngine(model, cfg, num_slots=IMAGE_SLOTS, quantize_kv=True,
+                                eos_token_id=-1)
+    if not prefetch:
+        engine._prefetch_admissions = lambda: None
+    copies, admits = [], []
+    readback, admit = engine._readback, engine._admit
+
+    def counted_readback(t):
+        copies.append(int(t.numel()))
+        return readback(t)
+
+    def timed_admit():
+        n = sum(r is not None for r in engine.slots)
+        t0 = time.perf_counter()
+        admit()
+        torch.cuda.synchronize()
+        if sum(r is not None for r in engine.slots) > n:
+            admits.append((time.perf_counter() - t0) * 1e3)
+
+    engine._readback, engine._admit = counted_readback, timed_admit
+    zero_counters()
+    t0 = time.perf_counter()
+    for r in reqs:
+        engine.submit(r)
+    engine.run_until_drained(k=8)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for r in reqs:
+        if len(r.tokens) != CONVOY_NEW or r.error:
+            raise AssertionError(f"convoy request {r.uid}: {r.error} {r.tokens}")
+    verified = sorted(engine._len_verified)
+    del engine
+    torch.cuda.empty_cache()
+    return dict(tokens=[r.tokens for r in reqs], copies=copies, admit_ms=admits, wall_s=wall,
+                verified=[list(map(str, v)) for v in verified], launches=read_counters(),
+                mean_admit_ms=float(np.mean(admits)) if admits else 0.0)
+
+
+def images_phase(model, cfg, g: torch.Generator, seed: int) -> dict:
+    """Anyres images on the resident VideoLLaMB-7B: a seeded LanguageBind
+    ViT-L/14 image tower (224, no temporal layers) and a seeded mlp2x_gelu
+    projector with a learned ``image_newline``; a 640 x 480 and a 300 x 900
+    PNG through ``generate`` under 'spatial_unpad' and 'flat' merges (TTFT,
+    tok/s, visual tokens, K1 on the patch stack, K3 in the prefill); a depth
+    cut against the host; stage-1 steps on 'pad' image rows and on packed
+    image rows; the paged engine's convoy admission of image and video
+    requests against per-request admission (equal tokens, one readback per
+    convoy); K3 timed at the anyres prefill's own shape and lengths."""
+    from videollamb_torch.config import BridgeConfig, VisionConfig
+    from videollamb_torch.data.processing import ImageProcessor
+    from videollamb_torch.models.assembly import VideoLLaMB, init_image_newline
+    from videollamb_torch.models.bridge.builder import init_bridge_params
+    from videollamb_torch.models.vision.clip_vit import init_vision_params
+
+    t_phase = time.perf_counter()
+    images = write_images(os.path.join("build", "images_smoke"), seed + 100)
+    bcfg = BridgeConfig.from_projector_type("mlp2x_gelu", hidden_size=cfg.vision.hidden_size)
+    icfg = dataclasses.replace(cfg, bridge=bcfg, image_aspect_ratio="anyres",
+                               image_grid_pinpoints=IMAGE_PINPOINTS)
+    kw = dict(dtype=torch.bfloat16, device="cuda")
+    m = VideoLLaMB(None, init_bridge_params(bcfg, cfg.lm.hidden_size, seed=seed + 101, **kw),
+                   model.lm, init_vision_params(VisionConfig(add_time_attn=False),
+                                                seed=seed + 102, **kw),
+                   init_image_newline(cfg.lm.hidden_size, seed=seed + 103, **kw))
+    proc = ImageProcessor(size=cfg.vision.image_size)
+    total = dict.fromkeys(counters(), 0)
+    out = {"answers": {}}
+    rows = [anyres_batch(icfg, g, im, proc) for im in images]
+    for merge in ("spatial_unpad", "flat"):
+        mcfg = dataclasses.replace(icfg, mm_patch_merge_type=merge)
+        for (w, h), batch in zip(IMAGE_SIZES, rows):
+            res = image_answer(m, mcfg, batch, f"{w} x {h}, {merge}")
+            out["answers"][f"{w}x{h} {merge}"] = res
+            for k, v in res["launches"].items():
+                total[k] += v
+    ucfg = dataclasses.replace(icfg, mm_patch_merge_type="spatial_unpad")
+    out["reference"] = anyres_reference(m, ucfg, rows[0], seed)
+    # K3 at the anyres prefill's own shape: the 2048-token buffer, the
+    # 640 x 480 row's spliced length valid.
+    out["k3_anyres"] = k3_likelihood_row(
+        [out["answers"]["640x480 spatial_unpad"]["spliced_tokens"]], cfg.max_length, g)
+    out["k3_anyres"]["layout"] = ("(B, S, H, Dh) projections through multihead_attention; "
+                                  "the anyres prefill (640 x 480, spatial_unpad)")
+    out["train"] = image_train_steps(m, ucfg, images, seed)
+    del m
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    runs = {}
+    for prefetch in (True, False):
+        runs[prefetch] = convoy_run(model, cfg, g, prefetch, seed + 104)
+        label = "convoy" if prefetch else "one at a time"
+        r = runs[prefetch]
+        print(f"[images] paged int8, {IMAGE_SLOTS} slots, {IMAGE_SLOTS} images + {IMAGE_SLOTS} "
+              f"videos, admission {label}: {len(r['admit_ms'])} admitting calls, "
+              f"{len(r['copies'])} host readbacks of {r['copies']} prompt lengths, admission ms "
+              f"{[round(x, 1) for x in r['admit_ms']]}, wall {r['wall_s']:.2f} s, verified "
+              f"signatures {r['verified']}")
+    equal = runs[True]["tokens"] == runs[False]["tokens"]
+    convoys = len(runs[True]["admit_ms"])
+    ok = equal and len(runs[True]["copies"]) <= convoys and len(runs[False]["copies"]) > convoys
+    print(f"[images] convoy tokens equal to one-at-a-time admission: {equal}; readbacks per "
+          f"admitting call {len(runs[True]['copies'])}/{convoys} against "
+          f"{len(runs[False]['copies'])}/{len(runs[False]['admit_ms'])} -> "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("images: convoy admission changed the tokens or its readbacks")
+    for k, v in runs[True]["launches"].items():
+        total[k] += v
+    out["convoy"] = {("prefetch" if p else "per_request"): {
+        k: v for k, v in r.items() if k not in ("tokens", "launches")} for p, r in runs.items()}
+    out["convoy"]["tokens_equal"] = equal
+    seconds = time.perf_counter() - t_phase
+    print(f"[images] phase launches {total}; {seconds:.1f} s")
+    out.update(seconds=seconds, launches=total)
+    return out
+
+
+def tower_answer(kind: str, name: str, frames: int, model, cfg, g: torch.Generator,
+                 seed: int) -> dict:
+    """One research tower at its published width and depth (seeded bf16)
+    under a seeded mlp2x_gelu projector of its width and the resident LM:
+    the encode timed, then one request of TOWER_NEW greedy tokens through
+    ``generate``; the splice buffer fits the tower's tokens."""
+    from videollamb_torch.config import BridgeConfig
+    from videollamb_torch.constants import VIDEO_TOKEN_INDEX
+    from videollamb_torch.models.assembly import (
+        MultimodalBatch,
+        VideoLLaMB,
+        prepare_multimodal_embeds,
+    )
+    from videollamb_torch.models.bridge.builder import init_bridge_params
+    from videollamb_torch.models.engine import generate
+    from videollamb_torch.models.vision.builder import init_tower, resolve_tower, tower_encode
+
+    spec = resolve_tower(name)
+    assert spec.kind == kind, (spec.kind, kind)
+    kw = dict(dtype=torch.bfloat16, device="cuda")
+    tower = init_tower(spec, seed=seed, **kw)
+    width = getattr(spec.config, "hidden_size", None) or spec.config.d_model
+    bcfg = BridgeConfig.from_projector_type("mlp2x_gelu", hidden_size=width)
+    size = spec.config.image_size if hasattr(spec.config, "image_size") else 224
+    pixels = torch.randn((1, frames, 3, size, size), generator=g, device="cuda").to(torch.bfloat16)
+    tower_encode(spec, tower, pixels)  # warm
+    torch.cuda.synchronize()
+    zero_counters()
+    t0 = time.perf_counter()
+    feats = tower_encode(spec, tower, pixels)
+    torch.cuda.synchronize()
+    encode_ms = (time.perf_counter() - t0) * 1e3
+    k1 = read_counters()["spatial_attention"]
+    n_visual = feats.shape[1] * feats.shape[2]
+    tcfg = dataclasses.replace(cfg, bridge=bcfg, tower=spec,
+                               max_length=-(-(n_visual + 64) // 512) * 512)
+    m = VideoLLaMB(tower, init_bridge_params(bcfg, cfg.lm.hidden_size, seed=seed + 1, **kw),
+                   model.lm)
+    ids = torch.randint(4, cfg.lm.vocab_size, (1, 40), generator=g, device="cuda")
+    ids[:, 2] = VIDEO_TOKEN_INDEX
+    batch = MultimodalBatch(input_ids=ids, attention_mask=torch.ones_like(ids), videos=pixels)
+    spliced = int(prepare_multimodal_embeds(m, tcfg, batch).attention_mask.sum())
+    torch.cuda.synchronize()
+    zero_counters()
+    t0 = time.perf_counter()
+    res = generate(m, tcfg, batch, max_new_tokens=TOWER_NEW, do_sample=False,
+                   max_seq_len=tcfg.max_length + 64, eos_token_id=-1)
+    torch.cuda.synchronize()
+    answer_ms = (time.perf_counter() - t0) * 1e3
+    launches = {k: v for k, v in read_counters().items() if k in K123}
+    toks = res.tokens
+    ok = (bool(torch.isfinite(feats.float()).all()) and toks.shape == (1, TOWER_NEW)
+          and 0 <= int(toks.min()) and int(toks.max()) < cfg.lm.vocab_size
+          and spliced == 39 + n_visual and launches["flash_attention"] > 0
+          and (k1 > 0) == (kind == "rmt_languagebind_video"))
+    print(f"[towers] {kind} ({name}, {frames} frames of {size}): features {tuple(feats.shape)}, "
+          f"encode {encode_ms:.1f} ms (K1 x {k1}), {n_visual} visual tokens in a "
+          f"{tcfg.max_length} buffer, {TOWER_NEW} tokens in {answer_ms:.1f} ms, launches "
+          f"{launches}, tokens {toks[0].tolist()} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"towers: {kind} failed its checks")
+    del m, tower
+    return dict(name=name, frames=frames, features=list(feats.shape), encode_ms=encode_ms,
+                visual_tokens=n_visual, buffer=tcfg.max_length, answer_ms=answer_ms,
+                k1_encode_launches=k1, launches=launches)
+
+
+def tower_reference(kind: str, name: str, frames: int, seed: int) -> dict:
+    """A 2-layer depth cut of the tower at full width: card bf16 against host
+    f32 from the same weights, features within PATH_REL_L2."""
+    from videollamb_torch.models.vision.builder import init_tower, resolve_tower, tower_encode
+
+    spec = resolve_tower(name)
+    field = "encoder_layers" if kind == "deformable" else "num_hidden_layers"
+    spec = dataclasses.replace(spec, config=dataclasses.replace(spec.config, **{field: 2}))
+    tower = init_tower(spec, seed=seed, dtype=torch.bfloat16, device="cuda")
+    host = copy.deepcopy(tower).float().cpu()
+    size = spec.config.image_size if hasattr(spec.config, "image_size") else 224
+    pixels = torch.randn((1, frames, 3, size, size), generator=torch.Generator().manual_seed(seed))
+    got = tower_encode(spec, tower, pixels.to("cuda", torch.bfloat16)).float().cpu()
+    want = tower_encode(spec, host, pixels)
+    rel = float((got - want).norm() / want.norm())
+    ok = rel <= PATH_REL_L2 and bool(torch.isfinite(got).all())
+    print(f"[towers] {kind} depth cut (2 layers): card bf16 vs host f32, features "
+          f"{tuple(want.shape)} rel_l2 {rel:.3e} tol {PATH_REL_L2} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"towers: the {kind} depth cut disagrees with the host")
+    del tower, host
+    return dict(rel_l2=rel)
+
+
+def towers_phase(model, cfg, g: torch.Generator, seed: int) -> dict:
+    """Every research tower kind of ``resolve_tower`` at its published width
+    and depth with seeded weights through ``generate`` on the resident LM
+    under a seeded mlp2x_gelu projector of its width; a 2-layer depth cut of
+    each against the host."""
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(counters(), 0)
+    out = {}
+    for i, (kind, name, frames) in enumerate(TOWERS):
+        res = tower_answer(kind, name, frames, model, cfg, g, seed + 120 + i)
+        res["reference"] = tower_reference(kind, name, frames, seed + 140 + i)
+        for k, v in res["launches"].items():
+            total[k] += v
+        total["spatial_attention"] += res["k1_encode_launches"]
+        out[kind] = {k: v for k, v in res.items() if k != "launches"}
+        gc.collect()
+        torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    print(f"[towers] phase launches {total}; {seconds:.1f} s")
+    return dict(towers=out, seconds=seconds, launches=total)
+
+
 def write_peft_adapter(path: str, cfg, seed: int) -> None:
     """A seeded PEFT LoRA directory (r = 8, alpha 16 on q_proj and v_proj of
     every layer; ``adapter_config.json`` and ``adapter_model.bin``). PEFT's
@@ -3679,6 +4205,8 @@ def main() -> int:
     evaluated = eval_phase(model, cfg, g, args.seed)
     print(f"[eval] eval phase took {time.perf_counter() - t0:.1f} s")
     broad = breadth_phase(model, cfg, g, args.seed)
+    imaged = images_phase(model, cfg, g, args.seed)
+    towered = towers_phase(model, cfg, g, args.seed)
 
     t0 = time.perf_counter()
     int8_lm = lm_variant(model, "int8").lm
@@ -3703,9 +4231,10 @@ def main() -> int:
                     temporal_core=enc["old_temporal (K9)"]["temporal_core"],
                     temporal_core_fm=enc["K10 for K2"]["temporal_core_fm"],
                     block_attention=enc["K11 for K1"]["block_attention"])
-    kernels["flash_attention"]["shapes"].append(evaluated["k3_likelihood"])
-    kernels["flash_attention"]["max_abs_err"] = max(kernels["flash_attention"]["max_abs_err"],
-                                                    evaluated["k3_likelihood"]["max_abs_err"])
+    for extra in (evaluated["k3_likelihood"], imaged["k3_anyres"]):
+        kernels["flash_attention"]["shapes"].append(extra)
+        kernels["flash_attention"]["max_abs_err"] = max(
+            kernels["flash_attention"]["max_abs_err"], extra["max_abs_err"])
     rows = []
     for name, (source, replaces) in SOURCES.items():
         r = kernels[name]
@@ -3733,6 +4262,11 @@ def main() -> int:
         if name in ("spatial_attention", "temporal_attention", "flash_attention",
                     "gathered_paged_attention", "paged_fresh_write", "paged_attention_stats"):
             rows[-1]["path_launches"]["breadth"] = broad["launches"][name]
+        if name in ("spatial_attention", "temporal_attention", "flash_attention",
+                    "gathered_paged_attention", "paged_fresh_write"):
+            rows[-1]["path_launches"]["images"] = imaged["launches"][name]
+        if name in ("spatial_attention", "flash_attention"):
+            rows[-1]["path_launches"]["towers"] = towered["launches"][name]
         if name == "flash_attention":  # launches whose sliding window bit
             rows[-1]["path_launches"]["breadth_windowed"] = broad["k3_windowed_launches"]
         if "host_ms" in r:
@@ -3762,7 +4296,10 @@ def main() -> int:
                                if k not in ("launches", "k3_likelihood")},
                       "train": {k: v for k, v in trained.items() if k != "launches"},
                       "breadth": {k: v for k, v in broad.items()
-                                  if k not in ("launches", "k3_windowed_launches")}}))
+                                  if k not in ("launches", "k3_windowed_launches")},
+                      "images": {k: v for k, v in imaged.items()
+                                 if k not in ("launches", "k3_anyres")},
+                      "towers": {k: v for k, v in towered.items() if k != "launches"}}))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -89,8 +89,10 @@ def _randn(dev, *shape, scale=1.0, seed=0):
 
 
 # Token counts: the tower's 257 and a ragged 5 (one block stages the whole
-# head), the largest such head (272), and past it (the streamed route).
-SPATIAL_SHAPES = [(16, 257), (3, 5), (2, 272), (2, 300)]
+# head), the largest such head (272), and past it (the streamed route); an
+# anyres patch stack (a 2 x 2 grid plus the base image, 5 frames of 257) and
+# the RMT tower's step (128 memories + 257 = 385, streamed).
+SPATIAL_SHAPES = [(16, 257), (3, 5), (2, 272), (2, 300), (5, 257), (2, 385)]
 
 
 @pytest.mark.cuda

@@ -57,6 +57,49 @@ def jax_params(cfg: ModelConfig, seed: int = 0) -> dict:
     })
 
 
+def _draw(rng, path, shape) -> np.ndarray:
+    """A random leaf at a scale that keeps activations of order one: He
+    convolutions, 1/sqrt(fan_in) dense kernels, norms (a dict's ``scale``,
+    an array named for a norm) and BatchNorm statistics near identity, small
+    biases, embeddings and stacked LM projections."""
+    name = str(getattr(path[-1], "key", ""))
+    x = rng.normal(size=shape)
+    if name == "kernel":
+        fan_in = int(np.prod(shape[1:])) if len(shape) == 4 else shape[0]
+        x = x * (2.0 / fan_in) ** 0.5
+    elif name == "var":
+        x = 1.0 + 0.1 * np.abs(x)
+    elif name == "scale" or "norm" in name:
+        x = 1.0 + 0.1 * x
+    else:
+        x = 0.05 * x
+    return x.astype(np.float32)
+
+
+def drawn_tree(init, seed: int = 0) -> dict:
+    """The tree ``init(key)`` builds, every leaf drawn from a numpy seed
+    (``jax.eval_shape``: nothing of the initialiser runs, which op by op
+    costs seconds of compiles)."""
+    rng = np.random.default_rng(seed)
+    shapes = jax.eval_shape(init, jax.random.PRNGKey(seed))
+    return jax.tree_util.tree_map_with_path(lambda path, a: _draw(rng, path, a.shape), shapes)
+
+
+def drawn_params(cfg: ModelConfig, seed: int = 0) -> dict:
+    """``jax_params``' tree with every leaf drawn by :func:`drawn_tree`."""
+    from videollamb_tpu.models.bridge.rmt_r import init_rmt_r_params
+    from videollamb_tpu.models.lm.llama import init_llama_params
+    from videollamb_tpu.models.vision.clip_vit import init_vision_params
+
+    def init(key):
+        k1, k2, k3 = jax.random.split(key, 3)
+        return {"video_tower": init_vision_params(k1, cfg.vision),
+                "mm_projector": init_rmt_r_params(k2, cfg.bridge, cfg.lm.hidden_size),
+                "lm": init_llama_params(k3, cfg.lm)}
+
+    return drawn_tree(init, seed)
+
+
 def port_model(cfg: ModelConfig, tree: dict):
     """The port's f32 CPU model holding the JAX tree's parameters."""
     from videollamb_torch.models.assembly import VideoLLaMB

@@ -147,8 +147,8 @@ def test_cli_rejects_unported_flags(checkpoint, tmp_path, monkeypatch, capsys, f
 
 def test_port_imports_no_jax():
     """Importing every module of the port, the training modules, the serving
-    surfaces and the eval drivers included, leaves jax and every module of the
-    JAX package out of sys.modules."""
+    surfaces, the eval drivers, anyres and the research towers included,
+    leaves jax and every module of the JAX package out of sys.modules."""
     code = (
         "import pkgutil, importlib, sys\n"
         "import videollamb_torch\n"
@@ -167,6 +167,10 @@ def test_port_imports_no_jax():
         "'videoqa_consistency', 'videoqa_moviechat', 'videoqa_likelihood', 'videoqa_mixed', "
         "'niavh', 'acc', 'gpt_judge')}\n"
         "assert evals <= set(names), sorted(evals - set(names))\n"
+        "breadth = {'videollamb_torch.' + m for m in ('models.anyres', 'models.vision.builder', "
+        "'models.vision.vit', 'models.vision.rmt_clip_vit', 'models.vision.deform_clip', "
+        "'models.vision.deformable', 'models.vision.egovlp')}\n"
+        "assert breadth <= set(names), sorted(breadth - set(names))\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'videollamb_tpu')]\n"
         "assert not bad, bad\n"
         "print(len(names))\n"
@@ -188,6 +192,11 @@ def test_port_sources_import_nothing_of_the_jax_package():
              os.walk(os.path.join(REPO, "videollamb_torch")) for f in names if f.endswith(".py")]
     files.append(os.path.join(REPO, "chip_smoke.py"))
     assert len(files) > 30
+    rel = {os.path.relpath(f, REPO) for f in files}
+    for module in ("models/anyres.py", "models/vision/builder.py", "models/vision/vit.py",
+                   "models/vision/rmt_clip_vit.py", "models/vision/deform_clip.py",
+                   "models/vision/deformable.py", "models/vision/egovlp.py"):
+        assert os.path.join("videollamb_torch", module) in rel, module
     offenders = [f for f in files if pattern.search(open(f).read())]
     assert not offenders, offenders
 

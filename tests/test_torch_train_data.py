@@ -2,7 +2,7 @@
 conversation templates' ids and label masks (v1, llama_2, mpt, plain and the
 v0 default, legacy and non-legacy tokenizer counting), the collators' arrays,
 the packer's rows and carry, the modality-grouped order, and the dataset's
-decoded samples. Image rows are refused with a pointer to the roadmap."""
+decoded samples, image rows included."""
 
 from __future__ import annotations
 
@@ -167,8 +167,9 @@ def test_measure_block_tokens_equals_jax():
 
 def test_dataset_samples_equal_jax(tmp_path):
     cv2 = pytest.importorskip("cv2")
+    from videollamb_tpu.data.processing import ImageProcessor as JaxImageProcessor
     from videollamb_tpu.data.processing import VideoProcessor as JaxVideoProcessor
-    from videollamb_torch.data.processing import VideoProcessor
+    from videollamb_torch.data.processing import ImageProcessor, VideoProcessor
 
     path = str(tmp_path / "a.mp4")
     writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), 30, (64, 48))
@@ -183,23 +184,27 @@ def test_dataset_samples_equal_jax(tmp_path):
         {"image": "x.png", "conversations": [{"from": "human", "value": "<image> what"},
                                              {"from": "gpt", "value": "a picture"}]},
     ]
+    cv2.imwrite(str(tmp_path / "x.png"),
+                np.random.default_rng(0).integers(0, 255, (40, 70, 3)).astype(np.uint8))
     data_path = tmp_path / "data.json"
     data_path.write_text(json.dumps(records))
-    jset = jds.SupervisedDataset(str(data_path), WordTokenizer(),
-                                 jds.DataConfig(video_folder=str(tmp_path), num_frames=8),
-                                 video_processor=JaxVideoProcessor(size=56))
-    pset = pds.SupervisedDataset(str(data_path), WordTokenizer(),
-                                 pds.DataConfig(video_folder=str(tmp_path), num_frames=8),
-                                 video_processor=VideoProcessor(size=56))
+    folders = dict(video_folder=str(tmp_path), image_folder=str(tmp_path), num_frames=8)
+    jset = jds.SupervisedDataset(str(data_path), WordTokenizer(), jds.DataConfig(**folders),
+                                 video_processor=JaxVideoProcessor(size=56),
+                                 image_processor=JaxImageProcessor(size=56))
+    pset = pds.SupervisedDataset(str(data_path), WordTokenizer(), pds.DataConfig(**folders),
+                                 video_processor=VideoProcessor(size=56),
+                                 image_processor=ImageProcessor(size=56))
     assert len(pset) == 3 and pset.modality_lengths() == jset.modality_lengths()
     assert [pset.modality(i) for i in range(3)] == [jset.modality(i) for i in range(3)]
-    for i in range(2):
+    for i in range(3):
         want, got = jset[i], pset[i]
         assert sorted(got) == sorted(want)
         for key in got:
             np.testing.assert_array_equal(got[key], want[key], err_msg=key)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        pset[2]
-    with pytest.raises(NotImplementedError, match="item 7"):
-        pds.Collator()([{"input_ids": np.ones(3, np.int32), "labels": np.ones(3, np.int32),
-                         "image": np.zeros((3, 4, 4), np.float32)}])
+    # The image row (padded to square) collates as the JAX package's does.
+    want = jds.Collator()([jset[2], jset[1]])
+    got = pds.Collator()([pset[2], pset[1]])
+    for key in ("input_ids", "attention_mask", "labels", "images"):
+        np.testing.assert_array_equal(getattr(got, key), getattr(want, key), err_msg=key)
+    assert got.videos is None and want.videos is None

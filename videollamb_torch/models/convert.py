@@ -28,6 +28,11 @@ package can be compared leaf by leaf. The bridge maps by name for every
 projector kind (``models/bridge/variants.py`` keeps the JAX tree's leaf
 names).
 
+:func:`research_tower_from_jax` / :func:`research_tower_to_jax` carry the
+research towers of ``models/vision/builder.py`` by their kind; their
+modules keep the JAX tree's leaf names. ``image_newline`` (the anyres row
+terminator) maps to the model's parameter of that name.
+
 :func:`binding_from_jax` / :func:`binding_to_jax` carry the LanguageBind
 binding tree (``models/binding.py``: per-modality towers, projections and
 logit scales, and the text encoder) both ways.
@@ -35,7 +40,7 @@ logit scales, and the text encoder) both ways.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -257,18 +262,26 @@ def to_jax_params(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
              if k.startswith("image_tower.")}
     if image:
         tree["image_tower"] = _tower_to_jax(image)
+    if "image_newline" in state:
+        tree["image_newline"] = _np(state["image_newline"])
     return tree
 
 
-def from_jax_params(tree: Mapping[str, Any]) -> State:
-    """JAX parameter tree ({'lm', 'mm_projector', 'video_tower', 'image_tower'},
-    numpy leaves) -> state dict of :class:`videollamb_torch.models.assembly.VideoLLaMB`."""
+def from_jax_params(tree: Mapping[str, Any], tower: Optional[str] = None) -> State:
+    """JAX parameter tree ({'lm', 'mm_projector', 'video_tower', 'image_tower',
+    'image_newline'}, numpy leaves) -> state dict of
+    :class:`videollamb_torch.models.assembly.VideoLLaMB`. ``tower`` names a
+    research tower's kind (``TowerSpec.kind``) whose converter maps the
+    tower entries; the default is the CLIP family's."""
     state: State = {}
+    tower_fn = _tower_from_jax if tower is None else (lambda t: research_tower_from_jax(tower, t))
     parts = (("lm", _lm_from_jax), ("mm_projector", _bridge_from_jax),
-             ("video_tower", _tower_from_jax), ("image_tower", _tower_from_jax))
+             ("video_tower", tower_fn), ("image_tower", tower_fn))
     for key, fn in parts:
         if key in tree:
             state.update({f"{key}.{k}": v for k, v in fn(tree[key]).items()})
+    if "image_newline" in tree:
+        state["image_newline"] = _t(tree["image_newline"])
     return state
 
 
@@ -407,3 +420,111 @@ def binding_to_jax(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
     tree["text"] = {"encoder": _text_to_jax(text),
                     "projection": _np(state["text.projection.weight"]).T}
     return tree
+
+
+# ---------------------------------------------------------------------------
+# Research towers (models/vision/{vit,rmt_clip_vit,deform_clip,deformable,egovlp}.py)
+# ---------------------------------------------------------------------------
+
+
+def _put_research(out: State, key: str, node: Any) -> None:
+    """One node of a research tower's JAX tree under the torch name ``key``:
+    {kernel[, bias]} is a Linear ((in, out) kernel, transposed) or a
+    convolution (OIHW kernel, as is), a bias of None is absent;
+    {scale, bias, mean, var} an inference BatchNorm; {scale, bias} a
+    LayerNorm or GroupNorm; lists are numbered children."""
+    if isinstance(node, list):
+        for i, child in enumerate(node):
+            _put_research(out, f"{key}.{i}", child)
+    elif isinstance(node, dict) and "kernel" in node:
+        kernel = np.asarray(node["kernel"])
+        out[f"{key}.weight"] = _t(kernel.T if kernel.ndim == 2 else kernel)
+        if node.get("bias") is not None:
+            out[f"{key}.bias"] = _t(node["bias"])
+    elif isinstance(node, dict) and "scale" in node:
+        out[f"{key}.weight"] = _t(node["scale"])
+        out[f"{key}.bias"] = _t(node["bias"])
+        if "mean" in node:
+            out[f"{key}.running_mean"] = _t(node["mean"])
+            out[f"{key}.running_var"] = _t(node["var"])
+    elif isinstance(node, dict):
+        for name, child in node.items():
+            _put_research(out, f"{key}.{name}" if key else name, child)
+    else:
+        out[key] = _t(node)
+
+
+def _research_to_jax(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """Inverse of :func:`_put_research`: a 2-D ``weight`` is a transposed
+    kernel, a 4-D one a convolution kernel, a 1-D one a norm's scale;
+    running statistics are a BatchNorm's mean and var."""
+    tree: Dict[str, Any] = {}
+    rename = {"running_mean": "mean", "running_var": "var"}
+    for key, value in sd.items():
+        parts = key.split(".")
+        leaf = rename.get(parts[-1], parts[-1])
+        arr = _np(value)
+        if leaf == "weight":
+            leaf, arr = (("scale", arr) if arr.ndim == 1 else
+                         ("kernel", arr.T if arr.ndim == 2 else arr))
+        node = tree
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[leaf] = arr
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(k.isdigit() for k in node):
+            return [lists(node[str(i)]) for i in range(len(node))]
+        return {k: lists(v) for k, v in node.items()}
+
+    return lists(tree)
+
+
+def _clip_embeddings_from_jax(emb: Mapping[str, Any], prefix: str) -> State:
+    kernel = np.asarray(emb["patch_embedding"]["kernel"])  # (C*p*p, D)
+    d = kernel.shape[1]
+    p = int(round((kernel.shape[0] // 3) ** 0.5))
+    return {f"{prefix}class_embedding": _t(emb["class_embedding"]),
+            f"{prefix}patch_embedding.weight": _t(kernel.T.reshape(d, 3, p, p)),
+            f"{prefix}position_embedding.weight": _t(emb["position_embedding"])}
+
+
+def research_tower_from_jax(kind: str, tree: Mapping[str, Any]) -> State:
+    """A tower of ``kind`` (``TowerSpec.kind``), as the JAX package's
+    ``init_*_params`` / converters build it -> the port module's state."""
+    if kind == "rmt_languagebind_video":
+        out = _tower_from_jax({k: v for k, v in tree.items() if k != "encoder_memory"})
+        _put_research(out, "encoder_memory", tree["encoder_memory"])
+        return out
+    if kind == "deform_clip":
+        out = _clip_embeddings_from_jax(tree["embeddings"], "embeddings.")
+        _put_research(out, "", {k: v for k, v in tree.items() if k != "embeddings"})
+        return out
+    if kind in ("vit", "vitmae", "vivit", "videomae", "deformable", "egovlp"):
+        out: State = {}
+        _put_research(out, "", tree)
+        return out
+    return _tower_from_jax(tree)
+
+
+def research_tower_to_jax(kind: str, state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """Inverse of :func:`research_tower_from_jax` (float towers)."""
+    if kind == "rmt_languagebind_video":
+        tree = _tower_to_jax(state)
+        tree["encoder_memory"] = {k.split(".")[-1]: _np(v) for k, v in state.items()
+                                  if k.startswith("encoder_memory.")}
+        return tree
+    if kind == "deform_clip":
+        weight = _np(state["embeddings.patch_embedding.weight"])
+        tree = _research_to_jax({k: v for k, v in state.items()
+                                 if not k.startswith("embeddings.")})
+        tree["embeddings"] = {
+            "class_embedding": _np(state["embeddings.class_embedding"]),
+            "patch_embedding": {"kernel": weight.reshape(weight.shape[0], -1).T},
+            "position_embedding": _np(state["embeddings.position_embedding.weight"])}
+        return tree
+    if kind in ("vit", "vitmae", "vivit", "videomae", "deformable", "egovlp"):
+        return _research_to_jax(state)
+    return _tower_to_jax(state)

@@ -1,0 +1,222 @@
+"""EgoVLP video tower: the Frozen-in-Time divided space-time ViT.
+
+Port of ``videollamb_tpu/models/vision/egovlp.py`` (reference
+llava/model/multimodal_encoder/egovlp/model/video_transformer.py,
+SpaceTimeTransformer, arXiv:2104.00650). Per block (:214-229):
+
+    time_out  = timeattn(norm3(x))        # across frames, per position
+    time_res  = x + time_out
+    space_out = attn(norm1(time_res))     # within each frame
+    space_res = x + space_out             # residual from x (:225)
+    x = space_res + mlp(norm2(space_res))
+
+Divided attention (VarAttention, :117-153): the CLS query attends over the
+whole (1 + f*n) sequence; patch queries attend within their group (one
+spatial position across frames for time, one frame for space) with the CLS
+key / value prepended to every group. Positions (:353-372): a per-frame
+table tiled over frames plus a temporal embedding repeated over patches.
+
+The module keeps the reference's (and the JAX tree's) names, so
+``models/convert.py`` and :func:`convert_egovlp_state_dict` map it. The
+attention is plain PyTorch, as it is plain XLA in the JAX package. The
+image-to-text cross-attention that only the EgoVLP retrieval text encoder
+drives (``egovlp_text.py``) is not part of the tower.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from videollamb_torch.models.seeded import empty_module, generator
+from videollamb_torch.models.vision.deformable import _ln
+
+
+@dataclass(frozen=True)
+class EgoVLPConfig:
+    """ViT-B/16 defaults (video_transformer.py:247-249)."""
+
+    hidden_size: int = 768
+    num_hidden_layers: int = 12
+    num_attention_heads: int = 12
+    mlp_ratio: float = 4.0
+    image_size: int = 224
+    patch_size: int = 16
+    num_frames: int = 4
+    layer_norm_eps: float = 1e-6
+
+    @property
+    def patches_per_frame(self) -> int:
+        return (self.image_size // self.patch_size) ** 2
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_attention_heads
+
+
+class VarAttention(nn.Module):
+    def __init__(self, d: int):
+        super().__init__()
+        self.qkv = nn.Linear(d, 3 * d)
+        self.proj = nn.Linear(d, d)
+
+
+class Mlp(nn.Module):
+    def __init__(self, d: int, inter: int):
+        super().__init__()
+        self.fc1 = nn.Linear(d, inter)
+        self.fc2 = nn.Linear(inter, d)
+
+
+class SpaceTimeBlock(nn.Module):
+    def __init__(self, cfg: EgoVLPConfig):
+        super().__init__()
+        d = cfg.hidden_size
+        self.norm1 = nn.LayerNorm(d, eps=cfg.layer_norm_eps)
+        self.norm2 = nn.LayerNorm(d, eps=cfg.layer_norm_eps)
+        self.norm3 = nn.LayerNorm(d, eps=cfg.layer_norm_eps)
+        self.attn = VarAttention(d)
+        self.timeattn = VarAttention(d)
+        self.mlp = Mlp(d, int(d * cfg.mlp_ratio))
+
+
+class EgoVLPTower(nn.Module):
+    def __init__(self, cfg: EgoVLPConfig):
+        super().__init__()
+        d = cfg.hidden_size
+        self.patch_embed = nn.Linear(3 * cfg.patch_size ** 2, d)
+        self.cls_token = nn.Parameter(torch.empty(d))
+        self.pos_embed = nn.Parameter(torch.empty(cfg.patches_per_frame + 1, d))
+        self.temporal_embed = nn.Parameter(torch.empty(cfg.num_frames, d))
+        self.blocks = nn.ModuleList(SpaceTimeBlock(cfg) for _ in range(cfg.num_hidden_layers))
+        self.norm = nn.LayerNorm(d, eps=cfg.layer_norm_eps)
+
+
+def _attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Plain softmax attention with f32 scores (reference attn(), :35-39)."""
+    s = torch.matmul(q, k.transpose(-1, -2)).float()
+    return torch.matmul(torch.softmax(s, -1).to(v.dtype), v)
+
+
+def _var_attention(p: VarAttention, x: torch.Tensor, cfg: EgoVLPConfig, mode: str,
+                   f: int) -> torch.Tensor:
+    """Divided attention over time ('time': one group per spatial position)
+    or space ('space': one group per frame) groups; x (b, 1 + f*n, d)."""
+    b, tot, d = x.shape
+    h, e = cfg.num_attention_heads, cfg.head_dim
+    n = (tot - 1) // f
+    qkv = p.qkv(x).reshape(b, tot, 3, h, e)
+    q, k, v = (qkv[:, :, i].transpose(1, 2).reshape(b * h, tot, e) for i in range(3))
+    q = q * e ** -0.5
+    cls_out = _attn(q[:, :1], k, v)  # the CLS query attends over everything
+    if mode == "time":  # 'b (f n) d -> (b n) f d'
+        def group(t):
+            return t.reshape(b * h, f, n, e).transpose(1, 2).reshape(b * h * n, f, e)
+
+        def ungroup(t):
+            return t.reshape(b * h, n, f, e).transpose(1, 2).reshape(b * h, f * n, e)
+
+        r = n
+    else:  # 'b (f n) d -> (b f) n d'
+        def group(t):
+            return t.reshape(b * h * f, n, e)
+
+        def ungroup(t):
+            return t.reshape(b * h, f * n, e)
+
+        r = f
+    kg = torch.cat([k[:, :1].repeat_interleave(r, 0), group(k[:, 1:])], 1)
+    vg = torch.cat([v[:, :1].repeat_interleave(r, 0), group(v[:, 1:])], 1)
+    out = torch.cat([cls_out, ungroup(_attn(group(q[:, 1:]), kg, vg))], 1)
+    out = out.reshape(b, h, tot, e).transpose(1, 2).reshape(b, tot, d)
+    return p.proj(out)
+
+
+def _block(p: SpaceTimeBlock, x: torch.Tensor, cfg: EgoVLPConfig, f: int) -> torch.Tensor:
+    eps = cfg.layer_norm_eps
+    time_res = x + _var_attention(p.timeattn, _ln(p.norm3, x, eps), cfg, "time", f)
+    space_res = x + _var_attention(p.attn, _ln(p.norm1, time_res, eps), cfg, "space", f)
+    h = p.mlp.fc2(F.gelu(p.mlp.fc1(_ln(p.norm2, space_res, eps))))
+    return space_res + h
+
+
+def egovlp_embed_patches(tower: EgoVLPTower, pixels: torch.Tensor,
+                         cfg: EgoVLPConfig) -> torch.Tensor:
+    """(B, F, C, H, W) -> (B, 1 + F*N, D) CLS + patch tokens with the tiled
+    positions (forward_features :353-372)."""
+    b, f, c, hh, ww = pixels.shape
+    ps = cfg.patch_size
+    gh, gw = hh // ps, ww // ps
+    n = gh * gw
+    d = cfg.hidden_size
+    # Per-frame patchify (VideoPatchEmbed: a 2-D conv applied frame-wise).
+    x = pixels.reshape(b * f, c, gh, ps, gw, ps).permute(0, 2, 4, 1, 3, 5)
+    x = tower.patch_embed(x.reshape(b * f, n, c * ps * ps)).reshape(b, f * n, d)
+    x = torch.cat([tower.cls_token.to(x.dtype).expand(b, 1, d), x], 1)
+    pos = tower.pos_embed.to(x.dtype)
+    temb = tower.temporal_embed.to(x.dtype)
+    tiled = pos[1:].repeat(cfg.num_frames, 1) + temb.repeat_interleave(n, 0)
+    total = torch.cat([pos[:1], tiled], 0)
+    return x + total[: x.shape[1]][None]
+
+
+def egovlp_encode(tower: EgoVLPTower, pixels: torch.Tensor, cfg: EgoVLPConfig) -> torch.Tensor:
+    """(B, F, C, H, W) -> (B, 1 + F*N, D) final-LN hidden states; row 0 is
+    the video embedding the reference pools (:392)."""
+    f = pixels.shape[1]
+    x = egovlp_embed_patches(tower, pixels.to(tower.cls_token.dtype), cfg)
+    for block in tower.blocks:
+        x = _block(block, x, cfg, f)
+    return _ln(tower.norm, x, cfg.layer_norm_eps)
+
+
+def init_egovlp_params(cfg: EgoVLPConfig, *, seed: int = 0, dtype=torch.float32,
+                       device="cpu") -> EgoVLPTower:
+    """Seeded tower as the JAX initialiser draws it: 0.02-std kernels, zero
+    biases, CLS and temporal table; time attention 'zeros' init (qkv zero,
+    proj weight ones, :97-101), so the model starts as a ViT."""
+    tower = empty_module(lambda: EgoVLPTower(cfg), device, dtype)
+    g = generator(device, seed)
+    with torch.no_grad():
+        for name, p in tower.named_parameters():
+            if "norm" in name:
+                p.fill_(1.0 if name.endswith("weight") else 0.0)
+            elif name.endswith("bias") or name in ("cls_token", "temporal_embed") \
+                    or name.endswith("timeattn.qkv.weight"):
+                p.zero_()
+            elif name.endswith("timeattn.proj.weight"):
+                p.fill_(1.0)
+            else:
+                p.normal_(0.0, 0.02, generator=g)
+    return tower
+
+
+def convert_egovlp_state_dict(sd: Mapping[str, Any], cfg: EgoVLPConfig) -> dict:
+    """Reference SpaceTimeTransformer state dict (video_transformer.py:231-352
+    names) -> the state of :class:`EgoVLPTower`: the names carry over; the
+    Conv2d patch embed flattens to a (D, C*ps*ps) Linear weight, channel
+    major, matching the pixel unfold in :func:`egovlp_embed_patches`."""
+    def t(name):
+        v = sd[name]
+        return v.detach().float().cpu() if torch.is_tensor(v) else torch.as_tensor(
+            np.asarray(v, np.float32))
+
+    d = cfg.hidden_size
+    out = {"patch_embed.weight": t("patch_embed.proj.weight").reshape(d, -1),
+           "patch_embed.bias": t("patch_embed.proj.bias"),
+           "cls_token": t("cls_token").reshape(d),
+           "pos_embed": t("pos_embed")[0],
+           "temporal_embed": t("temporal_embed")[0],
+           "norm.weight": t("norm.weight"), "norm.bias": t("norm.bias")}
+    for i in range(cfg.num_hidden_layers):
+        p = f"blocks.{i}."
+        for name in ("norm1", "norm2", "norm3", "attn.qkv", "attn.proj", "timeattn.qkv",
+                     "timeattn.proj", "mlp.fc1", "mlp.fc2"):
+            for leaf in ("weight", "bias"):
+                out[f"{p}{name}.{leaf}"] = t(f"{p}{name}.{leaf}")
+    return out

@@ -303,6 +303,10 @@ class Server:
         if req.uid is None:
             req.uid = self._uid()
         req.top_p = float(row.get("top_p", 1.0))
+        # Text-only rows: the host-known prompt length skips the admission readback.
+        b = req.batch
+        if b.videos is None and b.images is None and b.blocks is None:
+            req.prompt_len = int(b.attention_mask.sum())
         req._done_event = threading.Event()
         self.metrics.on_submit(req)
         req.on_token = lambda r, tok: self.metrics.on_token(r)
@@ -343,6 +347,8 @@ class Server:
     def _prompt_tokens(self, req) -> int:
         """Text prompt length (media splice expansion is device-side and
         not synced back; text-only rows report the exact spliced length)."""
+        if req.prompt_len is not None:
+            return int(req.prompt_len)
         return int(req.batch.attention_mask.sum())
 
     def stream_request(self, req, stops=None):

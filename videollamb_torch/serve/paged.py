@@ -8,7 +8,9 @@ context memory allocated in pages from one shared pool
 
 - admission splices the request, allocates ceil(prompt_len / page) pages and
   prefills straight into them (``fused_admit``); when the pool is short the
-  request waits in the queue;
+  request waits in the queue; the pending requests that fit the free slots
+  are spliced together first, their prompt lengths read back in one copy
+  (``_prefetch_admissions``);
 - before every decode the engine allocates the pages that the next k tokens
   of each active slot need (``_ensure_pages``);
 - when page growth exhausts the pool, an idle cached prefix is evicted
@@ -77,8 +79,8 @@ from videollamb_torch.serve.server import Request, ServingEngine, _shared_consum
 def batch_signature(batch) -> bytes:
     """Content hash of a MultimodalBatch, the automatic prefix cache key:
     splicing is deterministic, so equal token ids, masks and media bytes
-    (videos, images and every mixed block with its modality) mean equal
-    prefill KV."""
+    (videos, images, anyres grid specs and every mixed block with its
+    modality) mean equal prefill KV."""
     h = hashlib.sha256()
 
     def put(t) -> None:
@@ -89,7 +91,8 @@ def batch_signature(batch) -> bytes:
         h.update(f"{t.dtype}{tuple(t.shape)}".encode())
         h.update(t.view(torch.uint8).numpy().tobytes())
 
-    for t in (batch.input_ids, batch.attention_mask, batch.videos, batch.images):
+    for t in (batch.input_ids, batch.attention_mask, batch.videos, batch.images,
+              batch.image_specs):
         put(t)
     if batch.blocks is None:
         h.update(b"\x00")
@@ -255,7 +258,7 @@ class PagedServingEngine(ServingEngine):
         if private is None:
             return False  # pool exhausted: backpressure
         self.pending.get()
-        req._spliced = None
+        req._spliced_cache = None
         # Suffix-only prefill of the suffix's own tokens (not the splice
         # buffer's padding) over a copy of the prefix's rows, in a dense cache
         # as long as the slot's pages (the last one partly filled).
@@ -325,11 +328,39 @@ class PagedServingEngine(ServingEngine):
                     "(prefix KV is base-model)")
         return None
 
+    def _prefetch_admissions(self) -> None:
+        """Batch the admission readbacks of one convoy: every plain pending
+        request (no prefix, no share_prefill group) that fits the free slots
+        is spliced here, and the splices whose length the host does not know
+        share ONE device-to-host readback of their stacked mask sums. The
+        results ride ``req._spliced_cache`` into :meth:`_admit`."""
+        free = sum(r is None for r in self.slots)
+        if free <= 1 or self.pending.empty():
+            return
+        todo = []
+        for req in list(self.pending.queue)[:free]:
+            if (req.cancelled or req.prefix_id is not None or req.prefix_batch is not None
+                    or req._shared_prefill is not None or req._spliced_cache is not None):
+                continue
+            spliced = prepare_multimodal_embeds(self.model, self.cfg, req.batch)
+            trusted = self._trusted_prompt_len(req)
+            if trusted is not None:
+                req._spliced_cache = (spliced, trusted)
+            else:
+                todo.append((req, spliced))
+        if not todo:
+            return
+        sums = self._readback(torch.stack([s.attention_mask.sum() for _, s in todo]))
+        for (req, spliced), val in zip(todo, sums):
+            self._check_prompt_len(req, int(val))
+            req._spliced_cache = (spliced, int(val))
+
     def _admit(self) -> None:
         # Releases of the previous commit reach the card first: admission may
         # reuse their pages. Swapped requests resume before anything pending.
         self._sync_table()
         self._readmit_swapped()
+        self._prefetch_admissions()
         while not self.pending.empty():
             slot = self._free_slot()
             if slot is None:
@@ -377,7 +408,7 @@ class PagedServingEngine(ServingEngine):
             page_ids[:len(pages)] = pages
             if shared is None:
                 spliced, _ = self._splice(req)
-                req._spliced = None
+                req._spliced_cache = None
                 with adapter_rows(self.model.lm, aidx1):
                     fused_admit(self.model.lm, self.cfg.lm, spliced.embeds.to(self._dtype),
                                 spliced.attention_mask, prompt_len, self.cache, self.logits,

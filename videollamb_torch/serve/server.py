@@ -30,9 +30,11 @@ and take free slots.
 (``serve/paged.py``), which adds prefix caching. Sampling draws from a
 ``torch.Generator``, so sampled tokens differ from the JAX package's
 (``jax.random``); greedy tokens are the same. Image, audio and mixed rows
-splice at admission like video rows; the host-side prompt-length hints that
-spare JAX's engines one sync there (``Request.prompt_len``,
-``spliced_prompt_len_host``) are not ported (ROADMAP.md section A, item 7).
+splice at admission like video rows. A request's ``prompt_len`` (the row's
+mask sum) spares the admission its one device-to-host readback: exact for
+text rows, through :func:`spliced_prompt_len_host` for a single image under
+an rmt-family projector, that formula checked against the device once per
+shape signature (:meth:`ServingEngine._resolve_prompt_len`).
 """
 
 from __future__ import annotations
@@ -89,6 +91,12 @@ class Request:
     # Grammar constraint (serve/grammar.py), e.g. json_constraint(tokenizer).
     # Exclusive with ``choices``.
     grammar: Any = None
+    # Optional host-known prompt length (valid tokens in attention_mask).
+    # Text rows splice to exactly this length; a single image through an
+    # rmt-family projector to spliced_prompt_len_host's, checked once per
+    # shape signature. Either spares admission one device-to-host readback.
+    # Other media rows ignore it (their spliced length is device-computed).
+    prompt_len: Optional[int] = None
     # Per-token logprobs (OpenAI "logprobs"): the chosen token's, and the
     # ``top_logprobs`` (<= TOP_LOGPROBS_K) best alternatives, always under the
     # base model's distribution (raw f32 log-softmax, see logprobs_of).
@@ -106,9 +114,11 @@ class Request:
     # Called with (request, token) as each token is committed on the host.
     on_token: Any = None
     cancelled: bool = False
-    # Engine-internal: (spliced batch, prompt length) kept while admission
-    # waits for pages, so backpressure does not encode the video again.
-    _spliced: Any = None
+    # Engine-internal: (spliced batch, prompt length), staged by the paged
+    # engine's convoy prefetch (_prefetch_admissions) or kept while
+    # admission waits for pages, so backpressure does not encode again;
+    # consumed and cleared at admission.
+    _spliced_cache: Any = None
     # Engine-internal: the live choice or grammar cursor.
     _constraint: Any = None
     # Engine-internal: the share_prefill group of this request.
@@ -142,7 +152,41 @@ def clone_request(req: Request) -> Request:
         min_tokens=req.min_tokens, prefix_id=req.prefix_id,
         prefix_batch=req.prefix_batch if req.prefix_id is None else None,
         adapter=req.adapter, choices=[list(c) for c in req.choices] if req.choices else None,
-        grammar=grammar, logprobs=req.logprobs, top_logprobs=req.top_logprobs)
+        grammar=grammar, prompt_len=req.prompt_len, logprobs=req.logprobs,
+        top_logprobs=req.top_logprobs)
+
+
+def spliced_prompt_len_host(cfg: ModelConfig, batch: MultimodalBatch,
+                            text_len: int) -> Optional[int]:
+    """The exact spliced prompt length computed on the host, or None where
+    only the device knows it.
+
+    ``text_len`` is the caller's token count of the row (its mask sum, the
+    media sentinel included). For a single IMAGE through an rmt-family
+    projector the visual block is always ``tokens_per_frame`` valid tokens
+    (one pooled frame, every token valid), so the length is
+    ``text_len - 1 + tokens_per_frame``. VIDEO rows return None: the RMT-R
+    splice carries only the last SceneTilling segment, whose valid frame
+    count depends on where the boundaries fall. Mixed blocks, anyres,
+    batched rows and other projector kinds return None too. Engines check
+    the formula against the device sum once per shape signature before
+    trusting it (:meth:`ServingEngine._resolve_prompt_len`)."""
+    b = batch
+    if b.images is None or b.videos is not None or b.blocks is not None:
+        return None
+    if b.images.dim() != 4 or b.images.shape[0] != 1:
+        return None
+    br = cfg.bridge
+    if br.kind not in ("rmt_transformer", "rmt_r_transformer"):
+        return None
+    return min(text_len - 1 + br.tokens_per_frame, cfg.max_length)
+
+
+def _length_mismatch(host: int, device: int, sig) -> RuntimeError:
+    return RuntimeError(
+        f"host spliced-length formula gave {host} but the device splice produced "
+        f"{device} for signature {sig}; the request's prompt_len must be the row's "
+        "attention-mask sum with exactly one media sentinel")
 
 
 def share_prefill(reqs: List[Request]) -> None:
@@ -478,6 +522,8 @@ class ServingEngine:
         self.adapter_idx = torch.full((num_slots,), -1, dtype=torch.long, device=self.device)
         self._adapter_host = np.full((num_slots,), -1, np.int64)
         self._choice_tables: dict = {}
+        # Shape signatures whose host prompt-length formula matched the device.
+        self._len_verified: set = set()
 
     # ------------------------------------------------------------------
     def submit(self, request: Request) -> None:
@@ -489,17 +535,61 @@ class ServingEngine:
                 return i
         return None
 
+    @staticmethod
+    def _readback(t: torch.Tensor) -> np.ndarray:
+        """The one device-to-host copy of admission's prompt lengths."""
+        return t.cpu().numpy()
+
+    def _host_prompt_len(self, req: Request):
+        """None (the device sum is needed), or ``(length, sig)``: ``sig`` is
+        None for lengths exact by contract (text rows: the mask sum) and a
+        shape signature for formula lengths (spliced_prompt_len_host), which
+        must match the device sum once before they are trusted."""
+        if req.prompt_len is None:
+            return None
+        b = req.batch
+        if b.videos is None and b.images is None and b.blocks is None:
+            return int(req.prompt_len), None
+        val = spliced_prompt_len_host(self.cfg, b, int(req.prompt_len))
+        if val is None:
+            return None
+        return val, (tuple(b.images.shape), int(req.prompt_len))
+
+    def _trusted_prompt_len(self, req: Request) -> Optional[int]:
+        hint = self._host_prompt_len(req)
+        if hint is not None and (hint[1] is None or hint[1] in self._len_verified):
+            return hint[0]
+        return None
+
+    def _check_prompt_len(self, req: Request, prompt_len: int) -> None:
+        """Verify (and then trust) the request's host formula, if it has one."""
+        hint = self._host_prompt_len(req)
+        if hint is not None:
+            if hint[0] != prompt_len:
+                raise _length_mismatch(hint[0], prompt_len, hint[1])
+            self._len_verified.add(hint[1])
+
+    def _resolve_prompt_len(self, req: Request, spliced) -> int:
+        """Spliced prompt length: the host's when known and verified, else the
+        device mask sum (verifying the host formula for its signature)."""
+        trusted = self._trusted_prompt_len(req)
+        if trusted is not None:
+            return trusted
+        prompt_len = int(self._readback(spliced.attention_mask.sum()))
+        self._check_prompt_len(req, prompt_len)
+        return prompt_len
+
     def _splice(self, req: Request):
         """(spliced batch, prompt length) of a request, kept on it until admitted."""
-        if req._spliced is None:
+        if req._spliced_cache is None:
             spliced = prepare_multimodal_embeds(self.model, self.cfg, req.batch)
-            req._spliced = (spliced, int(spliced.attention_mask.sum()))
-        return req._spliced
+            req._spliced_cache = (spliced, self._resolve_prompt_len(req, spliced))
+        return req._spliced_cache
 
     def _drop(self, req: Request, error: Optional[str] = None) -> None:
         req.done = True
         req.error = error
-        req._spliced = None
+        req._spliced_cache = None
         self._dropped.append(req)
         _shared_consume(req)
 
@@ -532,7 +622,7 @@ class ServingEngine:
         if shared is not None and shared["data"] is not None:
             return shared["data"]
         spliced, prompt_len = self._splice(req)
-        req._spliced = None
+        req._spliced_cache = None
         embeds = spliced.embeds.to(self._dtype)
         single = init_kv_cache(self.cfg.lm, 1, self.cfg.max_length, dtype=self._dtype,
                                device=self.device)

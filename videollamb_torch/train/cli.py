@@ -11,9 +11,11 @@ the Trainer refuses another kind before the first step. The trained parameters a
 frozen base and towers stay in bf16 with ``--bf16 True`` (the default), and
 every product runs in the activations' dtype, as the JAX ``_proj`` casts.
 
-Not ported here: ``--sequence_parallel`` and ``--model_parallel`` above 1
-(ROADMAP.md section A, item 8: multi-GPU), and image or audio data
-(item 7), which raise.
+Image rows (``--image_folder``, ``--image_aspect_ratio`` square / pad /
+anyres) and audio rows (``--audio_folder``, WAV) reach the dataset as in
+the JAX package; the image and video processors take the model's tower
+size. Not ported here: ``--sequence_parallel`` and ``--model_parallel``
+above 1 (ROADMAP.md section A, item 8: multi-GPU), which raise.
 """
 
 from __future__ import annotations
@@ -43,7 +45,8 @@ def parse_args(argv=None):
     p.add_argument("--image_folder", type=str, default="")
     p.add_argument("--video_folder", type=str, default="")
     p.add_argument("--audio_folder", type=str, default="",
-                   help="root for 'audio' (WAV) samples (not ported: such rows raise)")
+                   help="root for 'audio' (WAV) samples; pairs with an audio "
+                        "--image_tower (AUDIO modality extension)")
     p.add_argument("--num_frames", type=int, default=16)
     p.add_argument("--image_aspect_ratio", type=str, default="pad")
     # Training arguments (reference TrainingArguments)
@@ -107,7 +110,7 @@ def main(argv=None, tokenizer=None, log_fn=None):
             "--sequence_parallel / --model_parallel above 1 are not ported yet "
             "(ROADMAP.md section A, item 8: the multi-GPU step factories)")
 
-    from videollamb_torch.data.processing import VideoProcessor
+    from videollamb_torch.data.processing import ImageProcessor, VideoProcessor
     from videollamb_torch.models.builder import load_pretrained_model
     from videollamb_torch.models.lm.lora import add_lora_params
     from videollamb_torch.train.dataset import Collator, DataConfig, SupervisedDataset
@@ -148,6 +151,7 @@ def main(argv=None, tokenizer=None, log_fn=None):
     dataset = SupervisedDataset(
         args.data_path, tokenizer, dcfg,
         video_processor=VideoProcessor(size=model_cfg.vision.image_size, training=True),
+        image_processor=ImageProcessor(size=model_cfg.vision.image_size),
         seed=args.seed)
     trainer = Trainer(
         model_cfg, tcfg, model, dataset,

@@ -220,6 +220,7 @@ class Trainer:
             self.collator = PackedCollator(
                 max_length=model_cfg.max_length,
                 block_tokens=measure_block_tokens(model_cfg, "video"),
+                block_tokens_image=measure_block_tokens(model_cfg, "image"),
                 fixed_rows=max(1, self.global_batch // process_count),
                 fixed_frames=getattr(data_cfg, "num_frames", None))
         else:

@@ -164,6 +164,24 @@
    host copy (f32, where greedy-exactness is exact) lookup and int8
    self-draft speculation must give plain greedy's tokens, one for one.
 
+7. The multi-GPU training paths (``parallel_phase``) on a one-rank NCCL
+   group, on train_reference's depth cut of VideoLLaMB-7B at full width
+   (3 tower layers, 2 LM layers; bf16 base, f32 projector): the stage-1 step
+   through ``shard_params`` on a (1, 1) mesh and the sharded step, through
+   the sequence-parallel factory at one shard and through the pipeline at
+   one stage, each against the plain step's loss (rel 2e-3) and projector
+   gradients; step ms, peak memory, K1 / K2 launches. The cross-rank
+   collectives are checked on the CPU with gloo only. The kernel phase holds
+   K1 and K2 at the tensor-parallel widths too: (16, 257, 512) and
+   (16, 257, 256), (2, 8, 257, 1536) and (2, 8, 257, 768).
+8. EgoVLP's text side (``egovlp_text_phase``): roberta-base (12 x 768, 6
+   fusion layers) and the ViT-B/16 fusion tower over 4 frames, seeded bf16,
+   gates at 0.5: text and video embeddings, their similarity matrix and an
+   ITM fusion forward (timed); a depth cut (4 layers, 2 fused) against the
+   host in f32. Then one line for the video reader's backend (native libav
+   where it builds, else cv2) and one for a weight-tool round trip
+   (``export_hf_checkpoint`` read back through ``load_pretrained_model``).
+
 Prints the card's name and power limit, one JSON line with the kernels'
 numbers, and as its last line ``{"ok": true, "device": {...}}``. Exits
 non-zero, with no result line, if there is no CUDA device or a check fails.
@@ -510,6 +528,39 @@ def kernel_phase(g: torch.Generator, system_len: int) -> dict:
             bound=bound(qkv.numel() * 2 + qkv.numel() // 3 * 2, 4 * b * n * h * t * t * e,
                         "bf16")))
     del qkv, tq, tk, tv
+    # K1 and K2 at the tensor-parallel widths: under tp 2 and 4 a rank's tower
+    # holds 16 / tp heads, so the 16-frame train clip (``parallel_phase``'s
+    # batch) gives K1 (16, 257, 1024 / tp) and K2 (2, 8, 257, 3 * 1024 / tp).
+    g_tp = torch.Generator(device=dev).manual_seed(int(g.initial_seed()) + 73)
+    for tp in (2, 4):
+        d_tp, h_tp = d // tp, h // tp
+        q, k, v = (randn(16, n, d_tp, scale=0.125, gen=g_tp), randn(16, n, d_tp, gen=g_tp),
+                   randn(16, n, d_tp, gen=g_tp))
+        err = compare(f"spatial (16, {n}, {d_tp}) tp {tp}",
+                      fused_spatial_core_packed(q, k, v, heads=h_tp),
+                      spatial_core_packed_reference(q, k, v, h_tp))
+        q4, k4, v4 = (heads(x, h_tp) for x in (q, k, v))
+        results["spatial_attention"]["shapes"].append(dict(
+            shape=[16, n, d_tp], tp=tp, max_abs_err=err,
+            ms=cuda_ms(lambda: fused_spatial_core_packed(q, k, v, heads=h_tp)),
+            plain_ms=cuda_ms(lambda: spatial_core_packed_reference(q, k, v, h_tp)),
+            library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=1.0)),
+            bound=bound(4 * q.numel() * 2, 4 * 16 * h_tp * n * n * e, "bf16")))
+        qkv = torch.cat([randn(2, t, n, d_tp, scale=0.125, gen=g_tp),
+                         randn(2, t, n, 2 * d_tp, gen=g_tp)], dim=-1)
+        err = compare(f"temporal {tuple(qkv.shape)} tp {tp}",
+                      fused_temporal_core_fm3(qkv, num_heads=h_tp),
+                      temporal_core_fm3_reference(qkv, h_tp))
+        tq, tk, tv = (heads(qkv[..., i * d_tp:(i + 1) * d_tp].permute(0, 2, 1, 3)
+                            .reshape(2 * n, t, d_tp), h_tp) for i in range(3))
+        results["temporal_attention"]["shapes"].append(dict(
+            shape=list(qkv.shape), tp=tp, max_abs_err=err,
+            ms=cuda_ms(lambda: fused_temporal_core_fm3(qkv, num_heads=h_tp)),
+            plain_ms=cuda_ms(lambda: temporal_core_fm3_reference(qkv, h_tp), iters=5),
+            library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(tq, tk, tv, scale=1.0)),
+            bound=bound(qkv.numel() * 2 + qkv.numel() // 3 * 2, 4 * 2 * n * h_tp * t * t * e,
+                        "bf16")))
+    del q, k, v, q4, k4, v4, qkv, tq, tk, tv
     b = ENC_FRAMES // 8
     temporal_ops = 4 * b * n * h * t * t * e
     # K9 on (b, n, t, d) and K10 on three frame-major operands; SDPA over the
@@ -4103,6 +4154,305 @@ def gradient_phase(g: torch.Generator, seed: int) -> dict:
     return dict(rel_l2=errs, forward_launches=forward, backward_launches=backward)
 
 
+class CaptureTx:
+    """The optimizer contract of the train steps (``params``, ``update``)
+    keeping each call's gradients in place of an update, so that the
+    parallel steps' gradients can be held against the plain step's."""
+
+    def __init__(self, params):
+        self.params = list(params)
+        self.grads = None
+
+    def update(self, grads, norm_fn=None) -> bool:
+        from torch.distributed.tensor import DTensor
+
+        self.grads = [(g.full_tensor() if isinstance(g, DTensor) else g).detach().float()
+                      for g in grads]
+        return True
+
+
+# The parallel phase's depth cut: train_reference's (3 tower layers, 2 LM
+# layers, 1280 tokens) at full width.
+PARALLEL_TOWER_LAYERS, PARALLEL_LM_LAYERS, PARALLEL_MAX_LENGTH = 3, 2, 1280
+
+
+def parallel_phase(seed: int) -> dict:
+    """The multi-GPU training paths on a one-rank group: the stage-1 step
+    (f32 projector over the frozen bf16 tower and LM) through ``shard_params``
+    on a (1, 1) mesh and the sharded step, through the sequence-parallel
+    factory at one shard, and through the pipeline at one stage, each held
+    against the plain port step's loss and gradients on the same batch."""
+    import socket
+
+    import torch.distributed as dist
+
+    from videollamb_torch.config import ModelConfig, TrainConfig
+    from videollamb_torch.parallel.mesh import create_mesh
+    from videollamb_torch.parallel.pipeline import (
+        create_pipeline_mesh,
+        make_pipeline_videollamb_step,
+        shard_stacked_layers,
+    )
+    from videollamb_torch.parallel.ring_attention import create_seq_mesh
+    from videollamb_torch.parallel.seq_parallel import make_seq_parallel_videollamb_step
+    from videollamb_torch.parallel.sharding import make_sharded_train_step, shard_params
+    from videollamb_torch.train.step import TrainState, make_train_step, trainable_mask
+
+    t_phase = time.perf_counter()
+    base = ModelConfig()
+    cfg = dataclasses.replace(
+        base, max_length=PARALLEL_MAX_LENGTH,
+        vision=dataclasses.replace(base.vision, num_hidden_layers=PARALLEL_TOWER_LAYERS),
+        lm=dataclasses.replace(base.lm, num_hidden_layers=PARALLEL_LM_LAYERS))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", rank=0, world_size=1)
+    try:
+        template = build_model(cfg, seed + 200, "cuda", torch.bfloat16)
+        template.mm_projector.float()  # the recipe's f32 masters
+        clips = TrainClips(cfg, 1, seed + 201)
+        tcfg = TrainConfig(tune_mode="adapter")
+        from videollamb_torch.train.dataset import Collator
+        from videollamb_torch.train.trainer import pin_batch, to_device
+
+        cuda = torch.device("cuda")
+        batch = to_device(pin_batch(Collator(max_length=cfg.max_length)([clips[0]]), cuda), cuda)
+
+        def run(label, prepare, factory):
+            model = copy.deepcopy(template)
+            extra = prepare(model)
+            mask = trainable_mask(tcfg, model)
+            tx = CaptureTx(p for n, p in model.named_parameters() if mask[n])
+            step = factory(model, tx, mask, extra)
+            state = TrainState(0, model, tx)
+            with torch.enable_grad():
+                state, metrics = step(state, batch, None)  # warm-up
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                zero_counters()
+                t0 = time.perf_counter()
+                state, metrics = step(state, batch, None)
+                loss = float(metrics["loss"])
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+            launched = read_counters()
+            names = [n for n, p in model.named_parameters() if mask[n]]
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            grads = dict(zip(names, tx.grads))
+            del model, state, step
+            gc.collect()
+            torch.cuda.empty_cache()
+            return dict(label=label, loss=loss, grads=grads, ms=ms, peak_gib=peak,
+                        launches=launched)
+
+        def plain(model, tx, mask, _):
+            step = make_train_step(cfg, tx, remat=True, attn_impl="chunked", mask=mask)
+            return lambda state, b, gen: step(state, b, gen)
+
+        def sharded_prep(model):
+            mesh = create_mesh(1, 1)
+            shard_params(mesh, model)
+            return mesh
+
+        def sharded(model, tx, mask, mesh):
+            return make_sharded_train_step(mesh, cfg, tx, remat=True, mask=mask)
+
+        def seq(model, tx, mask, _):
+            return make_seq_parallel_videollamb_step(create_seq_mesh(1), cfg, tx, mask=mask)
+
+        def pipe_prep(model):
+            mesh = create_pipeline_mesh(1)
+            shard_stacked_layers(mesh, model.lm)
+            return mesh
+
+        def pipe(model, tx, mask, mesh):
+            return make_pipeline_videollamb_step(mesh, cfg, tx, n_micro=1, mask=mask)
+
+        ref = run("plain", lambda m: None, plain)
+        runs = [run("FSDP x TP on a (1, 1) mesh", sharded_prep, sharded),
+                run("sequence parallel at 1 shard", lambda m: None, seq),
+                run("pipeline at 1 stage", pipe_prep, pipe)]
+    finally:
+        dist.destroy_process_group()
+    out, ok = {"plain": {k: ref[k] for k in ("loss", "ms", "peak_gib", "launches")}}, True
+    for r in runs:
+        loss_rel = abs(r["loss"] - ref["loss"]) / abs(ref["loss"])
+        a = torch.cat([r["grads"][n].flatten().cpu() for n in ref["grads"]])
+        b = torch.cat([ref["grads"][n].flatten().cpu() for n in ref["grads"]])
+        grad_rel = float((a - b).norm() / b.norm())
+        good = (loss_rel <= TRAIN_LOSS_REL and grad_rel <= TRAIN_GRAD_REL_L2
+                and r["launches"]["spatial_attention"] > 0
+                and r["launches"]["temporal_attention"] > 0)
+        ok &= good
+        print(f"[parallel] {r['label']}: loss {r['loss']:.5f} vs plain {ref['loss']:.5f} "
+              f"(rel {loss_rel:.2e}, tol {TRAIN_LOSS_REL}); projector gradient rel_l2 "
+              f"{grad_rel:.3e} (tol {TRAIN_GRAD_REL_L2}); step {r['ms']:.1f} ms (plain "
+              f"{ref['ms']:.1f}); peak allocated {r['peak_gib']:.2f} GiB (plain "
+              f"{ref['peak_gib']:.2f}); K1 {r['launches']['spatial_attention']}, K2 "
+              f"{r['launches']['temporal_attention']} -> {'ok' if good else 'FAIL'}")
+        out[r["label"]] = dict(loss=r["loss"], loss_rel=loss_rel, grad_rel_l2=grad_rel,
+                               ms=r["ms"], peak_gib=r["peak_gib"], launches=r["launches"])
+    seconds = time.perf_counter() - t_phase
+    print("[parallel] one-rank NCCL group, depth cut "
+          f"({cfg.vision.num_hidden_layers} tower, {cfg.lm.num_hidden_layers} LM layers at "
+          f"width {cfg.lm.hidden_size}); the cross-rank collectives are checked on the CPU "
+          f"with gloo only; {seconds:.1f} s")
+    if not ok:
+        raise AssertionError("a parallel train path disagrees with the plain step")
+    launches = dict.fromkeys(counters(), 0)
+    for r in runs:
+        for k, v in r["launches"].items():
+            launches[k] += v
+    return dict(out, seconds=seconds, launches=launches)
+
+
+# EgoVLP's retrieval model at its published widths: roberta-base's text
+# encoder (12 x 768, 6 fusion layers, projection 4096) and the ViT-B/16
+# tower over 4 frames; the host check cuts both to 4 layers, 2 of them fused.
+EGOVLP_TEXTS, EGOVLP_VIDEOS, EGOVLP_TEXT_LEN = 8, 4, 32
+EGOVLP_REL_L2 = 5e-2
+
+
+def egovlp_text_phase(seed: int) -> dict:
+    """EgoVLP's text side on the card in bf16: text and video embeddings, their
+    similarity matrix and an ITM fusion forward at full width and depth
+    (timed); then a depth cut against the host in f32."""
+    from videollamb_torch.models.vision import egovlp as ev
+    from videollamb_torch.models.vision import egovlp_text as et
+
+    t_phase = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(seed + 300)
+
+    def models(tcfg, vcfg, device, dtype):
+        text = et.init_egovlp_text_params(tcfg, vcfg, seed=seed + 301, dtype=dtype, device=device)
+        video = et.init_fusion_video_params(vcfg, tcfg, seed=seed + 302, dtype=dtype,
+                                            device=device)
+        with torch.no_grad():  # open the gates: the fusion paths count
+            for name, p in list(text.named_parameters()) + list(video.named_parameters()):
+                if name.endswith(("alpha_t2i", "alpha_i2t")):
+                    p.fill_(0.5)
+        return text.eval(), video.eval()
+
+    def inputs(tcfg, vcfg, n_text, n_video):
+        ids = torch.randint(3, tcfg.vocab_size, (n_text, EGOVLP_TEXT_LEN), generator=g,
+                            device="cuda")
+        mask = torch.ones_like(ids)
+        mask[1::2, EGOVLP_TEXT_LEN // 2:] = 0
+        ids = torch.where(mask.bool(), ids, tcfg.pad_token_id)
+        img = vcfg.image_size
+        pixels = torch.randn((n_video, vcfg.num_frames, 3, img, img), generator=g, device="cuda")
+        return ids, mask, pixels
+
+    def forward(text, video, tcfg, vcfg, ids, mask, pixels):
+        cls = ev.egovlp_encode(video, pixels, vcfg)[:, 0]
+        t_emb = et.compute_text(text, tcfg, ids, mask)
+        v_emb = et.compute_video_embed(text, cls)
+        sims = et.sim_matrix(t_emb.float(), v_emb.float())
+        n = pixels.shape[0]
+        itm = et.fusion_forward(text, video, vcfg, tcfg, pixels, ids[:n], mask[:n])
+        return dict(text=t_emb, video=v_emb, sims=sims, itm=itm)
+
+    tcfg, vcfg = et.RobertaTextConfig(), ev.EgoVLPConfig()
+    text, video = models(tcfg, vcfg, "cuda", torch.bfloat16)
+    ids, mask, pixels = inputs(tcfg, vcfg, EGOVLP_TEXTS, EGOVLP_VIDEOS)
+    out = forward(text, video, tcfg, vcfg, ids, mask, pixels.to(torch.bfloat16))
+    if not all(torch.isfinite(v.float()).all() for v in out.values()):
+        raise AssertionError("egovlp: non-finite outputs")
+    bf = pixels.to(torch.bfloat16)
+    times = {
+        "text_embed": cuda_ms(lambda: et.compute_text(text, tcfg, ids, mask), iters=5),
+        "video_embed": cuda_ms(lambda: et.compute_video_embed(
+            text, ev.egovlp_encode(video, bf, vcfg)[:, 0]), iters=5),
+        "itm_fusion": cuda_ms(lambda: et.fusion_forward(
+            text, video, vcfg, tcfg, bf, ids[:EGOVLP_VIDEOS], mask[:EGOVLP_VIDEOS]), iters=5)}
+    print(f"[egovlp] roberta-base text ({tcfg.num_hidden_layers} layers, "
+          f"{tcfg.num_fuse_block} fused) and ViT-B/16 over {vcfg.num_frames} frames, bf16: "
+          f"text embeds {tuple(out['text'].shape)}, video embeds {tuple(out['video'].shape)}, "
+          f"sims {tuple(out['sims'].shape)}, ITM {tuple(out['itm'].shape)}; ms "
+          + ", ".join(f"{k} {v:.2f}" for k, v in times.items())
+          + f" ({EGOVLP_TEXTS} texts, {EGOVLP_VIDEOS} videos)")
+    del text, video
+    torch.cuda.empty_cache()
+
+    cut_t = dataclasses.replace(tcfg, num_hidden_layers=4, num_fuse_block=2)
+    cut_v = dataclasses.replace(vcfg, num_hidden_layers=4)
+    text, video = models(cut_t, cut_v, "cuda", torch.bfloat16)
+    host_text, host_video = (copy.deepcopy(m).float().cpu() for m in (text, video))
+    ids, mask, pixels = inputs(cut_t, cut_v, 4, 2)
+    card = forward(text, video, cut_t, cut_v, ids, mask, pixels.to(torch.bfloat16))
+    host = forward(host_text, host_video, cut_t, cut_v, ids.cpu(), mask.cpu(), pixels.cpu())
+    errs = {k: float((card[k].float().cpu() - host[k]).norm() / host[k].norm()) for k in card}
+    ok = all(e <= EGOVLP_REL_L2 for e in errs.values())
+    seconds = time.perf_counter() - t_phase
+    print(f"[egovlp] depth cut (4 text layers, 2 fused; 4 tower layers) card bf16 vs host f32 "
+          f"rel_l2 { {k: f'{v:.3e}' for k, v in errs.items()} } (tol {EGOVLP_REL_L2}) -> "
+          f"{'ok' if ok else 'FAIL'}; {seconds:.1f} s")
+    if not ok:
+        raise AssertionError("egovlp: the card's text side disagrees with the host's")
+    del text, video
+    torch.cuda.empty_cache()
+    return dict(ms=times, rel_l2=errs, seconds=seconds)
+
+
+def tools_phase(seed: int) -> dict:
+    """The video reader's backend on a cv2-written clip, and a weight-tool
+    round trip: ``export_hf_checkpoint`` of a one-layer model at full width,
+    read back through the port's loader."""
+    import numpy as np
+
+    from videollamb_torch.config import ModelConfig
+    from videollamb_torch.data.video_reader import load_video, video_backend
+    from videollamb_torch.models.builder import load_pretrained_model
+    from videollamb_torch.tools.weights import export_hf_checkpoint
+
+    import cv2
+
+    root = os.path.join("build", "tools_smoke")
+    os.makedirs(root, exist_ok=True)
+    path = os.path.join(root, "clip.mp4")
+    writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), 10, (64, 48))
+    rng = np.random.default_rng(seed)
+    for _ in range(20):
+        writer.write(rng.integers(0, 255, size=(48, 64, 3), dtype=np.uint8))
+    writer.release()
+    frames = load_video(path, num_frames=8)
+    backend = video_backend()
+    print(f"[decoder] load_video decoded {tuple(frames.shape)} through the {backend} backend "
+          f"(native: the libav decoder of videollamb_torch/native where it builds, else cv2)")
+
+    base = ModelConfig()
+    cfg = dataclasses.replace(base, lm=dataclasses.replace(base.lm, num_hidden_layers=1))
+    model = build_model(cfg, seed + 400, "cuda", torch.bfloat16)
+    model.video_tower = None
+    t0 = time.perf_counter()
+    out_dir = os.path.join(root, "export")
+    export_hf_checkpoint(model, out_dir)
+    lm = cfg.lm
+    with open(os.path.join(out_dir, "config.json"), "w") as f:
+        json.dump({"vocab_size": lm.vocab_size, "hidden_size": lm.hidden_size,
+                   "intermediate_size": lm.intermediate_size,
+                   "num_hidden_layers": lm.num_hidden_layers,
+                   "num_attention_heads": lm.num_attention_heads,
+                   "num_key_value_heads": lm.num_key_value_heads,
+                   "mm_projector_type": "rmt_r_transformer1x"}, f)
+    _, back, _, _, _ = load_pretrained_model(out_dir, dtype="bfloat16", load_tokenizer=False,
+                                             device="cuda")
+    want = model.state_dict()
+    got = back.state_dict()
+    equal = set(got) == set(want) and all(torch.equal(got[k], want[k]) for k in want)
+    seconds = time.perf_counter() - t0
+    print(f"[weights] export_hf_checkpoint of a 1-layer model at full width ({len(want)} "
+          f"tensors) read back through load_pretrained_model: "
+          f"{'equal' if equal else 'DIFFERENT'}; {seconds:.1f} s")
+    if not equal:
+        raise AssertionError("weights: the exported checkpoint does not read back equal")
+    del model, back
+    torch.cuda.empty_cache()
+    return dict(backend=backend, frames=list(frames.shape), export_equal=equal,
+                export_seconds=seconds)
+
+
 SOURCES = {  # name -> (source, TPU kernel it replaces)
     "spatial_attention": ("videollamb_torch/csrc/spatial_attention.cu",
                           "videollamb_tpu/ops/spatial_attention.py:122"),
@@ -4220,6 +4570,9 @@ def main() -> int:
     del model, int8_lm
     torch.cuda.empty_cache()
     reference_phase(g, args.seed)
+    paralleled = parallel_phase(args.seed)
+    ego = egovlp_text_phase(args.seed)
+    tooled = tools_phase(args.seed)
 
     launches = {**{k: sliced["launches"][k] for k in
                    ("spatial_attention", "temporal_attention", "flash_attention")},
@@ -4267,6 +4620,8 @@ def main() -> int:
             rows[-1]["path_launches"]["images"] = imaged["launches"][name]
         if name in ("spatial_attention", "flash_attention"):
             rows[-1]["path_launches"]["towers"] = towered["launches"][name]
+        if name in ("spatial_attention", "temporal_attention"):
+            rows[-1]["path_launches"]["parallel"] = paralleled["launches"][name]
         if name == "flash_attention":  # launches whose sliding window bit
             rows[-1]["path_launches"]["breadth_windowed"] = broad["k3_windowed_launches"]
         if "host_ms" in r:
@@ -4283,7 +4638,8 @@ def main() -> int:
                  **({k: x[k] for k in ("layout", "q_dtype", "lengths", "shared_pages",
                                        "rewound_slot", "rewind", "slots", "window")
                      if k in x}),
-                 **({"causal": x["causal"]} if "causal" in x else {})} for x in r["shapes"]]
+                 **({"causal": x["causal"]} if "causal" in x else {}),
+                 **({"tp": x["tp"]} if "tp" in x else {})} for x in r["shapes"]]
     print(json.dumps({"requests": sliced["stats"] + served["stats"] + quantized["stats"],
                       "speculative": speculated, "weight_gib": quantized["weight_gib"],
                       "stream": {k: v for k, v in streamed.items() if k != "launches"},
@@ -4299,7 +4655,9 @@ def main() -> int:
                                   if k not in ("launches", "k3_windowed_launches")},
                       "images": {k: v for k, v in imaged.items()
                                  if k not in ("launches", "k3_anyres")},
-                      "towers": {k: v for k, v in towered.items() if k != "launches"}}))
+                      "towers": {k: v for k, v in towered.items() if k != "launches"},
+                      "parallel": {k: v for k, v in paralleled.items() if k != "launches"},
+                      "egovlp_text": ego, "tools": tooled}))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

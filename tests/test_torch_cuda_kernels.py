@@ -111,6 +111,22 @@ def test_spatial_kernel_matches_plain(dev, frames, n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("tp", [2, 4])
+def test_kernels_at_tensor_parallel_widths_match_plain(dev, tp):
+    """A tensor-parallel rank's tower holds 16 / tp heads: K1 at
+    (16, 257, 1024 / tp), K2 at (2, 8, 257, 3 * 1024 / tp)."""
+    d, h = 1024 // tp, 16 // tp
+    q = _randn(dev, 16, 257, d, scale=0.125, seed=60)
+    k, v = _randn(dev, 16, 257, d, seed=61), _randn(dev, 16, 257, d, seed=62)
+    torch.testing.assert_close(fused_spatial_core_packed(q, k, v, heads=h).float(),
+                               spatial_core_packed_reference(q, k, v, h).float(), **TOL)
+    qkv = torch.cat([_randn(dev, 2, 8, 257, d, scale=0.125, seed=63),
+                     _randn(dev, 2, 8, 257, 2 * d, seed=64)], dim=-1)
+    torch.testing.assert_close(fused_temporal_core_fm3(qkv, num_heads=h).float(),
+                               temporal_core_fm3_reference(qkv, h).float(), **TOL)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("b,t,n", [(2, 8, 257), (1, 4, 3)])
 def test_temporal_kernel_matches_plain(dev, b, t, n):
     qkv = torch.cat([_randn(dev, b, t, n, 1024, scale=0.125, seed=4),

@@ -147,8 +147,10 @@ def test_cli_rejects_unported_flags(checkpoint, tmp_path, monkeypatch, capsys, f
 
 def test_port_imports_no_jax():
     """Importing every module of the port, the training modules, the serving
-    surfaces, the eval drivers, anyres and the research towers included,
-    leaves jax and every module of the JAX package out of sys.modules."""
+    surfaces, the eval drivers, anyres, the research towers, EgoVLP's text
+    side, the multi-GPU modules, the weight tools, the utilities and the
+    native decoder included, leaves jax and every module of the JAX package
+    out of sys.modules."""
     code = (
         "import pkgutil, importlib, sys\n"
         "import videollamb_torch\n"
@@ -171,6 +173,11 @@ def test_port_imports_no_jax():
         "'models.vision.vit', 'models.vision.rmt_clip_vit', 'models.vision.deform_clip', "
         "'models.vision.deformable', 'models.vision.egovlp')}\n"
         "assert breadth <= set(names), sorted(breadth - set(names))\n"
+        "rest = {'videollamb_torch.' + m for m in ('models.vision.egovlp_text', "
+        "'parallel.mesh', 'parallel.sharding', 'parallel.ring_attention', "
+        "'parallel.seq_parallel', 'parallel.pipeline', 'parallel.tensor_parallel', "
+        "'tools.weights', 'utils.logging', 'utils.profiling', 'native.video_decoder')}\n"
+        "assert rest <= set(names), sorted(rest - set(names))\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'videollamb_tpu')]\n"
         "assert not bad, bad\n"
         "print(len(names))\n"
@@ -195,7 +202,11 @@ def test_port_sources_import_nothing_of_the_jax_package():
     rel = {os.path.relpath(f, REPO) for f in files}
     for module in ("models/anyres.py", "models/vision/builder.py", "models/vision/vit.py",
                    "models/vision/rmt_clip_vit.py", "models/vision/deform_clip.py",
-                   "models/vision/deformable.py", "models/vision/egovlp.py"):
+                   "models/vision/deformable.py", "models/vision/egovlp.py",
+                   "models/vision/egovlp_text.py", "parallel/mesh.py", "parallel/sharding.py",
+                   "parallel/ring_attention.py", "parallel/seq_parallel.py",
+                   "parallel/pipeline.py", "parallel/tensor_parallel.py", "tools/weights.py",
+                   "utils/logging.py", "utils/profiling.py", "native/video_decoder.py"):
         assert os.path.join("videollamb_torch", module) in rel, module
     offenders = [f for f in files if pattern.search(open(f).read())]
     assert not offenders, offenders

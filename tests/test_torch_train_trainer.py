@@ -336,7 +336,7 @@ def test_cli_trains_a_tiny_checkpoint_on_the_cpu(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--device cpu"):
         cli.main([a for a in argv if a not in ("--device", "cpu")], tokenizer=WordTokenizer())
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(ValueError, match="need as many ranks"):
         cli.main(argv + ["--sequence_parallel", "2"], tokenizer=WordTokenizer())
 
 

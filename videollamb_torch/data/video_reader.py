@@ -2,11 +2,12 @@
 
 A copy of ``videollamb_tpu/data/video_reader.py`` (reference
 llava/vid_utils.py:35-195 and languagebind/video/processing_video.py:78-197)
-with the same sampling, without the JAX package's optional C++ libav
-decoder:
+with the same sampling and backends:
 
+- the native libav decoder (``videollamb_torch/native``), preferred by the
+  ``auto`` backend whenever it builds, as in the JAX package;
 - OpenCV (seek-based sparse sampling, like the reference's 'opencv'
-  backend);
+  backend), where the native decoder is unavailable;
 - PyAV ('av' backend), gif (imageio) and frame-directory backends;
 - the streaming CLI's ffmpeg re-encode cache (reference
   llava/serve/cli_streaming.py:12-37).
@@ -41,6 +42,9 @@ def fps_num_frames(total_frames: int, avg_fps: float, target_fps: float,
 
 def probe_video(path: str) -> Tuple[int, float]:
     """(total_frames, avg_fps)."""
+    native = _native_decoder()
+    if native is not None:
+        return native.probe(path)
     import cv2
 
     cap = cv2.VideoCapture(path)
@@ -50,6 +54,20 @@ def probe_video(path: str) -> Tuple[int, float]:
     finally:
         cap.release()
     return total, fps
+
+
+def _native_decoder():
+    """The native decoder module where it builds and loads, else None."""
+    from videollamb_torch.native import video_decoder
+
+    return video_decoder if video_decoder.available() else None
+
+
+def video_backend(backend: str = "auto") -> str:
+    """The backend :func:`load_video` decodes a video file with."""
+    if backend in ("auto", "native"):
+        return "native" if _native_decoder() is not None else "cv2"
+    return backend
 
 
 def _read_cv2(path: str, indices: Sequence[int]) -> np.ndarray:
@@ -188,8 +206,11 @@ def load_video(
         num_frames = 8
     indices = sample_indices_uniform(total, num_frames)
 
-    if backend == "av":
+    if backend not in ("auto", "native", "cv2", "av"):
+        raise ValueError(f"unknown video backend {backend!r} (auto, native, cv2, av)")
+    chosen = video_backend(backend)
+    if chosen == "av":
         return _read_av(path, indices)
-    if backend not in ("auto", "cv2"):
-        raise ValueError(f"unknown video backend {backend!r} (auto, cv2, av)")
+    if chosen == "native":
+        return _native_decoder().read_frames(path, indices)
     return _read_cv2(path, indices)

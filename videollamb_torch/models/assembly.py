@@ -64,6 +64,13 @@ class VideoLLaMB(nn.Module):
         self.image_tower = image_tower
         self.image_newline = None if image_newline is None else nn.Parameter(image_newline)
 
+    def forward(self, fn, *args, **kwargs):
+        """``fn(self, *args, **kwargs)`` through the module's call, so that
+        hooks on the model run around it: the sharded train step
+        (``parallel/sharding.py``) calls ``model(videollamb_forward, ...)``,
+        and FSDP gathers the root's weights there."""
+        return fn(self, *args, **kwargs)
+
 
 class MultimodalBatch(NamedTuple):
     """Host-assembled batch; ``videos`` and ``images`` are None for text-only
@@ -318,18 +325,26 @@ def videollamb_forward(model: VideoLLaMB, cfg: ModelConfig, batch: MultimodalBat
     return logits, spliced
 
 
+def causal_lm_loss_sum(logits: torch.Tensor, labels: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(sum of the shifted cross-entropies over the labels that are not
+    IGNORE_INDEX, their count): the parts of :func:`causal_lm_loss`, which
+    sharded steps reduce over the ranks before they divide."""
+    shift_labels = labels[:, 1:]
+    valid = shift_labels != IGNORE_INDEX
+    safe = torch.where(valid, shift_labels, 0).long()
+    logp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
+    token_logp = torch.gather(logp, -1, safe[..., None])[..., 0]
+    return -torch.where(valid, token_logp, 0.0).sum(), valid.sum()
+
+
 def causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Shifted cross-entropy over the labels that are not IGNORE_INDEX.
     Returns (mean loss, token count), the count at least 1."""
-    shift_logits = logits[:, :-1].float()
-    shift_labels = labels[:, 1:]
-    valid = shift_labels != IGNORE_INDEX
-    safe = torch.where(valid, shift_labels, 0).long()
-    logp = torch.log_softmax(shift_logits, dim=-1)
-    token_logp = torch.gather(logp, -1, safe[..., None])[..., 0]
-    n = valid.sum().clamp(min=1)
-    return -torch.where(valid, token_logp, 0.0).sum() / n, n
+    total, n = causal_lm_loss_sum(logits, labels)
+    n = n.clamp(min=1)
+    return total / n, n
 
 
 def measure_block_tokens(cfg: ModelConfig, modality: str = "video") -> int:

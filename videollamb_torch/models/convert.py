@@ -528,3 +528,83 @@ def research_tower_to_jax(kind: str, state: Mapping[str, torch.Tensor]) -> Dict[
     if kind in ("vit", "vitmae", "vivit", "videomae", "deformable", "egovlp"):
         return _research_to_jax(state)
     return _tower_to_jax(state)
+
+
+# ---------------------------------------------------------------------------
+# EgoVLP's text side (models/vision/egovlp_text.py) and its fusion tower
+# ---------------------------------------------------------------------------
+
+_TEXT_STACKS = {"layers": "layers", "fuse_layers": "fuse_layers"}
+
+
+def _unstack(node: Mapping[str, Any]) -> list:
+    """A scanned stack (every leaf with a leading layer axis) -> one subtree a layer."""
+    leaves = []
+
+    def walk(n, path):
+        if isinstance(n, Mapping):
+            for k, v in n.items():
+                walk(v, path + (k,))
+        else:
+            leaves.append((path, np.asarray(n)))
+
+    walk(node, ())
+    out = [dict() for _ in range(leaves[0][1].shape[0])]
+    for path, arr in leaves:
+        for i, layer in enumerate(out):
+            d = layer
+            for k in path[:-1]:
+                d = d.setdefault(k, {})
+            d[path[-1]] = arr[i]
+    return out
+
+
+def _stack(layers: list) -> Dict[str, Any]:
+    if not layers:
+        return None
+    if isinstance(layers[0], Mapping):
+        return {k: _stack([layer[k] for layer in layers]) for k in layers[0]}
+    return np.stack(layers)
+
+
+def egovlp_text_from_jax(tree: Mapping[str, Any]) -> State:
+    """The JAX ``init_egovlp_text_params`` tree -> the state of
+    ``egovlp_text.EgoVLPText``; a ``video`` entry (``init_fusion_video_params``'
+    tree, its blocks split into ``blocks`` and ``fuse_blocks``) comes back
+    under ``video.`` for the fusion ``EgoVLPTower``. The scanned layer stacks
+    are unstacked; the MLM decoder is already (vocab, d)."""
+    tree = dict(tree)
+    out: State = {}
+    video = tree.pop("video", None)
+    text = dict(tree.pop("text_model"))
+    for key in _TEXT_STACKS:
+        text[key] = [] if text.get(key) is None else _unstack(text[key])
+    _put_research(out, "text_model", text)
+    mlm = dict(tree.pop("mlm_head"))
+    out["mlm_head.decoder.weight"] = _t(mlm.pop("decoder")["kernel"])
+    _put_research(out, "mlm_head", mlm)
+    _put_research(out, "", tree)
+    if video is not None:
+        video = dict(video)
+        video["blocks"] = _unstack(video["blocks"]) + _unstack(video.pop("fuse_blocks"))
+        out.update({f"video.{k}": v for k, v in research_tower_from_jax("egovlp", video).items()})
+    return out
+
+
+def egovlp_text_to_jax(state: Mapping[str, torch.Tensor], n_fuse_video: int = 0
+                       ) -> Dict[str, Any]:
+    """Inverse of :func:`egovlp_text_from_jax`; ``n_fuse_video`` is the
+    count of fusion blocks of a ``video.`` tower in ``state``."""
+    text = {k: v for k, v in state.items() if not k.startswith("video.")}
+    tree = _research_to_jax({k: v for k, v in text.items() if k != "mlm_head.decoder.weight"})
+    tree["mlm_head"]["decoder"] = {"kernel": _np(text["mlm_head.decoder.weight"])}
+    for key in _TEXT_STACKS:
+        tree["text_model"][key] = _stack(tree["text_model"].get(key, []))
+    video = {k[len("video."):]: v for k, v in state.items() if k.startswith("video.")}
+    if video:
+        vt = research_tower_to_jax("egovlp", video)
+        blocks = vt.pop("blocks")
+        cut = len(blocks) - n_fuse_video
+        vt["blocks"], vt["fuse_blocks"] = _stack(blocks[:cut]), _stack(blocks[cut:])
+        tree["video"] = vt
+    return tree

@@ -30,7 +30,15 @@ engines' chunked admission) and one-token decode. Module names follow the HF
   every position, per-row ``position_ids``, packed-row ``segment_ids``, the
   chunked differentiable attention and, with ``remat``, each layer under
   ``torch.utils.checkpoint`` (the JAX ``jax.checkpoint`` of the layer body),
-  so the backward keeps only the layer boundaries.
+  so the backward keeps only the layer boundaries. It calls each layer as a
+  module (``LlamaDecoderLayer.forward``), so that FSDP's hooks on a layer
+  (``parallel/sharding.py``) gather its weights around the call.
+- Under tensor parallelism (``parallel/sharding.shard_params``) the
+  projection weights, the embedding table and the LM head are DTensors
+  sharded over the mesh's ``model`` axis: :func:`proj` and
+  :func:`embed_tokens` compute on the rank's shard
+  (``parallel/tensor_parallel.py``), the head counts of q / k / v follow the
+  local width, and the logits are gathered.
 - Mistral's sliding window (``cfg.sliding_window``) applies wherever the
   JAX package applies it: the fresh-key attention of the forward and the
   prefill (``multihead_attention(window=)``, which K3 computes on the card),
@@ -54,6 +62,7 @@ from videollamb_torch.config import LlamaConfig
 from videollamb_torch.models.lm.rope import apply_rope, rope_cos_sin_cfg
 from videollamb_torch.models.seeded import empty_module, generator
 from videollamb_torch.ops.attention import multihead_attention
+from videollamb_torch.parallel.tensor_parallel import tp_embedding, tp_linear
 
 NEG_INF = -1e30
 PREFILL_CHUNK = 256  # tokens per llama_extend call of the chunked prefill
@@ -98,6 +107,10 @@ class LlamaDecoderLayer(nn.Module):
         self.input_layernorm = RMSNorm(cfg.hidden_size)
         self.post_attention_layernorm = RMSNorm(cfg.hidden_size)
 
+    def forward(self, *args) -> torch.Tensor:
+        """:func:`_layer` of this layer (the training forward's call)."""
+        return _layer(self, *args)
+
 
 class LlamaModel(nn.Module):
     def __init__(self, cfg: LlamaConfig):
@@ -128,12 +141,13 @@ def _rms_norm(norm: RMSNorm, x: torch.Tensor, eps: float) -> torch.Tensor:
     return (y * norm.weight.float()).to(x.dtype)
 
 
-def proj(module: nn.Module, x: torch.Tensor) -> torch.Tensor:
+def proj(module: nn.Module, x: torch.Tensor, gather: bool = False) -> torch.Tensor:
     """A projection in x's dtype: a plain ``nn.Linear``'s weight is cast to it
-    (a no-op when they agree); quantised and adapter modules handle their own."""
+    (a no-op when they agree), a tensor-parallel one computes on its shard
+    (``gather`` collects a column-parallel output's features); quantised and
+    adapter modules handle their own."""
     if isinstance(module, nn.Linear):
-        bias = None if module.bias is None else module.bias.to(x.dtype)
-        return F.linear(x, module.weight.to(x.dtype), bias)
+        return tp_linear(x, module.weight, module.bias, gather=gather)
     return module(x)
 
 
@@ -146,26 +160,28 @@ def _mlp(layer: LlamaDecoderLayer, cfg: LlamaConfig, x: torch.Tensor) -> torch.T
 
 def _qkv(layer: LlamaDecoderLayer, cfg: LlamaConfig, x: torch.Tensor, cos, sin):
     b, s, _ = x.shape
-    h, h_kv, dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    dh = cfg.head_dim
     normed = _rms_norm(layer.input_layernorm, x, cfg.rms_norm_eps)
     attn = layer.self_attn
-    q = apply_rope(proj(attn.q_proj, normed).reshape(b, s, h, dh), cos, sin)
-    k = apply_rope(proj(attn.k_proj, normed).reshape(b, s, h_kv, dh), cos, sin)
-    v = proj(attn.v_proj, normed).reshape(b, s, h_kv, dh)
+    # Head counts from the widths: a tensor-parallel rank holds h / tp heads.
+    q = apply_rope(proj(attn.q_proj, normed).reshape(b, s, -1, dh), cos, sin)
+    k = apply_rope(proj(attn.k_proj, normed).reshape(b, s, -1, dh), cos, sin)
+    v = proj(attn.v_proj, normed).reshape(b, s, -1, dh)
     return q, k, v
 
 
 def _final(lm: LlamaForCausalLM, cfg: LlamaConfig, x: torch.Tensor) -> torch.Tensor:
-    return proj(lm.lm_head, _rms_norm(lm.model.norm, x, cfg.rms_norm_eps)).float()
+    return proj(lm.lm_head, _rms_norm(lm.model.norm, x, cfg.rms_norm_eps), gather=True).float()
 
 
 def embed_tokens(lm: LlamaForCausalLM, input_ids: torch.Tensor) -> torch.Tensor:
     """Token embeddings; out-of-range ids (multimodal sentinels) clamp to 0.
 
     Clamping matters: a negative index would otherwise read from the end.
+    A vocabulary-parallel table sums the ranks' masked lookups.
     """
     table = lm.model.embed_tokens.weight
-    return table[input_ids.long().clamp(0, table.shape[0] - 1)]
+    return tp_embedding(input_ids.long().clamp(0, table.shape[0] - 1), table)
 
 
 def _grouped_attention(q, k, v, mask):
@@ -184,11 +200,11 @@ def _layer(layer: LlamaDecoderLayer, cfg: LlamaConfig, x: torch.Tensor, cos, sin
            valid: torch.Tensor, attn_impl: str,
            segment_ids: Optional[torch.Tensor]) -> torch.Tensor:
     """One decoder layer without a cache, causal (JAX ``_layer``)."""
-    b, s, d = x.shape
+    b, s, _ = x.shape
     q, k, v = _qkv(layer, cfg, x, cos, sin)
     attn = multihead_attention(q, k, v, causal=True, k_mask=valid, impl=attn_impl,
                                segment_ids=segment_ids, window=cfg.sliding_window)
-    x = x + proj(layer.self_attn.o_proj, attn.reshape(b, s, d))
+    x = x + proj(layer.self_attn.o_proj, attn.reshape(b, s, -1))
     return _mlp(layer, cfg, x)
 
 
@@ -202,11 +218,11 @@ def _run_layers(lm: LlamaForCausalLM, cfg: LlamaConfig, x: torch.Tensor,
     cos, sin = rope_cos_sin_cfg(cfg, position_ids)
     valid = attention_mask.bool()
     for layer in lm.model.layers:
-        args = (layer, cfg, x, cos, sin, valid, attn_impl, segment_ids)
+        args = (cfg, x, cos, sin, valid, attn_impl, segment_ids)
         if remat and torch.is_grad_enabled():
-            x = checkpoint(_layer, *args, use_reentrant=False)
+            x = checkpoint(layer, *args, use_reentrant=False)
         else:
-            x = _layer(*args)
+            x = layer(*args)
     return x
 
 

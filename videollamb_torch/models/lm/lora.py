@@ -10,7 +10,7 @@ B starts at zero (identity at initialisation) and the alpha / r scale is
 folded into A, so no scale is kept at run time. A and B are parameters that
 the train step makes trainable over a frozen base: a plain weight, or the
 int8 kernel of the QLoRA recipe, whose buffers take no gradient. The base
-product runs in x's dtype (``llama.proj``). Stacks of several adapters
+product runs in x's dtype (``llama.proj``), and so do the adapter's. Stacks of several adapters
 selected per row are ``models/lm/mlora.py``.
 """
 
@@ -24,6 +24,7 @@ from torch import nn
 
 from videollamb_torch.config import LlamaConfig
 from videollamb_torch.models.lm.llama import proj
+from videollamb_torch.parallel.tensor_parallel import tp_matmul
 
 LORA_TARGETS = ["q_proj", "k_proj", "v_proj", "o_proj",
                 "gate_proj", "up_proj", "down_proj"]
@@ -39,8 +40,10 @@ class LoRALinear(nn.Module):
         self.lora_b = nn.Parameter(lora_b, requires_grad=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        down = torch.matmul(x, self.lora_a.to(x.dtype))
-        return proj(self.base, x) + torch.matmul(down, self.lora_b.to(x.dtype))
+        # Under tensor parallelism B shards with a column-parallel base's
+        # outputs and A with a row-parallel base's inputs (tp_matmul).
+        down = tp_matmul(x, self.lora_a)
+        return proj(self.base, x) + tp_matmul(down, self.lora_b)
 
 
 def _targets(lm: nn.Module, names):

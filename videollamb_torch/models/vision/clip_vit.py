@@ -17,6 +17,11 @@ by name. Linear weights keep the (out, in) orientation.
 - After ``models/vision/quant.quantize_vision_params`` the dense layers and
   the patch embedding are ``Int8Dense`` modules (int8 x int8 products with
   per-row activation scales); the attention cores are unchanged.
+- Under tensor parallelism (``parallel/sharding.shard_params``) the
+  projections are DTensors sharded over the mesh's ``model`` axis and
+  computed through ``llama.proj``: each rank's K1 and K2 see its own heads,
+  (B, N, D / tp) and (b, t, N, 3 D / tp). Each layer is called as a module
+  (``CLIPEncoderLayer.forward``), so FSDP's hooks gather its weights.
 - Feature extraction stops at the select layer (-2: the last layer is
   never run). :func:`patch_dropout` (training only) keeps one random subset
   of patches per video, drawn from the caller's ``torch.Generator``.
@@ -31,7 +36,9 @@ from torch import nn
 
 from videollamb_torch.config import VisionConfig
 from videollamb_torch.models.bridge.layers import _act
+from videollamb_torch.models.lm.llama import proj
 from videollamb_torch.models.seeded import empty_module, fill_dense_, generator
+from videollamb_torch.parallel.tensor_parallel import tp_linear
 from videollamb_torch.ops.spatial_attention import spatial_core_packed
 from videollamb_torch.ops.temporal_attention import _layer_norm, temporal_attention_fm
 
@@ -64,6 +71,9 @@ class CLIPEncoderLayer(nn.Module):
             self.temporal_embedding = nn.Parameter(torch.empty(1, cfg.num_frames, d))
             self.temporal_attn = CLIPAttention(d)
             self.temporal_layer_norm1 = nn.LayerNorm(d, eps=cfg.layer_norm_eps)
+
+    def forward(self, x: torch.Tensor, cfg: VisionConfig, time_window: int) -> torch.Tensor:
+        return _encoder_layer(self, x, cfg, time_window)
 
 
 class PatchEmbedding(nn.Module):
@@ -106,11 +116,12 @@ class CLIPVisionTower(nn.Module):
 
 
 def _clip_attention(attn: CLIPAttention, x: torch.Tensor, num_heads: int) -> torch.Tensor:
-    """CLIPAttention with the packed spatial core (kernel K1)."""
-    scale = (x.shape[-1] // num_heads) ** -0.5
-    q = attn.q_proj(x) * scale
-    out = spatial_core_packed(q, attn.k_proj(x), attn.v_proj(x), num_heads)
-    return attn.out_proj(out)
+    """CLIPAttention with the packed spatial core (kernel K1) over this
+    rank's heads."""
+    e = x.shape[-1] // num_heads
+    q = proj(attn.q_proj, x) * e ** -0.5
+    out = spatial_core_packed(q, proj(attn.k_proj, x), proj(attn.v_proj, x), q.shape[-1] // e)
+    return proj(attn.out_proj, out)
 
 
 def _encoder_layer(layer: CLIPEncoderLayer, x: torch.Tensor, cfg: VisionConfig,
@@ -128,7 +139,7 @@ def _encoder_layer(layer: CLIPEncoderLayer, x: torch.Tensor, cfg: VisionConfig,
     x = x + _clip_attention(layer.self_attn, _layer_norm(layer.layer_norm1, x, eps),
                             cfg.num_attention_heads)
     h = _layer_norm(layer.layer_norm2, x, eps)
-    return x + layer.mlp.fc2(_act(cfg.hidden_act, layer.mlp.fc1(h)))
+    return x + proj(layer.mlp.fc2, _act(cfg.hidden_act, proj(layer.mlp.fc1, h)))
 
 
 def _embed(emb: CLIPEmbeddings, pixels: torch.Tensor, cfg: VisionConfig) -> torch.Tensor:
@@ -140,7 +151,7 @@ def _embed(emb: CLIPEmbeddings, pixels: torch.Tensor, cfg: VisionConfig) -> torc
     x = x.reshape(m, gh * gw, c * p * p)
     if isinstance(emb.patch_embedding, PatchEmbedding):
         weight = emb.patch_embedding.weight
-        patches = x @ weight.reshape(weight.shape[0], -1).to(x.dtype).t()
+        patches = tp_linear(x, weight.reshape(weight.shape[0], -1), gather=True)
     else:  # int8 patch embedding, no bias
         patches = emb.patch_embedding(x)
     cls = emb.class_embedding.to(x.dtype).expand(m, 1, -1)
@@ -185,7 +196,7 @@ def vision_encode(tower: CLIPVisionTower, pixels: torch.Tensor, cfg: VisionConfi
         x = patch_dropout(x, generator, patch_dropout_prob, b, t)
     x = _layer_norm(vm.pre_layrnorm, x, cfg.layer_norm_eps)
     for layer in layers[:n_layers]:
-        x = _encoder_layer(layer, x, cfg, time_window)
+        x = layer(x, cfg, time_window)
     return x.reshape(b, t, x.shape[-2], x.shape[-1])
 
 

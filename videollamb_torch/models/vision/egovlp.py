@@ -19,14 +19,16 @@ table tiled over frames plus a temporal embedding repeated over patches.
 The module keeps the reference's (and the JAX tree's) names, so
 ``models/convert.py`` and :func:`convert_egovlp_state_dict` map it. The
 attention is plain PyTorch, as it is plain XLA in the JAX package. The
-image-to-text cross-attention that only the EgoVLP retrieval text encoder
-drives (``egovlp_text.py``) is not part of the tower.
+fusion blocks of the EgoVLP retrieval model (``egovlp_text.py``) carry the
+image-to-text cross-attention in their space attention
+(``EgoVLPTower(i2t_blocks=, text_hidden=)``, video_transformer.py:108-115);
+:func:`_block` runs it when it is given a text stream ``y``.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Mapping
+from typing import Any, Mapping, Optional
 
 import numpy as np
 import torch
@@ -60,10 +62,16 @@ class EgoVLPConfig:
 
 
 class VarAttention(nn.Module):
-    def __init__(self, d: int):
+    def __init__(self, d: int, text_hidden: Optional[int] = None, eps: float = 1e-6):
         super().__init__()
         self.qkv = nn.Linear(d, 3 * d)
         self.proj = nn.Linear(d, d)
+        if text_hidden is not None:  # a fusion block's image-to-text cross-attention
+            self.qkv_text_i2t = nn.Linear(text_hidden, 2 * d)
+            self.qkv_i2t = nn.Linear(d, d)
+            self.proj_i2t = nn.Linear(d, d)
+            self.norm_i2t_i = nn.LayerNorm(d, eps=eps)
+            self.alpha_i2t = nn.Parameter(torch.empty(()))
 
 
 class Mlp(nn.Module):
@@ -74,26 +82,33 @@ class Mlp(nn.Module):
 
 
 class SpaceTimeBlock(nn.Module):
-    def __init__(self, cfg: EgoVLPConfig):
+    def __init__(self, cfg: EgoVLPConfig, text_hidden: Optional[int] = None):
         super().__init__()
         d = cfg.hidden_size
         self.norm1 = nn.LayerNorm(d, eps=cfg.layer_norm_eps)
         self.norm2 = nn.LayerNorm(d, eps=cfg.layer_norm_eps)
         self.norm3 = nn.LayerNorm(d, eps=cfg.layer_norm_eps)
-        self.attn = VarAttention(d)
+        self.attn = VarAttention(d, text_hidden, cfg.layer_norm_eps)
         self.timeattn = VarAttention(d)
         self.mlp = Mlp(d, int(d * cfg.mlp_ratio))
 
 
 class EgoVLPTower(nn.Module):
-    def __init__(self, cfg: EgoVLPConfig):
+    """The tower; its last ``i2t_blocks`` blocks are fusion blocks whose space
+    attention cross-attends a text stream of width ``text_hidden``."""
+
+    def __init__(self, cfg: EgoVLPConfig, i2t_blocks: int = 0,
+                 text_hidden: Optional[int] = None):
         super().__init__()
         d = cfg.hidden_size
+        first_fused = cfg.num_hidden_layers - i2t_blocks
         self.patch_embed = nn.Linear(3 * cfg.patch_size ** 2, d)
         self.cls_token = nn.Parameter(torch.empty(d))
         self.pos_embed = nn.Parameter(torch.empty(cfg.patches_per_frame + 1, d))
         self.temporal_embed = nn.Parameter(torch.empty(cfg.num_frames, d))
-        self.blocks = nn.ModuleList(SpaceTimeBlock(cfg) for _ in range(cfg.num_hidden_layers))
+        self.blocks = nn.ModuleList(
+            SpaceTimeBlock(cfg, text_hidden if i >= first_fused else None)
+            for i in range(cfg.num_hidden_layers))
         self.norm = nn.LayerNorm(d, eps=cfg.layer_norm_eps)
 
 
@@ -103,10 +118,34 @@ def _attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return torch.matmul(torch.softmax(s, -1).to(v.dtype), v)
 
 
+def _i2t_cross(p: VarAttention, x: torch.Tensor, y: torch.Tensor, cfg: EgoVLPConfig,
+               y_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Image-to-text cross-attention on the space attention's output
+    (VarAttention.forward, video_transformer.py:156-187): q from
+    norm_i2t_i(x), k / v from the text stream y (b, n_text, d_text), the
+    result gated by the learned scalar alpha_i2t (zero at initialisation).
+    ``y_bias`` (b, n_text) is additive: 0 valid, a large negative pad."""
+    b, tot, d = x.shape
+    h, e = cfg.num_attention_heads, cfg.head_dim
+    kv = p.qkv_text_i2t(y).reshape(y.shape[0], y.shape[1], 2, h, e)
+    k, v = kv[:, :, 0], kv[:, :, 1]  # (b, n_text, h, e)
+    q = p.qkv_i2t(_ln(p.norm_i2t_i, x, cfg.layer_norm_eps)).reshape(b, tot, h, e) * e ** -0.5
+    s = torch.einsum("bihe,bjhe->bhij", q.float(), k.float())
+    if y_bias is not None:
+        s = s + y_bias[:, None, None, :].float()
+    pr = torch.softmax(s, -1).to(v.dtype)
+    o = torch.einsum("bhij,bjhe->bihe", pr.float(), v.float()).to(x.dtype)
+    o = p.proj_i2t(o.reshape(b, tot, d))
+    return x + p.alpha_i2t.float().to(x.dtype) * o
+
+
 def _var_attention(p: VarAttention, x: torch.Tensor, cfg: EgoVLPConfig, mode: str,
-                   f: int) -> torch.Tensor:
+                   f: int, y: Optional[torch.Tensor] = None,
+                   y_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Divided attention over time ('time': one group per spatial position)
-    or space ('space': one group per frame) groups; x (b, 1 + f*n, d)."""
+    or space ('space': one group per frame) groups; x (b, 1 + f*n, d). A text
+    stream ``y`` adds the fusion block's :func:`_i2t_cross` after the
+    projection."""
     b, tot, d = x.shape
     h, e = cfg.num_attention_heads, cfg.head_dim
     n = (tot - 1) // f
@@ -133,14 +172,18 @@ def _var_attention(p: VarAttention, x: torch.Tensor, cfg: EgoVLPConfig, mode: st
     kg = torch.cat([k[:, :1].repeat_interleave(r, 0), group(k[:, 1:])], 1)
     vg = torch.cat([v[:, :1].repeat_interleave(r, 0), group(v[:, 1:])], 1)
     out = torch.cat([cls_out, ungroup(_attn(group(q[:, 1:]), kg, vg))], 1)
-    out = out.reshape(b, h, tot, e).transpose(1, 2).reshape(b, tot, d)
-    return p.proj(out)
+    out = p.proj(out.reshape(b, h, tot, e).transpose(1, 2).reshape(b, tot, d))
+    return out if y is None else _i2t_cross(p, out, y, cfg, y_bias)
 
 
-def _block(p: SpaceTimeBlock, x: torch.Tensor, cfg: EgoVLPConfig, f: int) -> torch.Tensor:
+def _block(p: SpaceTimeBlock, x: torch.Tensor, cfg: EgoVLPConfig, f: int,
+           y: Optional[torch.Tensor] = None,
+           y_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     eps = cfg.layer_norm_eps
     time_res = x + _var_attention(p.timeattn, _ln(p.norm3, x, eps), cfg, "time", f)
-    space_res = x + _var_attention(p.attn, _ln(p.norm1, time_res, eps), cfg, "space", f)
+    # The text stream rides only the space attention (SpaceTimeBlock.forward :214-220).
+    space_res = x + _var_attention(p.attn, _ln(p.norm1, time_res, eps), cfg, "space", f,
+                                   y=y, y_bias=y_bias)
     h = p.mlp.fc2(F.gelu(p.mlp.fc1(_ln(p.norm2, space_res, eps))))
     return space_res + h
 
@@ -176,18 +219,20 @@ def egovlp_encode(tower: EgoVLPTower, pixels: torch.Tensor, cfg: EgoVLPConfig) -
 
 
 def init_egovlp_params(cfg: EgoVLPConfig, *, seed: int = 0, dtype=torch.float32,
-                       device="cpu") -> EgoVLPTower:
+                       device="cpu", i2t_blocks: int = 0,
+                       text_hidden: Optional[int] = None) -> EgoVLPTower:
     """Seeded tower as the JAX initialiser draws it: 0.02-std kernels, zero
     biases, CLS and temporal table; time attention 'zeros' init (qkv zero,
-    proj weight ones, :97-101), so the model starts as a ViT."""
-    tower = empty_module(lambda: EgoVLPTower(cfg), device, dtype)
+    proj weight ones, :97-101), so the model starts as a ViT. Fusion blocks
+    (``i2t_blocks``) start with their gate alpha_i2t at zero."""
+    tower = empty_module(lambda: EgoVLPTower(cfg, i2t_blocks, text_hidden), device, dtype)
     g = generator(device, seed)
     with torch.no_grad():
         for name, p in tower.named_parameters():
             if "norm" in name:
                 p.fill_(1.0 if name.endswith("weight") else 0.0)
-            elif name.endswith("bias") or name in ("cls_token", "temporal_embed") \
-                    or name.endswith("timeattn.qkv.weight"):
+            elif name.endswith(("bias", "timeattn.qkv.weight", "alpha_i2t")) \
+                    or name in ("cls_token", "temporal_embed"):
                 p.zero_()
             elif name.endswith("timeattn.proj.weight"):
                 p.fill_(1.0)

@@ -38,6 +38,7 @@ from torch import nn
 
 from videollamb_torch.kernels import build as kb
 from videollamb_torch.ops.recompute import kernel_forward
+from videollamb_torch.parallel.tensor_parallel import local, tp_linear
 
 E = 64  # the kernel's head dim
 T_MAX = 8  # frames per window the kernel takes
@@ -219,11 +220,20 @@ def _qkv_fused(attn: nn.Module, normed: torch.Tensor, q_scale: float) -> torch.T
                  "scale": torch.cat([qp.scale.float() * q_scale, kp.scale.float(),
                                      vp.scale.float()], dim=-1)}
         return dense_int8(fused, normed, torch.cat([qp.bias * q_scale, kp.bias, vp.bias]))
-    w = torch.cat([attn.q_proj.weight.to(dt) * q_scale, attn.k_proj.weight.to(dt),
-                   attn.v_proj.weight.to(dt)], dim=0)
-    b = torch.cat([attn.q_proj.bias.float() * q_scale, attn.k_proj.bias.float(),
-                   attn.v_proj.bias.float()]).to(dt)
+    # Tensor-parallel projections fuse this rank's heads of q, of k and of v.
+    qp, kp, vp = attn.q_proj, attn.k_proj, attn.v_proj
+    w = torch.cat([local(qp.weight).to(dt) * q_scale, local(kp.weight).to(dt),
+                   local(vp.weight).to(dt)], dim=0)
+    b = torch.cat([local(qp.bias).float() * q_scale, local(kp.bias).float(),
+                   local(vp.bias).float()]).to(dt)
     return F.linear(normed, w, b)
+
+
+def _out_proj(module: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """The output projection; a tensor-parallel one sums over the ranks."""
+    if isinstance(module, nn.Linear):
+        return tp_linear(x, module.weight, module.bias)
+    return module(x)
 
 
 def temporal_attention_fm(x: torch.Tensor, temporal_embedding: torch.Tensor,
@@ -235,8 +245,9 @@ def temporal_attention_fm(x: torch.Tensor, temporal_embedding: torch.Tensor,
     """
     e = x.shape[-1] // num_heads
     xt, normed = _ln_fm(x, temporal_embedding, ln, eps)
-    o = temporal_core_fm3(_qkv_fused(attn, normed, e ** -0.5), num_heads)
-    return xt + attn.out_proj(o)
+    qkv = _qkv_fused(attn, normed, e ** -0.5)
+    o = temporal_core_fm3(qkv, qkv.shape[-1] // 3 // e)  # this rank's heads
+    return xt + _out_proj(attn.out_proj, o)
 
 
 def temporal_attention(x: torch.Tensor, temporal_embedding: torch.Tensor, ln: nn.LayerNorm,

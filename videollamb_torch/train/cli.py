@@ -14,15 +14,26 @@ every product runs in the activations' dtype, as the JAX ``_proj`` casts.
 Image rows (``--image_folder``, ``--image_aspect_ratio`` square / pad /
 anyres) and audio rows (``--audio_folder``, WAV) reach the dataset as in
 the JAX package; the image and video processors take the model's tower
-size. Not ported here: ``--sequence_parallel`` and ``--model_parallel``
-above 1 (ROADMAP.md section A, item 8: multi-GPU), which raise.
+size.
+
+Several GPUs: one process a card under ``torchrun`` (``torchrun
+--nproc_per_node 4 -m videollamb_torch.train.cli ...``; with ``--device
+cpu`` the ranks run on the host over gloo). ``--sequence_parallel n``
+replicates the parameters and splits the spliced token stream over n ranks
+(a ('data', 'seq') mesh, the sequence-parallel step); otherwise the ranks
+form a ('data', 'model') mesh with ``--model_parallel`` ranks of tensor
+parallelism, and the model is sharded (``parallel/sharding.shard_params``:
+TP, then FSDP over 'data'). ``--sequence_parallel`` excludes
+``--model_parallel``, as in the JAX CLI.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 
 import torch
+import torch.distributed as dist
 
 
 def parse_args(argv=None):
@@ -68,8 +79,8 @@ def parse_args(argv=None):
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--model_parallel", type=int, default=1)
     p.add_argument("--sequence_parallel", type=int, default=1,
-                   help="shard the spliced token stream over this many devices "
-                        "(not ported: above 1 raises)")
+                   help="shard the spliced token stream over this many "
+                        "ranks (excludes --model_parallel)")
     p.add_argument("--lora_enable", action="store_true")
     p.add_argument("--lora_r", type=int, default=128)
     p.add_argument("--lora_alpha", type=int, default=256)
@@ -101,21 +112,40 @@ def train_config(args):
         pack_sequences=args.pack_sequences, pack_factor=args.pack_factor)
 
 
+def _distributed(args) -> bool:
+    """Join the ``torchrun`` group (gloo for ``--device cpu``, else NCCL, one
+    card a rank); False for a single process."""
+    parallel = args.sequence_parallel > 1 or args.model_parallel > 1
+    if args.sequence_parallel > 1 and args.model_parallel > 1:
+        raise ValueError("--sequence_parallel excludes --model_parallel")
+    if not dist.is_initialized():
+        if int(os.environ.get("WORLD_SIZE", "1")) == 1:
+            if parallel:
+                raise ValueError(
+                    "--sequence_parallel / --model_parallel above 1 need as many ranks: "
+                    "run under torchrun --nproc_per_node N")
+            return False
+        dist.init_process_group("gloo" if args.device == "cpu" else "nccl")
+    if args.device != "cpu" and torch.cuda.is_available():
+        local = int(os.environ.get("LOCAL_RANK", dist.get_rank() % torch.cuda.device_count()))
+        torch.cuda.set_device(local)
+        args.device = f"cuda:{local}"
+    return True
+
+
 def main(argv=None, tokenizer=None, log_fn=None):
     """Parse the flags and train; ``tokenizer`` replaces the checkpoint's
-    (tests), ``log_fn`` receives each step's metrics."""
+    (tests), ``log_fn`` receives each step's metrics (rank 0 prints them by
+    default)."""
     args = parse_args(argv)
-    if args.sequence_parallel > 1 or args.model_parallel > 1:
-        raise NotImplementedError(
-            "--sequence_parallel / --model_parallel above 1 are not ported yet "
-            "(ROADMAP.md section A, item 8: the multi-GPU step factories)")
+    distributed = _distributed(args)
 
     from videollamb_torch.data.processing import ImageProcessor, VideoProcessor
     from videollamb_torch.models.builder import load_pretrained_model
     from videollamb_torch.models.lm.lora import add_lora_params
     from videollamb_torch.train.dataset import Collator, DataConfig, SupervisedDataset
     from videollamb_torch.train.preprocess import set_default_conversation
-    from videollamb_torch.train.step import param_labels
+    from videollamb_torch.train.step import param_labels, trainable_mask
     from videollamb_torch.train.trainer import Trainer
 
     set_default_conversation(args.version)
@@ -143,6 +173,19 @@ def main(argv=None, tokenizer=None, log_fn=None):
         for name, p in model.named_parameters():
             if labels[name] != "frozen":
                 p.data = p.data.float()
+    mesh = step_factory = None
+    if distributed and args.sequence_parallel > 1:
+        step_factory, data_count, data_index = _seq_parallel_factory(args, trainable_mask(
+            tcfg, model))
+    elif distributed:
+        from videollamb_torch.parallel.mesh import create_mesh
+        from videollamb_torch.parallel.sharding import batch_sharding, shard_params
+
+        mesh = create_mesh(model_parallel=args.model_parallel)
+        shard_params(mesh, model)
+        data_count, data_index = batch_sharding(mesh)
+    else:
+        data_count, data_index = 1, 0
     dcfg = DataConfig(
         data_path=args.data_path, image_folder=args.image_folder,
         video_folder=args.video_folder, audio_folder=args.audio_folder,
@@ -153,12 +196,40 @@ def main(argv=None, tokenizer=None, log_fn=None):
         video_processor=VideoProcessor(size=model_cfg.vision.image_size, training=True),
         image_processor=ImageProcessor(size=model_cfg.vision.image_size),
         seed=args.seed)
+    if log_fn is None:
+        from videollamb_torch.utils.logging import rank0_print
+
+        log_fn = lambda m: rank0_print(m, flush=True)  # noqa: E731
     trainer = Trainer(
         model_cfg, tcfg, model, dataset,
         collator=None if args.pack_sequences else Collator(
             pad_token_id=int(tokenizer.pad_token_id or 0), max_length=args.model_max_length),
-        log_fn=log_fn)
+        log_fn=log_fn, process_count=data_count, process_index=data_index, mesh=mesh,
+        step_factory=step_factory)
     return trainer.train()
+
+
+def _seq_parallel_factory(args, mask):
+    """The sequence-parallel step over a ('data', 'seq') mesh of the world's
+    ranks: (factory, data ranks, this rank's data index)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from videollamb_torch.parallel.mesh import mesh_device_type
+    from videollamb_torch.parallel.seq_parallel import make_seq_parallel_videollamb_step
+
+    n_seq = args.sequence_parallel
+    world = dist.get_world_size()
+    if world % n_seq:
+        raise ValueError(f"{world} ranks do not split into sequence_parallel={n_seq}")
+    n_data = world // n_seq
+    mesh = init_device_mesh(mesh_device_type(), (n_data, n_seq), mesh_dim_names=("data", "seq"))
+
+    def factory(model_cfg, tx, train_cfg):
+        return make_seq_parallel_videollamb_step(
+            mesh, model_cfg, tx, data_axis="data" if n_data > 1 else None,
+            remat=train_cfg.gradient_checkpointing, mask=mask)
+
+    return factory, n_data, mesh.get_local_rank("data")
 
 
 if __name__ == "__main__":

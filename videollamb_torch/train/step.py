@@ -32,6 +32,7 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from videollamb_torch.config import ModelConfig, TrainConfig
 from videollamb_torch.models.assembly import (
@@ -114,8 +115,11 @@ class Optimizer:
                 schedules.append(lr_schedule(group_cfg, total_steps))
         if not param_groups:
             raise ValueError("no trainable parameters")
+        # The multi-tensor path takes no mix of sharded (DTensor) and plain parameters.
+        sharded = any(isinstance(p, DTensor) for g in param_groups for p in g["params"])
         self.adamw = torch.optim.AdamW(param_groups, lr=1.0, betas=(cfg.adam_b1, cfg.adam_b2),
-                                       eps=cfg.adam_eps, weight_decay=cfg.weight_decay)
+                                       eps=cfg.adam_eps, weight_decay=cfg.weight_decay,
+                                       foreach=False if sharded else None)
         self.scheduler = torch.optim.lr_scheduler.LambdaLR(self.adamw, schedules)
         self.mini_step = 0
         self.acc: Optional[List[torch.Tensor]] = None
@@ -129,9 +133,14 @@ class Optimizer:
         """Updates made so far (the schedule's count)."""
         return self.scheduler.last_epoch
 
-    def update(self, grads: List[torch.Tensor]) -> bool:
+    def update(self, grads: List[torch.Tensor],
+               norm_fn: Optional[Callable[[List[nn.Parameter], List[torch.Tensor]],
+                                          torch.Tensor]] = None) -> bool:
         """Take one call's gradients (in :attr:`params` order); returns whether
-        the parameters were updated (every k-th call)."""
+        the parameters were updated (every k-th call). ``norm_fn(params,
+        grads)`` gives a group's global norm for the clipping where some
+        gradients live on other ranks (the pipeline's stages); the default is
+        :func:`global_norm`."""
         if self.k > 1:
             if self.acc is None:
                 self.acc = [torch.zeros_like(g) for g in grads]
@@ -144,9 +153,10 @@ class Optimizer:
         it = iter(grads)
         for group in self.adamw.param_groups:
             gs = [next(it) for _ in group["params"]]
-            norm = global_norm(gs)
+            norm = global_norm(gs) if norm_fn is None else norm_fn(group["params"], gs)
             if norm >= self.max_grad_norm:  # optax clip_by_global_norm
-                gs = [g / norm.to(g.dtype) * self.max_grad_norm for g in gs]
+                gs = [(g / float(norm) if isinstance(g, DTensor) else g / norm.to(g.dtype))
+                      * self.max_grad_norm for g in gs]
             for p, g in zip(group["params"], gs):
                 p.grad = g.to(p.dtype)
         self.adamw.step()
@@ -166,9 +176,11 @@ class Optimizer:
 
 
 def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares over all the tensors, in f32."""
-    return torch.linalg.vector_norm(
-        torch.stack([torch.linalg.vector_norm(t.float()) for t in tensors]))
+    """sqrt of the sum of squares over all the tensors, in f32 (a sharded
+    DTensor's norm covers all its shards)."""
+    norms = [torch.linalg.vector_norm(t.float()) for t in tensors]
+    return torch.linalg.vector_norm(torch.stack(
+        [n.full_tensor() if isinstance(n, DTensor) else n for n in norms]))
 
 
 def create_optimizer(cfg: TrainConfig, total_steps: int, model: nn.Module) -> Optimizer:

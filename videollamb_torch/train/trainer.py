@@ -2,7 +2,8 @@
 checkpoints with auto-resume, logging, and a clean stop on SIGTERM.
 
 Port of ``videollamb_tpu/train/trainer.py`` (reference
-llava/train/train.py:887-1141 and llava_trainer.py) on one device:
+llava/train/train.py:887-1141 and llava_trainer.py), on one device or, under
+``torchrun``, one rank a device (``parallel/``):
 
 - the modality-grouped order of ``train/dataset.py``; with several
   processes each decodes its own slice of every global batch
@@ -15,7 +16,12 @@ llava/train/train.py:887-1141 and llava_trainer.py) on one device:
 - :class:`GracefulShutdown`: SIGTERM or SIGINT finishes the step in flight,
   checkpoints and returns, so a preempted run loses at most one step;
 - a ``torch.Generator`` on the model's device, seeded by the config and
-  kept in the checkpoint, draws the dropout masks.
+  kept in the checkpoint, draws the dropout masks;
+- with a ``mesh`` (a model sharded by ``parallel/sharding.shard_params``)
+  the step is the sharded one; a ``step_factory(model_cfg, tx, train_cfg)``
+  (the sequence-parallel step) replaces the step, as in the JAX Trainer.
+  Each data rank decodes its slice of the batches; checkpoints gather the
+  full state and rank 0 writes them.
 """
 
 from __future__ import annotations
@@ -194,24 +200,34 @@ class Trainer:
 
     def __init__(self, model_cfg: ModelConfig, train_cfg: TrainConfig, model: torch.nn.Module,
                  dataset, collator: Optional[Callable] = None,
-                 log_fn: Optional[Callable[[dict], None]] = None, process_count: int = 1,
-                 process_index: int = 0):
+                 log_fn: Optional[Callable[[dict], None]] = None,
+                 process_count: Optional[int] = None, process_index: Optional[int] = None,
+                 mesh=None, step_factory: Optional[Callable] = None):
         self.model_cfg = model_cfg
         self.train_cfg = train_cfg
         self.dataset = dataset
-        if train_cfg.pack_sequences and train_cfg.rmt_loss:
-            # The retro path splices without segment routing: packed rows
-            # would attend across conversations.
-            raise ValueError("pack_sequences is incompatible with rmt_loss")
+        if train_cfg.pack_sequences and (train_cfg.rmt_loss or step_factory is not None):
+            # The retro path and the other step factories splice without
+            # segment routing: packed rows would attend across conversations.
+            raise ValueError("pack_sequences is incompatible with rmt_loss and custom step "
+                             "factories")
+        if train_cfg.rmt_loss and (mesh is not None or step_factory is not None):
+            raise NotImplementedError(
+                "rmt_loss normalises its per-segment loss on one process; it takes no "
+                "mesh or step factory")
         if train_cfg.rmt_loss and model_cfg.bridge.kind != RMT_R:
             raise ValueError(
                 f"rmt_loss trains on every segment of the {RMT_R} bridge; this model's "
                 f"projector is {model_cfg.bridge.projector_type!r}")
         self.log_fn = log_fn or (lambda m: print(m, flush=True))
-        self.process_count = process_count
-        self.process_index = process_index
+        if mesh is not None and process_count is None:
+            from videollamb_torch.parallel.sharding import batch_sharding
+
+            process_count, process_index = batch_sharding(mesh)
+        self.process_count = process_count or 1
+        self.process_index = process_index or 0
         self.device = next(model.parameters()).device
-        self.global_batch = train_cfg.per_device_batch_size * process_count
+        self.global_batch = train_cfg.per_device_batch_size * self.process_count
 
         if collator is not None:
             self.collator = collator
@@ -221,7 +237,7 @@ class Trainer:
                 max_length=model_cfg.max_length,
                 block_tokens=measure_block_tokens(model_cfg, "video"),
                 block_tokens_image=measure_block_tokens(model_cfg, "image"),
-                fixed_rows=max(1, self.global_batch // process_count),
+                fixed_rows=max(1, self.global_batch // self.process_count),
                 fixed_frames=getattr(data_cfg, "num_frames", None))
         else:
             self.collator = Collator(max_length=model_cfg.max_length)
@@ -234,9 +250,18 @@ class Trainer:
         self.generator = torch.Generator(device=self.device).manual_seed(train_cfg.seed)
         self.state = maybe_resume(train_cfg.output_dir, create_train_state(model, self.tx),
                                   self.generator)
-        self.step_fn = make_train_step(
-            model_cfg, self.tx, remat=train_cfg.gradient_checkpointing,
-            rmt_loss=train_cfg.rmt_loss, mask=trainable_mask(train_cfg, model))
+        mask = trainable_mask(train_cfg, model)
+        if step_factory is not None:
+            self.step_fn = step_factory(model_cfg, self.tx, train_cfg)
+        elif mesh is not None:
+            from videollamb_torch.parallel.sharding import make_sharded_train_step
+
+            self.step_fn = make_sharded_train_step(
+                mesh, model_cfg, self.tx, remat=train_cfg.gradient_checkpointing, mask=mask)
+        else:
+            self.step_fn = make_train_step(
+                model_cfg, self.tx, remat=train_cfg.gradient_checkpointing,
+                rmt_loss=train_cfg.rmt_loss, mask=mask)
 
     def _batch_order(self, epoch: int) -> List[int]:
         """This process's sample order: the same seeded global order on every

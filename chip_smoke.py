@@ -983,6 +983,125 @@ def kernel_phase(g: torch.Generator, system_len: int) -> dict:
                 raise AssertionError("paged bf16: a zero-length slot is not (0, -inf, 0)")
     results["paged_attention_stats"]["max_abs_err"] = max(errs)
 
+    # K3-K6 at the tensor-parallel widths: under tp 2 and 4 a rank of the
+    # sharded 7B LM holds 32 / tp query and kv heads, so the prefill gives K3
+    # (1, 2048, 32 / tp, 128) and a paged decode step of 8 slots gives K4 and
+    # K6 a (8, 32 / tp, 128) query over pools of 32 / tp heads, and K5 rows
+    # of 4096 / tp bytes. Operands from a generator of their own.
+    g_tp = torch.Generator(device=dev).manual_seed(int(g.initial_seed()) + 74)
+    for tp in (2, 4):
+        h_tp = h // tp
+        kd_tp = h_tp * dh
+        # K3 through multihead_attention on the (B, S, H, Dh) projections.
+        q3, k3, v3 = (randn(1, 2048, h_tp, 128, gen=g_tp) for _ in range(3))
+        mask = torch.arange(2048, device=dev)[None] < 1400
+        qt, kt, vt = (x.transpose(1, 2) for x in (q3, k3, v3))
+        sdpa_mask = (causal & mask[:, None, :])[:, None]
+        err = compare(f"flash through multihead_attention (1, 2048, {h_tp}, 128) tp {tp}, "
+                      "valid keys [1400]",
+                      multihead_attention(q3, k3, v3, causal=True, k_mask=mask),
+                      flash_attention_reference(qt, kt, vt, mask, causal=True).transpose(1, 2))
+        pairs = sum(min(i + 1, 1400) for i in range(2048))
+        results["flash_attention"]["shapes"].append(dict(
+            shape=[1, 2048, h_tp, 128], tp=tp, layout="(B, S, H, Dh) projections through "
+            "multihead_attention", max_abs_err=err,
+            ms=cuda_ms(lambda: multihead_attention(q3, k3, v3, causal=True, k_mask=mask)),
+            plain_ms=cuda_ms(lambda: flash_attention_reference(qt, kt, vt, mask, causal=True)),
+            library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                                      attn_mask=sdpa_mask)),
+            bound=bound(4 * q3.numel() * 2 + 2048, 4 * h_tp * 128 * pairs, "bf16")))
+        results["flash_attention"]["max_abs_err"] = max(
+            results["flash_attention"]["max_abs_err"], err)
+        del q3, k3, v3, qt, kt, vt
+        # K4 over one layer of int8 pools of h_tp heads, K5 over all 32 layers.
+        pools = [torch.randint(-128, 128, (layers, POOL_PAGES, PAGE, kd_tp), generator=g_tp,
+                               device=dev, dtype=torch.int8) for _ in range(2)]
+        sc = [torch.rand((POOL_PAGES, PAGE, h_tp), generator=g_tp, device=dev) * 0.1 + 1e-3
+              for _ in range(2)]
+        qf = torch.randn((n_slots, h_tp, dh), generator=g_tp, device=dev) * dh ** -0.5
+        a4 = (qf, pools[0][layer], pools[1][layer], table, lens, *sc)
+        got = gathered_paged_attention_int8(*a4, pages_per_block=ppb)
+        want = gathered_paged_attention_int8_reference(*a4, pages_per_block=ppb)
+        err = max(compare(f"gathered int8 m tp {tp}", got[1], want[1], STATS_TOL, STATS_TOL),
+                  compare(f"gathered int8 l tp {tp}", got[2], want[2], STATS_TOL, STATS_TOL),
+                  compare(f"gathered int8 out ({n_slots}, {h_tp}, {dh}) tp {tp}", got[0],
+                          want[0], K4_OUT_TOL * float(want[0].abs().max()), 0.0))
+        k4_tp_bytes = (tokens * (2 * kd_tp + 2 * h_tp * 4) + 2 * qf.numel() * 4
+                       + 2 * n_slots * h_tp * 4 + table.numel() * 4)
+        results["gathered_paged_attention"]["shapes"].append(dict(
+            shape=[n_slots, h_tp, dh], tp=tp, lengths=PAGED_LENGTHS, max_abs_err=err,
+            ms=cuda_ms(lambda: gathered_paged_attention_int8(*a4, pages_per_block=ppb)),
+            plain_ms=cuda_ms(lambda: gathered_paged_attention_int8_reference(
+                *a4, pages_per_block=ppb)),
+            library_ms=None, bound=bound(k4_tp_bytes, 4 * tokens * h_tp * dh, "int8"),
+            host_ms=host_ms(lambda: gathered_paged_attention_int8(*a4, pages_per_block=ppb)),
+            device_ms=graph_ms(lambda: gathered_paged_attention_int8(*a4, pages_per_block=ppb))))
+        results["gathered_paged_attention"]["max_abs_err"] = max(
+            results["gathered_paged_attention"]["max_abs_err"], err)
+        fresh = [torch.randint(-128, 128, (layers, n_slots, kd_tp), generator=g_tp, device=dev,
+                               dtype=torch.int8) for _ in range(2)]
+        want = paged_fresh_write_xla(*(p.clone() for p in pools), *fresh, write_page, write_off)
+        got = paged_fresh_write(*pools, *fresh, write_page, write_off)
+        torch.cuda.synchronize()
+        for name, a, w in (("K", got[0], want[0]), ("V", got[1], want[1])):
+            if not torch.equal(a[:, 1:], w[:, 1:]):
+                raise AssertionError(f"fresh write tp {tp}: {name} pool differs outside page 0")
+        del want, got
+        tp_flat = [p.view(layers, POOL_PAGES * PAGE, kd_tp) for p in pools]
+        tp_rows = (torch.arange(layers, device=dev)[:, None],
+                   (write_page * PAGE + write_off)[None].long())
+
+        def library_write_tp():
+            for pool, rows_in in zip(tp_flat, fresh):
+                pool.index_put_(tp_rows, rows_in)
+
+        results["paged_fresh_write"]["shapes"].append(dict(
+            shape=[layers, POOL_PAGES, PAGE, kd_tp], tp=tp, slots=n_slots, max_abs_err=0.0,
+            ms=cuda_ms(lambda: paged_fresh_write(*pools, *fresh, write_page, write_off)),
+            plain_ms=cuda_ms(lambda: paged_fresh_write_xla(*pools, *fresh, write_page,
+                                                           write_off)),
+            library_ms=cuda_ms(library_write_tp),
+            bound=bound(4 * layers * n_slots * kd_tp + 2 * n_slots * 4, 0, "int8"),
+            host_ms=host_ms(lambda: paged_fresh_write(*pools, *fresh, write_page, write_off)),
+            device_ms=graph_ms(lambda: paged_fresh_write(*pools, *fresh, write_page,
+                                                         write_off))))
+        del pools, tp_flat, fresh
+        # K6 over one layer of the bf16 head-major pool of h_tp heads, with the
+        # paged step's bf16 query.
+        k6_tp = [torch.randn((h_tp, POOL_PAGES, PAGE, dh), generator=g_tp, device=dev).to(bf)
+                 for _ in range(2)]
+        qb_tp = qf.to(bf)
+        got = paged_attention_with_stats(qb_tp, *k6_tp, lens, table)
+        want = attend_paged_with_stats_xla(qb_tp, *k6_tp, table, lens)
+        err = max(compare(f"paged bf16 m tp {tp}", got[1], want[1], STATS_TOL, STATS_TOL),
+                  compare(f"paged bf16 l tp {tp}", got[2], want[2], STATS_TOL, STATS_TOL),
+                  compare(f"paged bf16 out ({n_slots}, {h_tp}, {dh}), bf16 q, tp {tp}", got[0],
+                          want[0], K6_OUT_TOL * float(want[0].abs().max()), K6_BF16_Q_RTOL))
+        results["paged_attention_stats"]["shapes"].append(dict(
+            shape=[n_slots, h_tp, dh], tp=tp, q_dtype="bfloat16", max_abs_err=err,
+            ms=cuda_ms(lambda: paged_attention_with_stats(qb_tp, *k6_tp, lens, table)),
+            host_ms=host_ms(lambda: paged_attention_with_stats(qb_tp, *k6_tp, lens, table)),
+            device_ms=graph_ms(lambda: paged_attention_with_stats(qb_tp, *k6_tp, lens, table)),
+            plain_ms=cuda_ms(lambda: attend_paged_with_stats_xla(qb_tp, *k6_tp, table, lens)),
+            library_ms=None,
+            bound=bound(tokens * h_tp * dh * 2 * 2 + 2 * qb_tp.numel() * 2
+                        + 2 * n_slots * h_tp * 4 + table.numel() * 4, 4 * tokens * h_tp * dh,
+                        "bf16")))
+        results["paged_attention_stats"]["max_abs_err"] = max(
+            results["paged_attention_stats"]["max_abs_err"], err)
+        del k6_tp, qf, qb_tp
+    for name in ("flash_attention", "gathered_paged_attention", "paged_fresh_write",
+                 "paged_attention_stats"):
+        for r in results[name]["shapes"]:
+            if "tp" in r:
+                graph = (f"; replayed from a CUDA graph {r['device_ms']:.4f} ms"
+                         if "device_ms" in r else "")
+                lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+                print(f"[kernel] {name} {r['shape']} tp {r['tp']}: kernel {r['ms']:.4f} ms"
+                      f"{graph}, plain {r['plain_ms']:.4f} ms, library {lib}, bound "
+                      f"{r['bound'][0]:.4f} ms ({r['bound'][1]})")
+    torch.cuda.empty_cache()
+
     # K7: bf16 activations by int4 weights (groups of 128) at the LM's shapes.
     # library_ms is the bf16 torch.matmul of x with the dequantised weight:
     # the product that int4 replaces (four times the weight bytes), not the
@@ -3441,6 +3560,119 @@ def write_peft_adapter(path: str, cfg, seed: int) -> None:
         json.dump({"r": 8, "lora_alpha": 16, "target_modules": ["q_proj", "v_proj"]}, f)
 
 
+SHARDED_FRAMES, SHARDED_NEW = 16, 32
+
+
+def sharded_serving_phase(model, cfg, g: torch.Generator) -> dict:
+    """The serving engines over sharded weights on a one-rank NCCL group: a
+    deep copy of the full-width, full-depth 7B model through ``shard_params``
+    on a (1, 1) mesh (the LM's weights DTensors on the size-1 'model' axis,
+    every LM and tower layer and the root an FSDP unit on 'data'), then
+    ``generate``, the dense engine, the paged engine on int8 and on bf16
+    pages and a sampled request, each against the same run over the
+    unsharded model: the tokens must be equal (a one-rank mesh does the same
+    arithmetic), and K1-K6 must launch in the sharded runs. The cross-rank
+    tensor-parallel and FSDP collectives run only on the CPU's gloo ranks
+    (tests/test_torch_parallel_steps.py): this machine has one card."""
+    import socket
+
+    import torch.distributed as dist
+
+    from videollamb_torch.models.engine import generate
+    from videollamb_torch.parallel.mesh import create_mesh
+    from videollamb_torch.parallel.sharding import shard_params
+    from videollamb_torch.serve.paged import PagedServingEngine
+    from videollamb_torch.serve.server import Request, ServingEngine
+
+    t_phase = time.perf_counter()
+    g_sh = torch.Generator(device="cuda").manual_seed(int(g.initial_seed()) + 300)
+    gen_batch = make_batch(cfg, g_sh, [40], SHARDED_FRAMES)
+    lens = {"dense": [36, 52], "paged int8": [40, 75, 29, 58], "paged bf16": [33, 61, 47, 70],
+            "sampled": [44]}
+    batches = {name: [make_batch(cfg, g_sh, [n], SHARDED_FRAMES) for n in ns]
+               for name, ns in lens.items()}
+
+    def engine(m, name):
+        if name.startswith("paged"):
+            return PagedServingEngine(m, cfg, num_slots=4, quantize_kv=name == "paged int8",
+                                      eos_token_id=-1)
+        return ServingEngine(m, cfg, num_slots=2, eos_token_id=-1, seed=5)
+
+    def runs(m) -> dict:
+        out = {}
+        kw = dict(max_new_tokens=SHARDED_NEW, eos_token_id=-1,
+                  max_seq_len=cfg.max_length + SHARDED_NEW)
+        generate(m, cfg, gen_batch, **dict(kw, max_new_tokens=2))  # warm-up
+        for name in ["generate", *lens]:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            if name == "generate":
+                tokens = generate(m, cfg, gen_batch, **kw).tokens.tolist()
+            else:
+                temp = 0.9 if name == "sampled" else 0.0
+                reqs = [Request(uid=i, batch=b, max_new_tokens=SHARDED_NEW, temperature=temp,
+                                top_p=0.9) for i, b in enumerate(batches[name])]
+                eng = engine(m, name)
+                for r in reqs:
+                    eng.submit(r)
+                eng.run_until_drained(k=8)
+                tokens = [r.tokens for r in reqs]
+                del eng
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            n = len(tokens)
+            out[name] = dict(tokens=tokens, ms_per_request=wall * 1e3 / n,
+                             tok_s=n * SHARDED_NEW / wall,
+                             peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        return out
+
+    plain = runs(model)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", rank=0, world_size=1)
+    before = torch.cuda.memory_allocated()
+    try:
+        t0 = time.perf_counter()
+        sharded_model = shard_params(create_mesh(1, 1), copy.deepcopy(model))
+        torch.cuda.synchronize()
+        shard_s = time.perf_counter() - t0
+        zero_counters()
+        sharded = runs(sharded_model)
+        launches = read_counters()
+    finally:
+        sharded_model = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist.destroy_process_group()
+    left_gib = (torch.cuda.memory_allocated() - before) / 2**30
+    ok = True
+    for name, r in sharded.items():
+        p = plain[name]
+        same = r["tokens"] == p["tokens"]
+        ok &= same
+        print(f"[sharded] {name}: sharded {r['ms_per_request']:.1f} ms a request, "
+              f"{r['tok_s']:.1f} tok/s, peak allocated {r['peak_gib']:.2f} GiB; unsharded "
+              f"{p['ms_per_request']:.1f} ms, {p['tok_s']:.1f} tok/s, {p['peak_gib']:.2f} GiB; "
+              f"tokens {'equal' if same else 'DIFFER'} (first {r['tokens'][0][:8]})")
+    needed = ("spatial_attention", "temporal_attention", "flash_attention",
+              "gathered_paged_attention", "paged_fresh_write", "paged_attention_stats")
+    missing = [k for k in needed if launches[k] == 0]
+    seconds = time.perf_counter() - t_phase
+    print(f"[sharded] shard_params on a (1, 1) mesh of a deep copy took {shard_s:.1f} s; "
+          f"launches in the sharded runs {launches}; {left_gib:.2f} GiB still allocated after "
+          f"the copy was freed; phase {seconds:.1f} s")
+    if not ok:
+        raise AssertionError("an engine over the sharded model gave other tokens")
+    if missing:
+        raise AssertionError(f"kernels {missing} were never launched over the sharded model")
+    out = {name: {"sharded": {k: v for k, v in r.items() if k != "tokens"},
+                  "unsharded": {k: v for k, v in plain[name].items() if k != "tokens"}}
+           for name, r in sharded.items()}
+    return dict(out, shard_s=shard_s, left_gib=left_gib, seconds=seconds, launches=launches)
+
+
 def quantized_phase(model, cfg, int8_lm, g: torch.Generator) -> dict:
     """int8 LM, then int4 LM (offline and paged), then the int8 tower. The bf16
     LM of ``model`` is consumed by the int4 quantiser."""
@@ -4557,6 +4789,7 @@ def main() -> int:
     broad = breadth_phase(model, cfg, g, args.seed)
     imaged = images_phase(model, cfg, g, args.seed)
     towered = towers_phase(model, cfg, g, args.seed)
+    shard_served = sharded_serving_phase(model, cfg, g)
 
     t0 = time.perf_counter()
     int8_lm = lm_variant(model, "int8").lm
@@ -4622,6 +4855,9 @@ def main() -> int:
             rows[-1]["path_launches"]["towers"] = towered["launches"][name]
         if name in ("spatial_attention", "temporal_attention"):
             rows[-1]["path_launches"]["parallel"] = paralleled["launches"][name]
+        if name in ("spatial_attention", "temporal_attention", "flash_attention",
+                    "gathered_paged_attention", "paged_fresh_write", "paged_attention_stats"):
+            rows[-1]["path_launches"]["sharded"] = shard_served["launches"][name]
         if name == "flash_attention":  # launches whose sliding window bit
             rows[-1]["path_launches"]["breadth_windowed"] = broad["k3_windowed_launches"]
         if "host_ms" in r:
@@ -4657,6 +4893,7 @@ def main() -> int:
                                  if k not in ("launches", "k3_anyres")},
                       "towers": {k: v for k, v in towered.items() if k != "launches"},
                       "parallel": {k: v for k, v in paralleled.items() if k != "launches"},
+                      "sharded": {k: v for k, v in shard_served.items() if k != "launches"},
                       "egovlp_text": ego, "tools": tooled}))
     print(card)
     print(json.dumps({"kernels": rows}))

@@ -38,20 +38,34 @@ def free_port() -> int:
 def _rank_main(rank: int, world: int, port: int, spec_path: str, out_dir: str) -> None:
     torch.set_num_threads(1)
     torch.manual_seed(0)
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
-                            world_size=world)
+    store = dist.TCPStore("127.0.0.1", port, world, is_master=rank == 0)
+    dist.init_process_group("gloo", store=store, rank=rank, world_size=world)
     spec = torch.load(spec_path, weights_only=False)
     results: Dict[str, Any] = {}
     try:
-        for name in spec["tasks"]:
+        for i, name in enumerate(spec["tasks"]):
+            if i:
+                dist.barrier()  # every task starts on every rank together
             try:
                 results[name] = TASKS[name](spec)
             except Exception:  # reported by the test that reads this task
                 results[name] = {"error": traceback.format_exc()}
-            dist.barrier()
     finally:
         torch.save(results, os.path.join(out_dir, f"rank{rank}.pt"))
-        dist.destroy_process_group()
+        _leave(store, rank, world)
+
+
+def _leave(store, rank: int, world: int) -> None:
+    """Close the group once every rank is past its last collective, and keep
+    rank 0 (which serves the store) until every rank has closed: a rank that
+    closes its connections while a peer still reads from them breaks the
+    peer's collective ("Connection closed by peer")."""
+    store.set(f"done{rank}", "1")
+    store.wait([f"done{r}" for r in range(world)])
+    dist.destroy_process_group()
+    store.set(f"left{rank}", "1")
+    if rank == 0:
+        store.wait([f"left{r}" for r in range(world)])
 
 
 def start_ranks(world: int, spec: dict, out_dir: str):
@@ -66,8 +80,9 @@ def start_ranks(world: int, spec: dict, out_dir: str):
 def join_ranks(ctx, out_dir: str, world: int, timeout: float = 90.0):
     """Every rank's results, in rank order; raises if a rank failed or the
     group outlived ``timeout`` seconds (its processes are then killed). The
-    default is about 1.5 times the slowest file's whole serial run (52 s), so
-    a hung ring costs the suite little more than that file does."""
+    default is about 1.5 times a two-rank file's whole serial run, so a hung
+    ring costs the suite little more than that file does; the four-rank
+    spawn of tests/test_torch_parallel_steps.py passes its own."""
     import time
 
     deadline = time.monotonic() + timeout
@@ -489,3 +504,189 @@ def writer_host(spec):
     full = torch.arange(24, dtype=torch.float32).reshape(6, 4)
     got = _writer_host(distribute_tensor(full, mesh, [Shard(0)]))
     return None if got is None else got.numpy()
+
+
+# ---------------------------------------------------------------------------
+# Serving over sharded weights, rmt_loss and packed rows (world 4)
+# ---------------------------------------------------------------------------
+
+def _video_request(row, uid, max_new, **fields):
+    from videollamb_torch.models.assembly import MultimodalBatch
+    from videollamb_torch.serve.server import Request
+
+    ids, video = row
+    batch = MultimodalBatch(torch.from_numpy(ids).long(), torch.ones(ids.shape, dtype=torch.long),
+                            videos=None if video is None else torch.from_numpy(video))
+    return Request(uid=uid, batch=batch, max_new_tokens=max_new, **fields)
+
+
+def _serve(engine, requests, k):
+    for r in requests:
+        engine.submit(r)
+    engine.run_until_drained(k=k)
+    return [list(r.tokens) for r in requests]
+
+
+class GrammarTokenizer:
+    """The grammar tests' ``_Tok``: the tables come from ``token_strs``."""
+
+    def __init__(self, eos: int):
+        self.eos_token_id = eos
+
+
+def serving_runs(model, cfg, serve: dict) -> Dict[str, Any]:
+    """Tokens of every run of ``serve`` (the spec's requests) over ``model``:
+    ``generate``, the dense engine, the paged engine on float and int8
+    pages, the sampled engine and grammar requests."""
+    from videollamb_torch.models.engine import generate
+    from videollamb_torch.serve.grammar import json_constraint
+    from videollamb_torch.serve.paged import PagedServingEngine
+    from videollamb_torch.serve.server import ServingEngine
+
+    out = {}
+    ids, video = serve["generate"]
+    req = _video_request((ids, video), 0, serve["new"])
+    out["generate"] = generate(model, cfg, req.batch, max_new_tokens=serve["new"],
+                               eos_token_id=-1, max_seq_len=cfg.max_length + serve["new"]
+                               ).tokens.tolist()
+    engines = {
+        "dense": lambda: ServingEngine(model, cfg, num_slots=2, eos_token_id=-1),
+        "paged_float": lambda: PagedServingEngine(model, cfg, num_slots=2, page_size=32,
+                                                  eos_token_id=-1),
+        "paged_int8": lambda: PagedServingEngine(model, cfg, num_slots=2, page_size=32,
+                                                 eos_token_id=-1, quantize_kv=True)}
+    for name, make in engines.items():
+        reqs = [_video_request(row, i, serve["new"]) for i, row in enumerate(serve["rows"])]
+        out[name] = _serve(make(), reqs, k=2)
+    reqs = [_video_request(serve["sampled"], 0, serve["sampled_new"], temperature=0.9,
+                           top_p=0.9)]
+    out["sampled"] = _serve(ServingEngine(model, cfg, num_slots=2, eos_token_id=-1, seed=4),
+                            reqs, k=3)
+    eos = serve["grammar_eos"]
+    reqs = [_video_request((ids, None), i, serve["grammar_new"], grammar=json_constraint(
+        GrammarTokenizer(eos), token_strs=serve["token_strs"]))
+        for i, ids in enumerate(serve["grammar_ids"])]
+    out["grammar"] = _serve(ServingEngine(model, cfg, num_slots=2, eos_token_id=eos), reqs, k=4)
+    return out
+
+
+def _sharding_evidence(model) -> Dict[str, Any]:
+    """Local shapes of one layer's weights (sharded at rest) and whether the
+    root's weights are FSDP-sharded (and so resharded after the runs)."""
+    from videollamb_torch.parallel.sharding import _fsdp_managed
+
+    attn = model.lm.model.layers[0].self_attn
+    return {"q_proj": tuple(attn.q_proj.weight.to_local().shape),
+            "root_sharded": _fsdp_managed(model.lm.model.embed_tokens.weight),
+            "layer_sharded": _fsdp_managed(attn.q_proj.weight)}
+
+
+@task
+def sharded_engines(spec):
+    """The engines over a dp 2 x tp 2 sharding of the spec's model."""
+    from videollamb_torch.parallel.mesh import create_mesh
+    from videollamb_torch.parallel.sharding import shard_params
+
+    model = shard_params(create_mesh(2, 2), build_model(spec))
+    with torch.no_grad():
+        out = serving_runs(model, spec["cfg"], spec["serve"])
+    out["evidence"] = _sharding_evidence(model)
+    return out
+
+
+@task
+def sharded_mlora(spec):
+    """Two adapters stacked, then sharded dp 2 x tp 2 (the stacks placed as
+    their bases), through the dense engine."""
+    from videollamb_torch.models.lm.mlora import add_multi_lora_params
+    from videollamb_torch.parallel.mesh import create_mesh
+    from videollamb_torch.parallel.sharding import shard_params
+    from videollamb_torch.serve.server import ServingEngine
+
+    serve = spec["serve"]
+    model = build_model(spec)
+    _, registry = add_multi_lora_params(model.lm, serve["adapters"])
+    shard_params(create_mesh(2, 2), model)
+    stack = model.lm.model.layers[0].self_attn.o_proj.lora_a
+    reqs = [_video_request((ids, None), i, serve["mlora_new"], adapter=name)
+            for i, (name, ids) in enumerate(serve["mlora_rows"])]
+    engine = ServingEngine(model, spec["cfg"], num_slots=4, eos_token_id=-1,
+                           adapter_registry=registry)
+    with torch.no_grad():
+        tokens = _serve(engine, reqs, k=3)
+    return {"tokens": tokens, "registry": registry,
+            "o_proj_lora_a": tuple(stack.to_local().shape)}
+
+
+@task
+def head_check(spec):
+    """tp 4 over the tiny LM's 2 kv heads: shard_params refuses, naming them."""
+    from videollamb_torch.parallel.mesh import create_mesh
+    from videollamb_torch.parallel.sharding import shard_params
+
+    try:
+        shard_params(create_mesh(1, 4), build_model(spec))
+    except ValueError as e:
+        return str(e)
+    return None
+
+
+@task
+def rmt_loss_dp4(spec):
+    """The Trainer's step over a data-parallel mesh (dp 4) with rmt_loss,
+    stage-1 recipe: each rank its row of the global batch."""
+    import tempfile
+
+    from videollamb_torch.config import TrainConfig
+    from videollamb_torch.parallel.mesh import create_mesh
+    from videollamb_torch.parallel.sharding import batch_sharding, shard_params
+    from videollamb_torch.train.trainer import Trainer
+
+    mesh = create_mesh(4, 1)
+    model = shard_params(mesh, build_model(spec))
+    count, index = batch_sharding(mesh)
+    n_rows = spec["batch"][0].shape[0]
+    with tempfile.TemporaryDirectory() as out_dir:
+        tcfg = TrainConfig(**spec["train_kw"], tune_mode="adapter", rmt_loss=True,
+                           per_device_batch_size=n_rows // count, output_dir=out_dir)
+        # total_steps = len(dataset) // the global batch: the spec's schedule.
+        trainer = Trainer(spec["cfg"], tcfg, model, [None] * (n_rows * spec["total_steps"]),
+                          mesh=mesh)
+    per = n_rows // count
+    rows = slice(index * per, (index + 1) * per)
+    state, metrics = run_steps(trainer.step_fn, trainer.state,
+                               [batch(spec["batch"], rows)] * spec["n_steps"], generator=True)
+    return {"metrics": metrics, "params": trained_state(model, trainer.tx)}
+
+
+@task
+def packed_fsdp_tp(spec):
+    """Packed rows (segment ids, two video slots a row) through the sharded
+    step at dp 2 x tp 2, full recipe."""
+    from videollamb_torch.models.assembly import MultimodalBatch
+    from videollamb_torch.parallel.mesh import create_mesh
+    from videollamb_torch.parallel.sharding import (
+        batch_sharding,
+        make_sharded_train_step,
+        shard_params,
+    )
+    from videollamb_torch.train.step import TrainState, create_optimizer, trainable_mask
+
+    mesh = create_mesh(2, 2)
+    model = build_model(spec)
+    tcfg = train_config(spec, "full")
+    mask = trainable_mask(tcfg, model)
+    shard_params(mesh, model)
+    tx = create_optimizer(tcfg, spec["total_steps"], model)
+    step = make_sharded_train_step(mesh, spec["cfg"], tx, remat=True, mask=mask)
+    count, index = batch_sharding(mesh)
+    ids, mask_, labels, videos, seg, block = spec["packed"]
+    per = ids.shape[0] // count
+    sl = slice(index * per, (index + 1) * per)
+    rows = MultimodalBatch(torch.from_numpy(ids[sl]).long(), torch.from_numpy(mask_[sl]).long(),
+                           torch.from_numpy(labels[sl]).long(), torch.from_numpy(videos[sl]),
+                           segment_ids=torch.from_numpy(seg[sl]).long(),
+                           video_block_mask=torch.from_numpy(block[sl]))
+    state, metrics = run_steps(step, TrainState(0, model, tx), [rows] * spec["n_steps"],
+                               generator=True)
+    return {"metrics": metrics, "params": trained_state(model, tx)}

@@ -8,7 +8,19 @@ CPU, against the JAX package (``ModelConfig.tiny``, f32, dropout off):
   every LM projection, seeded non-zero A and B), and the multi-host
   ('replica', 'data', 'model') mesh (2, 1, 2) for the full recipe;
 - the sequence-parallel multimodal step at 4 shards and the pipelined one at
-  2 stages x 2 data ranks (2 microbatches each).
+  2 stages x 2 data ranks (2 microbatches each);
+- ``rmt_loss`` (the stage-1 recipe) through the Trainer's step on a dp 4
+  mesh, and packed rows (segment ids, two video slots a row) through the
+  sharded step at dp 2 x tp 2 (the full recipe), each against JAX's step on
+  the global batch;
+- serving over a dp 2 x tp 2 sharding (FSDP units on 'data', the LM tensor
+  parallel on 'model'): ``generate``, the dense engine, the paged engine on
+  float and int8 pages, device-grammar requests and a batch mixing two
+  multi-LoRA adapters give the unsharded JAX engines' greedy tokens on every
+  rank; the sampled engine (temperature 0.9, top-p 0.9, seed 4) gives the
+  port's unsharded sampled engine's tokens (JAX draws from ``jax.random``,
+  the port from a ``torch.Generator``); at tp 4 the tiny LM's 2 kv heads
+  are refused by name.
 
 Every run takes two steps over one global batch of four rows (each data
 rank its rows), the first at lr 0 under warmup, both clipping at a global
@@ -46,7 +58,8 @@ TOTAL, STEPS = 4, 2
 LOSS_RTOL, NORM_RTOL = 1e-5, 1e-4
 LEAF_RTOL, LEAF_ATOL = 1e-4, 0.01 * TRAIN_KW["learning_rate"]
 TASKS = ["fsdp_tp_full", "fsdp_tp_stage1", "fsdp_tp_lora", "multislice_full",
-         "seq_parallel_videollamb", "pipeline_videollamb"]
+         "seq_parallel_videollamb", "pipeline_videollamb", "rmt_loss_dp4", "packed_fsdp_tp",
+         "sharded_engines", "sharded_mlora", "head_check"]
 LORA_R, LORA_ALPHA = 4, 8.0
 
 
@@ -60,6 +73,27 @@ def _batch():
     img = CFG.vision.image_size
     videos = rng.normal(size=(4, 8, 3, img, img)).astype(np.float32)
     return ids, mask, labels, videos
+
+
+def _packed():
+    """Four packed rows of 24 tokens: segments 1..3 a row (0 = padding), two
+    video slots a row, the second empty in rows 1 and 2."""
+    rng = np.random.default_rng(6)
+    ids = rng.integers(4, CFG.lm.vocab_size, size=(4, 24)).astype(np.int32)
+    seg = np.zeros((4, 24), np.int32)
+    seg[0, :9], seg[0, 9:20] = 1, 2
+    seg[1, :7], seg[1, 7:12], seg[1, 12:22] = 1, 2, 3
+    seg[2, :24] = 1
+    seg[3, :10], seg[3, 10:18] = 1, 2
+    for row, pos in enumerate(([2, 12], [1, 14], [3], [2, 12])):
+        ids[row, pos] = VIDEO_TOKEN_INDEX
+    mask = (seg > 0).astype(np.int32)
+    labels = np.where(mask > 0, ids, IGNORE_INDEX).astype(np.int32)
+    labels[ids < 0] = IGNORE_INDEX
+    img = CFG.vision.image_size
+    videos = rng.normal(size=(4, 2, 8, 3, img, img)).astype(np.float32)
+    block = np.array([[True, True], [True, False], [True, False], [True, True]])
+    return ids, mask, labels, videos, seg, block
 
 
 def _params():
@@ -92,7 +126,7 @@ def _lora_params(tree):
     return {**tree, "lm": {**tree["lm"], "layers": layers}}
 
 
-def _jax_run(tree, tune_mode, arrays):
+def _jax_run(tree, tune_mode, arrays, rmt_loss=False):
     from videollamb_tpu.models.assembly import MultimodalBatch
     from videollamb_tpu.train.step import (
         create_optimizer,
@@ -105,14 +139,99 @@ def _jax_run(tree, tune_mode, arrays):
     tcfg = JaxTrainConfig(**TRAIN_KW, tune_mode=tune_mode)
     tx = create_optimizer(tcfg, TOTAL, params)
     state = create_train_state(params, tx)
-    step = jax.jit(make_train_step(CFG, tx, remat=False, attn_impl="chunked",
+    step = jax.jit(make_train_step(CFG, tx, remat=False, attn_impl="chunked", rmt_loss=rmt_loss,
                                    mask=trainable_mask(tcfg, params)))
-    batch = MultimodalBatch(*(jnp.asarray(a) for a in arrays), images=None)
+    ids, mask, labels, videos, *packed = (jnp.asarray(a) for a in arrays)
+    batch = MultimodalBatch(ids, mask, labels, videos, images=None,
+                            **dict(zip(("segment_ids", "video_block_mask"), packed)))
     metrics = []
     for _ in range(STEPS):
         state, m = step(state, batch, jax.random.PRNGKey(0))
         metrics.append((float(m["loss"]), float(m["grad_norm"]), int(m["tokens"])))
     return jax.tree.map(np.asarray, state.params), metrics
+
+
+def _serve_spec():
+    """The serving runs' requests (numpy): video rows for ``generate`` and the
+    engines, text rows under a JSON grammar and under two adapters."""
+    from test_grammar import EOS, _token_strs
+    from test_torch_mlora import seeded_adapter
+
+    img = CFG.vision.image_size
+
+    def video_row(seed):
+        rng = np.random.default_rng(seed)
+        ids = rng.integers(4, CFG.lm.vocab_size, size=(1, 8)).astype(np.int32)
+        ids[:, 2] = VIDEO_TOKEN_INDEX
+        return ids, rng.normal(size=(1, 8, 3, img, img)).astype(np.float32)
+
+    def text(seed):
+        return np.random.default_rng(seed).integers(4, CFG.lm.vocab_size, size=(1, 6)).astype(
+            np.int32)
+
+    return {"new": 5, "generate": video_row(7), "rows": [video_row(0), video_row(1)],
+            "sampled": video_row(55), "sampled_new": 6, "grammar_eos": EOS, "grammar_new": 12,
+            "token_strs": _token_strs(CFG.lm.vocab_size), "grammar_ids": [text(20), text(21)],
+            "adapters": {"a": seeded_adapter(CFG.lm, 1, r=4, scale=0.5),
+                         "b": seeded_adapter(CFG.lm, 2, r=8, scale=0.5)},
+            "mlora_new": 6,
+            "mlora_rows": [("a", text(60)), (None, text(60)), ("b", text(61)), ("a", text(62))]}
+
+
+def _jax_serving(tree, serve):
+    """The unsharded JAX engines' greedy tokens on the serving runs."""
+    from videollamb_tpu.models.assembly import MultimodalBatch
+    from videollamb_tpu.models.engine import generate
+    from videollamb_tpu.models.lm.mlora import add_multi_lora_params
+    from videollamb_tpu.serve.grammar import json_constraint
+    from videollamb_tpu.serve.paged import PagedServingEngine
+    from videollamb_tpu.serve.server import Request, ServingEngine
+
+    params = jax.tree.map(jnp.asarray, tree)
+
+    def req(ids, video, uid, new, **fields):
+        batch = MultimodalBatch(jnp.asarray(ids), jnp.ones(ids.shape, jnp.int32), None,
+                                None if video is None else jnp.asarray(video), None)
+        return Request(uid=uid, batch=batch, max_new_tokens=new, temperature=0.0, **fields)
+
+    new = serve["new"]
+    out = {"generate": np.asarray(generate(
+        params, CFG, req(*serve["generate"], 0, new).batch, jax.random.PRNGKey(0),
+        max_new_tokens=new, do_sample=False, eos_token_id=-1,
+        max_seq_len=CFG.max_length + new).tokens).tolist()}
+    engines = {
+        "dense": lambda: ServingEngine(params, CFG, num_slots=2, eos_token_id=-1),
+        "paged_float": lambda: PagedServingEngine(params, CFG, num_slots=2, page_size=32,
+                                                  eos_token_id=-1),
+        "paged_int8": lambda: PagedServingEngine(params, CFG, num_slots=2, page_size=32,
+                                                 eos_token_id=-1, quantize_kv=True)}
+    for name, make in engines.items():
+        out[name] = du._serve(make(), [req(*row, i, new) for i, row in enumerate(serve["rows"])],
+                              k=2)
+    eos = serve["grammar_eos"]
+    reqs = [req(ids, None, i, serve["grammar_new"], grammar=json_constraint(
+        du.GrammarTokenizer(eos), token_strs=serve["token_strs"]))
+        for i, ids in enumerate(serve["grammar_ids"])]
+    out["grammar"] = du._serve(ServingEngine(params, CFG, num_slots=2, eos_token_id=eos), reqs,
+                               k=4)
+    stacked, registry = add_multi_lora_params(params, serve["adapters"])
+    reqs = [req(ids, None, i, serve["mlora_new"], adapter=name)
+            for i, (name, ids) in enumerate(serve["mlora_rows"])]
+    out["mlora"] = du._serve(ServingEngine(stacked, CFG, num_slots=4, eos_token_id=-1,
+                                           adapter_registry=registry), reqs, k=3)
+    out["registry"] = registry
+    return out
+
+
+def _port_sampled(tree, serve):
+    """The port's unsharded sampled engine on the sampled run."""
+    from videollamb_torch.serve.server import ServingEngine
+
+    req = du._video_request(serve["sampled"], 0, serve["sampled_new"], temperature=0.9,
+                            top_p=0.9)
+    with torch.no_grad():
+        return du._serve(ServingEngine(port_model(CFG, tree), port_config(CFG), num_slots=2,
+                                       eos_token_id=-1, seed=4), [req], k=3)
 
 
 @pytest.fixture(scope="module")
@@ -121,15 +240,22 @@ def runs(tmp_path_factory):
     arrays = _batch()
     out_dir = str(tmp_path_factory.mktemp("ranks"))
     lora_tree = _lora_params(tree)
+    packed = _packed()
+    serve = _serve_spec()
     spec = {"tasks": TASKS, "cfg": port_config(CFG), "tree": tree, "batch": arrays,
             "train_kw": TRAIN_KW, "total_steps": TOTAL, "n_steps": STEPS,
-            "lora": {"r": LORA_R, "alpha": LORA_ALPHA, "tree": lora_tree}}
+            "lora": {"r": LORA_R, "alpha": LORA_ALPHA, "tree": lora_tree}, "packed": packed,
+            "serve": serve}
     ctx = du.start_ranks(4, spec, out_dir)
     try:
         ref = {mode: _jax_run(tree, mode, arrays) for mode in ("full", "adapter")}
         ref["lora"] = _jax_run(lora_tree, "lora", arrays)
+        ref["adapter_rmt"] = _jax_run(tree, "adapter", arrays, rmt_loss=True)
+        ref["full_packed"] = _jax_run(tree, "full", packed)
+        ref["serve"] = _jax_serving(tree, serve)
+        ref["sampled"] = _port_sampled(tree, serve)
     finally:
-        results = du.join_ranks(ctx, out_dir, 4)
+        results = du.join_ranks(ctx, out_dir, 4, timeout=150.0)
     return ref, results
 
 
@@ -155,7 +281,9 @@ def _check(ref, got):
 @pytest.mark.parametrize("name,mode", [("fsdp_tp_full", "full"), ("fsdp_tp_stage1", "adapter"),
                                        ("fsdp_tp_lora", "lora"), ("multislice_full", "full"),
                                        ("seq_parallel_videollamb", "full"),
-                                       ("pipeline_videollamb", "full")])
+                                       ("pipeline_videollamb", "full"),
+                                       ("rmt_loss_dp4", "adapter_rmt"),
+                                       ("packed_fsdp_tp", "full_packed")])
 def test_parallel_step_equal_jax(runs, name, mode):
     ref, results = runs
     for rank in range(4):
@@ -194,6 +322,62 @@ def test_shards_are_local(runs):
     assert shapes[f"{attn}.o_proj.lora_b"] == (LORA_R // 2, d)
     mesh = du.result(results, "multislice_full", 0)["mesh"]
     assert mesh == (("replica", "data", "model"), (2, 1, 2))
+
+
+@pytest.mark.parametrize("run", ["generate", "dense", "paged_float", "paged_int8", "grammar"])
+def test_sharded_serving_equals_unsharded_jax(runs, run):
+    """Every rank of the dp 2 x tp 2 sharding gives the unsharded JAX
+    engine's greedy tokens (grammar rows decode to JSON objects)."""
+    import json
+
+    from test_grammar import _decode
+
+    ref, results = runs
+    want = ref["serve"][run]
+    for rank in range(4):
+        assert du.result(results, "sharded_engines", rank)[run] == want, rank
+    if run == "grammar":
+        for tokens in want:
+            assert isinstance(json.loads(_decode(tokens)), dict)
+
+
+def test_sharded_multi_lora_equals_unsharded_jax(runs):
+    """Two adapters and the base model in one batch over the sharded stacks;
+    the stacks shard as their bases (an o_proj A over 'model' on its input
+    rows, then FSDP over 'data' on the adapter axis)."""
+    ref, results = runs
+    want = ref["serve"]["mlora"]
+    assert want[0] != want[1]  # the adapter moves the answer
+    d = CFG.lm.num_attention_heads * CFG.lm.head_dim
+    for rank in range(4):
+        got = du.result(results, "sharded_mlora", rank)
+        assert got["registry"] == ref["serve"]["registry"]
+        assert got["tokens"] == want, rank
+        assert got["o_proj_lora_a"] == (1, d // 2, 8)
+
+
+def test_sharded_sampled_engine_equals_unsharded(runs):
+    ref, results = runs
+    for rank in range(4):
+        assert du.result(results, "sharded_engines", rank)["sampled"] == ref["sampled"], rank
+
+
+def test_sharded_serving_keeps_the_shards(runs):
+    """The served model stays sharded at rest: a rank holds a quarter of a
+    q_proj, and the root's and the layers' weights are FSDP-sharded again
+    after every run (gathered only around their use)."""
+    _, results = runs
+    d, h = CFG.lm.hidden_size, CFG.lm.num_attention_heads * CFG.lm.head_dim
+    for rank in range(4):
+        ev = du.result(results, "sharded_engines", rank)["evidence"]
+        assert ev == {"q_proj": (h // 4, d), "root_sharded": True, "layer_sharded": True}
+
+
+def test_tensor_parallel_refuses_heads_that_do_not_split(runs):
+    _, results = runs
+    for rank in range(4):
+        msg = du.result(results, "head_check", rank)
+        assert msg is not None and "2 key / value heads do not split over 4" in msg, msg
 
 
 def _jax_spec_for(name, table):

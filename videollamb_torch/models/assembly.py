@@ -47,6 +47,7 @@ from videollamb_torch.models.splice import (
     splice_multimodal_packed,
 )
 from videollamb_torch.models.vision.clip_vit import vision_encode
+from videollamb_torch.parallel.sharding import gathered
 
 
 class VideoLLaMB(nn.Module):
@@ -261,8 +262,13 @@ def _prepare(model: VideoLLaMB, cfg: ModelConfig, batch: MultimodalBatch,
 @torch.no_grad()
 def prepare_multimodal_embeds(model: VideoLLaMB, cfg: ModelConfig,
                               batch: MultimodalBatch) -> SplicedBatch:
-    """Encode the media, embed the text, splice into a ``cfg.max_length`` buffer."""
-    return _prepare(model, cfg, batch)
+    """Encode the media, embed the text, splice into a ``cfg.max_length`` buffer.
+
+    Over an FSDP-sharded model the root unit (the towers' embeddings, the
+    bridge, the token table) is gathered for the call; the tower layers,
+    units of their own, gather around their module calls."""
+    with gathered(model):
+        return _prepare(model, cfg, batch)
 
 
 def prepare_packed_embeds(model: VideoLLaMB, cfg: ModelConfig, batch: MultimodalBatch,

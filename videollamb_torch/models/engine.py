@@ -5,7 +5,9 @@ decode loop as one compiled ``lax.while_loop``; here it is a Python loop
 over :func:`llama_decode_step`, stopping when every row has emitted EOS or
 the budget is spent. Greedy, temperature and nucleus (top-p) sampling have
 the JAX semantics; sampling draws from a ``torch.Generator``, so sampled
-tokens differ from the JAX package's (its keys are ``jax.random``).
+tokens differ from the JAX package's (its keys are ``jax.random``). Over a
+model sharded by ``parallel/sharding.shard_params`` every rank runs the same
+call over its own heads and gets the same tokens.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from videollamb_torch.models.lm.llama import (
     llama_prefill,
 )
 from videollamb_torch.models.splice import SplicedBatch
+from videollamb_torch.parallel.sharding import gathered
 
 
 def sample_token(logits: torch.Tensor, generator: Optional[torch.Generator], *,
@@ -77,21 +80,24 @@ def generate_spliced(model: VideoLLaMB, cfg: ModelConfig, spliced: SplicedBatch,
             f"max_seq_len={max_seq_len} must cover the spliced buffer "
             f"(cfg.max_length={cfg.max_length}) plus max_new_tokens={max_new_tokens}")
     dev = spliced.embeds.device
-    cache = init_kv_cache(cfg.lm, b, max_seq_len, dtype=spliced.embeds.dtype, device=dev)
-    logits, cache = llama_prefill(model.lm, cfg.lm, spliced.embeds,
-                                  spliced.attention_mask, cache)
+    cache = init_kv_cache(cfg.lm, b, max_seq_len, dtype=spliced.embeds.dtype, device=dev,
+                          lm=model.lm)
     tokens = torch.full((b, max_new_tokens), pad_token_id, dtype=torch.long, device=dev)
     finished = torch.zeros((b,), dtype=torch.bool, device=dev)
     lengths = torch.zeros((b,), dtype=torch.long, device=dev)
-    for step in range(max_new_tokens):
-        nxt = sample_token(logits, generator, do_sample=do_sample,
-                           temperature=temperature, top_p=top_p)
-        nxt = torch.where(finished, pad_token_id, nxt)
-        tokens[:, step] = nxt
-        lengths += (~finished).long()
-        finished |= nxt == eos_token_id
-        if step + 1 == max_new_tokens or bool(finished.all()):
-            break
-        tok_embeds = embed_tokens(model.lm, nxt[:, None])
-        logits, cache = llama_decode_step(model.lm, cfg.lm, tok_embeds, cache)
+    # One gather of an FSDP-sharded root (embeddings, head) for the request.
+    with gathered(model.lm):
+        logits, cache = llama_prefill(model.lm, cfg.lm, spliced.embeds,
+                                      spliced.attention_mask, cache)
+        for step in range(max_new_tokens):
+            nxt = sample_token(logits, generator, do_sample=do_sample,
+                               temperature=temperature, top_p=top_p)
+            nxt = torch.where(finished, pad_token_id, nxt)
+            tokens[:, step] = nxt
+            lengths += (~finished).long()
+            finished |= nxt == eos_token_id
+            if step + 1 == max_new_tokens or bool(finished.all()):
+                break
+            tok_embeds = embed_tokens(model.lm, nxt[:, None])
+            logits, cache = llama_decode_step(model.lm, cfg.lm, tok_embeds, cache)
     return GenerateResult(tokens=tokens, lengths=lengths)

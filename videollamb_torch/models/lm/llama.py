@@ -37,8 +37,12 @@ engines' chunked admission) and one-token decode. Module names follow the HF
   projection weights, the embedding table and the LM head are DTensors
   sharded over the mesh's ``model`` axis: :func:`proj` and
   :func:`embed_tokens` compute on the rank's shard
-  (``parallel/tensor_parallel.py``), the head counts of q / k / v follow the
-  local width, and the logits are gathered.
+  (``parallel/tensor_parallel.py``), the head counts of q / k / v and of the
+  caches (``init_kv_cache(lm=)``) follow the local width, and the logits are
+  gathered. Under FSDP the cached paths run each layer inside
+  ``sharding.gathered(layer)``, and :func:`embed_tokens` and the head inside
+  ``gathered(lm)`` (the root unit holds them), so every rank of a sharded
+  model steps the same cache over its own heads.
 - Mistral's sliding window (``cfg.sliding_window``) applies wherever the
   JAX package applies it: the fresh-key attention of the forward and the
   prefill (``multihead_attention(window=)``, which K3 computes on the card),
@@ -62,6 +66,7 @@ from videollamb_torch.config import LlamaConfig
 from videollamb_torch.models.lm.rope import apply_rope, rope_cos_sin_cfg
 from videollamb_torch.models.seeded import empty_module, generator
 from videollamb_torch.ops.attention import multihead_attention
+from videollamb_torch.parallel.sharding import gathered, local_heads
 from videollamb_torch.parallel.tensor_parallel import tp_embedding, tp_linear
 
 NEG_INF = -1e30
@@ -84,6 +89,10 @@ class LlamaAttention(nn.Module):
     def __init__(self, cfg: LlamaConfig):
         super().__init__()
         d, dh = cfg.hidden_size, cfg.head_dim
+        # The config's head counts; a tensor-parallel rank holds 1 / tp of
+        # each (parallel/sharding.local_heads).
+        self.num_heads, self.num_key_value_heads = cfg.num_attention_heads, cfg.num_key_value_heads
+        self.head_dim = dh
         self.q_proj = nn.Linear(d, cfg.num_attention_heads * dh, bias=False)
         self.k_proj = nn.Linear(d, cfg.num_key_value_heads * dh, bias=False)
         self.v_proj = nn.Linear(d, cfg.num_key_value_heads * dh, bias=False)
@@ -128,11 +137,20 @@ class LlamaForCausalLM(nn.Module):
 
 
 def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int, dtype=torch.bfloat16,
-                  device="cpu") -> KVCache:
-    shape = (cfg.num_hidden_layers, batch, max_len, cfg.num_key_value_heads, cfg.head_dim)
+                  device="cpu", lm: Optional[LlamaForCausalLM] = None) -> KVCache:
+    """A zero cache; with ``lm``, at its kv heads on this rank (1 / tp of the
+    config's under tensor parallelism)."""
+    shape = (cfg.num_hidden_layers, batch, max_len, local_kv_heads(cfg, lm), cfg.head_dim)
     return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
                    v=torch.zeros(shape, dtype=dtype, device=device),
                    length=torch.zeros((batch,), dtype=torch.long, device=device))
+
+
+def local_kv_heads(cfg: LlamaConfig, lm: Optional[LlamaForCausalLM] = None) -> int:
+    """The kv heads of ``lm``'s layers on this rank; the config's without an LM."""
+    if lm is None:
+        return cfg.num_key_value_heads
+    return local_heads(lm.model.layers[0].self_attn)[1]
 
 
 def _rms_norm(norm: RMSNorm, x: torch.Tensor, eps: float) -> torch.Tensor:
@@ -171,7 +189,9 @@ def _qkv(layer: LlamaDecoderLayer, cfg: LlamaConfig, x: torch.Tensor, cos, sin):
 
 
 def _final(lm: LlamaForCausalLM, cfg: LlamaConfig, x: torch.Tensor) -> torch.Tensor:
-    return proj(lm.lm_head, _rms_norm(lm.model.norm, x, cfg.rms_norm_eps), gather=True).float()
+    with gathered(lm):
+        return proj(lm.lm_head, _rms_norm(lm.model.norm, x, cfg.rms_norm_eps),
+                    gather=True).float()
 
 
 def embed_tokens(lm: LlamaForCausalLM, input_ids: torch.Tensor) -> torch.Tensor:
@@ -180,8 +200,9 @@ def embed_tokens(lm: LlamaForCausalLM, input_ids: torch.Tensor) -> torch.Tensor:
     Clamping matters: a negative index would otherwise read from the end.
     A vocabulary-parallel table sums the ranks' masked lookups.
     """
-    table = lm.model.embed_tokens.weight
-    return tp_embedding(input_ids.long().clamp(0, table.shape[0] - 1), table)
+    with gathered(lm):
+        table = lm.model.embed_tokens.weight
+        return tp_embedding(input_ids.long().clamp(0, table.shape[0] - 1), table)
 
 
 def _grouped_attention(q, k, v, mask):
@@ -262,20 +283,21 @@ def llama_prefill(lm: LlamaForCausalLM, cfg: LlamaConfig, inputs_embeds: torch.T
     Returns the last valid token's logits (B, V) f32 and the cache with
     ``length`` set to each row's valid length.
     """
-    b, s, d = inputs_embeds.shape
+    b, s, _ = inputs_embeds.shape
     valid = attention_mask.bool()
     lengths = valid.sum(dim=1)
     positions = torch.arange(s, device=inputs_embeds.device)[None].expand(b, s)
     cos, sin = rope_cos_sin_cfg(cfg, positions)
     x = inputs_embeds
     for i, layer in enumerate(lm.model.layers):
-        q, k, v = _qkv(layer, cfg, x, cos, sin)
-        cache.k[i, :, :s] = k.to(cache.k.dtype)
-        cache.v[i, :, :s] = v.to(cache.v.dtype)
-        attn = multihead_attention(q, k, v, causal=True, k_mask=valid, impl=attn_impl,
-                                   window=cfg.sliding_window)
-        x = x + layer.self_attn.o_proj(attn.reshape(b, s, d))
-        x = _mlp(layer, cfg, x)
+        with gathered(layer):
+            q, k, v = _qkv(layer, cfg, x, cos, sin)
+            cache.k[i, :, :s] = k.to(cache.k.dtype)
+            cache.v[i, :, :s] = v.to(cache.v.dtype)
+            attn = multihead_attention(q, k, v, causal=True, k_mask=valid, impl=attn_impl,
+                                       window=cfg.sliding_window)
+            x = x + proj(layer.self_attn.o_proj, attn.reshape(b, s, -1))
+            x = _mlp(layer, cfg, x)
     logits = _final(lm, cfg, x)  # (B, S, V)
     last = logits[torch.arange(b, device=logits.device), lengths - 1]
     return last, KVCache(k=cache.k, v=cache.v, length=lengths)
@@ -293,7 +315,7 @@ def llama_extend(lm: LlamaForCausalLM, cfg: LlamaConfig, inputs_embeds: torch.Te
     (B, S, V) with ``return_all``; the cache with lengths advanced by the
     valid count).
     """
-    b, s, d = inputs_embeds.shape
+    b, s, _ = inputs_embeds.shape
     s_max = cache.k.shape[2]
     dev = inputs_embeds.device
     valid = attention_mask.bool()
@@ -316,13 +338,14 @@ def llama_extend(lm: LlamaForCausalLM, cfg: LlamaConfig, inputs_embeds: torch.Te
     write = write[keep]
     x = inputs_embeds
     for i, layer in enumerate(lm.model.layers):
-        q, k, v = _qkv(layer, cfg, x, cos, sin)
-        cache.k[i, rows, write] = k[keep].to(cache.k.dtype)
-        cache.v[i, rows, write] = v[keep].to(cache.v.dtype)
-        attn = _grouped_attention(q, cache.k[i, :, :end].to(q.dtype),
-                                  cache.v[i, :, :end].to(q.dtype), mask)
-        x = x + layer.self_attn.o_proj(attn.reshape(b, s, d))
-        x = _mlp(layer, cfg, x)
+        with gathered(layer):
+            q, k, v = _qkv(layer, cfg, x, cos, sin)
+            cache.k[i, rows, write] = k[keep].to(cache.k.dtype)
+            cache.v[i, rows, write] = v[keep].to(cache.v.dtype)
+            attn = _grouped_attention(q, cache.k[i, :, :end].to(q.dtype),
+                                      cache.v[i, :, :end].to(q.dtype), mask)
+            x = x + proj(layer.self_attn.o_proj, attn.reshape(b, s, -1))
+            x = _mlp(layer, cfg, x)
     new_cache = KVCache(k=cache.k, v=cache.v, length=start + fresh_len)
     if return_all:
         return _final(lm, cfg, x), new_cache
@@ -376,12 +399,13 @@ def llama_decode_step(lm: LlamaForCausalLM, cfg: LlamaConfig, token_embeds: torc
     rows = torch.arange(b, device=pos.device)
     x = token_embeds
     for i, layer in enumerate(lm.model.layers):
-        q, k, v = _qkv(layer, cfg, x, cos, sin)
-        cache.k[i, rows, pos] = k[:, 0].to(cache.k.dtype)
-        cache.v[i, rows, pos] = v[:, 0].to(cache.v.dtype)
-        attn = _grouped_attention(q, cache.k[i].to(q.dtype), cache.v[i].to(q.dtype), mask)
-        x = x + layer.self_attn.o_proj(attn.reshape(b, 1, cfg.hidden_size))
-        x = _mlp(layer, cfg, x)
+        with gathered(layer):
+            q, k, v = _qkv(layer, cfg, x, cos, sin)
+            cache.k[i, rows, pos] = k[:, 0].to(cache.k.dtype)
+            cache.v[i, rows, pos] = v[:, 0].to(cache.v.dtype)
+            attn = _grouped_attention(q, cache.k[i].to(q.dtype), cache.v[i].to(q.dtype), mask)
+            x = x + proj(layer.self_attn.o_proj, attn.reshape(b, 1, -1))
+            x = _mlp(layer, cfg, x)
     logits = _final(lm, cfg, x)[:, 0]
     return logits, KVCache(k=cache.k, v=cache.v, length=cache.length + 1)
 

@@ -29,7 +29,9 @@ import numpy as np
 import torch
 from torch import nn
 
+from videollamb_torch.models.lm.llama import proj
 from videollamb_torch.models.lm.lora import LORA_TARGETS, LoRALinear, _targets
+from videollamb_torch.parallel.tensor_parallel import local, tp_linear
 
 
 class AdapterRows(threading.local):
@@ -60,16 +62,23 @@ class MultiLoRALinear(nn.Module):
         return self.base.out_features
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.base(x)
         idx = self.rows.idx
         if idx is None:
-            return y
+            return proj(self.base, x)
         # x (B, S, d_in), idx (B,): each product summed in f32 and rounded to
         # x's type, as the JAX einsums with preferred_element_type=f32 do.
+        # Under tensor parallelism the stacks are DTensors placed as their
+        # base (parallel/sharding.py): the adapter axis is replicated, so the
+        # row gather is local, and the products run on this rank's shard. On
+        # a row-parallel base the delta is this rank's partial sum, added
+        # before the base's all-reduce.
         safe = idx.clamp(min=0)
-        u = torch.bmm(x, self.lora_a[safe].to(x.dtype))
-        delta = torch.bmm(u, self.lora_b[safe].to(x.dtype))
-        return y + delta * (idx >= 0).to(x.dtype)[:, None, None]
+        u = torch.bmm(x, local(self.lora_a)[safe].to(x.dtype))
+        delta = torch.bmm(u, local(self.lora_b)[safe].to(x.dtype))
+        delta = delta * (idx >= 0).to(x.dtype)[:, None, None]
+        if isinstance(self.base, nn.Linear):
+            return tp_linear(x, self.base.weight, self.base.bias, partial=delta)
+        return self.base(x) + delta
 
 
 @contextlib.contextmanager

@@ -47,6 +47,8 @@ from videollamb_torch.models.lm.llama import (
     _qkv,
     chunked_prefill,
     init_kv_cache,
+    local_kv_heads,
+    proj,
 )
 from videollamb_torch.models.lm.rope import rope_cos_sin_cfg
 from videollamb_torch.ops.gathered_paged_attention import (
@@ -61,6 +63,7 @@ from videollamb_torch.ops.paged_attention_stats import (
 )
 from videollamb_torch.ops.paged_fresh_write import paged_fresh_write, paged_fresh_write_xla
 from videollamb_torch.ops.quantization import get_quantization_scales, to_int8
+from videollamb_torch.parallel.sharding import gathered
 
 TRASH_PAGE = 0
 
@@ -93,12 +96,14 @@ class PagedKVCache:
 
 def init_paged_cache(cfg: LlamaConfig, num_slots: int, total_pages: int, page_size: int = 64,
                      pages_per_seq: Optional[int] = None, dtype=torch.bfloat16,
-                     quantize: bool = False, device="cpu") -> PagedKVCache:
-    """``total_pages`` logical pages shared by all slots (page 0 = trash)."""
+                     quantize: bool = False, device="cpu",
+                     lm: Optional[LlamaForCausalLM] = None) -> PagedKVCache:
+    """``total_pages`` logical pages shared by all slots (page 0 = trash);
+    with ``lm``, at its kv heads on this rank (``llama.local_kv_heads``)."""
     pps = pages_per_seq or total_pages
     table = torch.full((num_slots, pps), TRASH_PAGE, dtype=torch.int32, device=device)
     lengths = torch.zeros((num_slots,), dtype=torch.int32, device=device)
-    h_kv, dh, layers = cfg.num_key_value_heads, cfg.head_dim, cfg.num_hidden_layers
+    h_kv, dh, layers = local_kv_heads(cfg, lm), cfg.head_dim, cfg.num_hidden_layers
     if quantize:
         shape = (layers, total_pages, page_size, h_kv * dh)
         scales = (layers, total_pages, page_size, h_kv)
@@ -167,7 +172,7 @@ def fused_admit(lm: LlamaForCausalLM, cfg: LlamaConfig, inputs_embeds: torch.Ten
         inputs_embeds = F.pad(inputs_embeds, (0, 0, 0, pad))
         attention_mask = F.pad(attention_mask, (0, pad))
     single = init_kv_cache(cfg, 1, s_pad + pad, dtype=inputs_embeds.dtype,
-                           device=inputs_embeds.device)
+                           device=inputs_embeds.device, lm=lm)
     logits, single = chunked_prefill(lm, cfg, inputs_embeds, attention_mask, single,
                                      lengths=[prompt_len])
     paged_insert(cache, single, slot, page_ids)
@@ -231,8 +236,7 @@ def paged_decode_step(lm: LlamaForCausalLM, cfg: LlamaConfig, token_embeds: torc
     write_page = cache.page_table[rows, pos // page].long()
     write_off = pos % page
     cos, sin = rope_cos_sin_cfg(cfg, pos[:, None])
-    h, h_kv, dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
-    groups = h // h_kv
+    dh = cfg.head_dim
     scale = dh ** -0.5
     kp, vp, kp_s, vp_s = cache.k_pages, cache.v_pages, cache.k_scales, cache.v_scales
     ppb = _pick_ppb(pps, page)
@@ -241,30 +245,34 @@ def paged_decode_step(lm: LlamaForCausalLM, cfg: LlamaConfig, token_embeds: torc
     fresh = []
     x = token_embeds
     for layer_idx, layer in enumerate(lm.model.layers):
-        q, k, v = _qkv(layer, cfg, x, cos, sin)
-        q = q[:, 0] * scale  # (B, H, Dh), pre-scaled
-        k_new, v_new = k[:, 0], v[:, 0]  # (B, H_kv, Dh)
-        if use_gathered_kernel:
-            o_old, m_old, l_old = gathered_paged_attention_int8(
-                q, kp, vp, cache.page_table, pos, kp_s[layer_idx], vp_s[layer_idx],
-                pages_per_block=ppb, layer=layer_idx)
-        elif quantized:
-            o_old, m_old, l_old = attend_token_major_int8_stats(
-                q, kp[layer_idx], vp[layer_idx], cache.page_table, pos, kp_s[layer_idx],
-                vp_s[layer_idx])
-        elif use_stats_kernel:
-            o_old, m_old, l_old = paged_attention_with_stats(
-                q, kp[layer_idx], vp[layer_idx], lens32, cache.page_table)
-        else:
-            o_old, m_old, l_old = attend_paged_with_stats_xla(
-                q, kp[layer_idx], vp[layer_idx], cache.page_table, pos)
-        # Fold the current token in exactly (query head j reads kv head j // groups).
-        qg = q.reshape(b, h_kv, groups, dh).float()
-        s_self = torch.einsum("bkgd,bkd->bkg", qg, k_new.float()).reshape(b, h)
-        v_rep = v_new[:, :, None].expand(b, h_kv, groups, dh).reshape(b, h, dh)
-        attn = merge_one_token(o_old, m_old, l_old, s_self, v_rep)
-        x = x + layer.self_attn.o_proj(attn.reshape(b, 1, cfg.hidden_size))
-        x = _mlp(layer, cfg, x)
+        with gathered(layer):
+            q, k, v = _qkv(layer, cfg, x, cos, sin)
+            q = q[:, 0] * scale  # (B, H, Dh), pre-scaled
+            k_new, v_new = k[:, 0], v[:, 0]  # (B, H_kv, Dh)
+            # This rank's heads: all of them, or 1 / tp under tensor parallelism.
+            h, h_kv = q.shape[1], k_new.shape[1]
+            groups = h // h_kv
+            if use_gathered_kernel:
+                o_old, m_old, l_old = gathered_paged_attention_int8(
+                    q, kp, vp, cache.page_table, pos, kp_s[layer_idx], vp_s[layer_idx],
+                    pages_per_block=ppb, layer=layer_idx)
+            elif quantized:
+                o_old, m_old, l_old = attend_token_major_int8_stats(
+                    q, kp[layer_idx], vp[layer_idx], cache.page_table, pos, kp_s[layer_idx],
+                    vp_s[layer_idx])
+            elif use_stats_kernel:
+                o_old, m_old, l_old = paged_attention_with_stats(
+                    q, kp[layer_idx], vp[layer_idx], lens32, cache.page_table)
+            else:
+                o_old, m_old, l_old = attend_paged_with_stats_xla(
+                    q, kp[layer_idx], vp[layer_idx], cache.page_table, pos)
+            # Fold the current token in exactly (query head j reads kv head j // groups).
+            qg = q.reshape(b, h_kv, groups, dh).float()
+            s_self = torch.einsum("bkgd,bkd->bkg", qg, k_new.float()).reshape(b, h)
+            v_rep = v_new[:, :, None].expand(b, h_kv, groups, dh).reshape(b, h, dh)
+            attn = merge_one_token(o_old, m_old, l_old, s_self, v_rep)
+            x = x + proj(layer.self_attn.o_proj, attn.reshape(b, 1, -1))
+            x = _mlp(layer, cfg, x)
         if quantized:
             ks = get_quantization_scales(k_new.float())  # (B, H_kv, 1)
             vs = get_quantization_scales(v_new.float())

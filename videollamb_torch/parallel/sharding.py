@@ -15,10 +15,12 @@ Linear weight is (out, in)):
   ``lm_memory`` replicated.
 
 :func:`shard_params` applies it: tensor parallelism with
-``parallelize_module`` (the weights become DTensors over the 'model' axis,
-which ``parallel/tensor_parallel.py`` computes with), then FSDP2
-``fully_shard`` over 'data' (over ('replica', 'data') as hybrid sharding on
-a multi-host mesh) per decoder layer and tower layer, then the root. FSDP2
+``parallelize_module`` whenever the mesh has a 'model' axis, even one of
+size 1, as JAX's ``NamedSharding`` places its arrays (the weights become
+DTensors over that axis, which ``parallel/tensor_parallel.py`` computes
+with), then FSDP2 ``fully_shard`` over 'data' (over ('replica', 'data') as
+hybrid sharding on a multi-host mesh) per decoder layer and tower layer,
+then the root. FSDP2
 shards dim 0 where JAX's table names the other dim for 'data': the same
 math, another layout. An FSDP unit holds parameters of one dtype (FSDP2's
 rule): those of another dtype in its scope (a trained float32 projector
@@ -29,12 +31,21 @@ The sharded step runs the model through its module call
 (``VideoLLaMB.forward``), so that FSDP gathers each unit's weights around
 its forward and reduce-scatters its gradients in the backward; the loss is
 the mean over the global batch's supervised tokens, as the JAX step's
-under GSPMD.
+under GSPMD, for the plain loss and for ``rmt_loss``'s per-segment one.
+
+The serving paths run the LM's parts as functions (``llama._qkv``,
+``_mlp``, ``_final``, ``embed_tokens``), which no module hook sees: they
+wrap each layer, and the root unit's embedding, head, norm and bridge, in
+:func:`gathered`, which all-gathers a unit's weights (FSDP2's ``unshard``)
+and frees them after. Every rank steps the same engine in lockstep over its
+local heads (:func:`local_heads`) and gets the replicated logits.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import weakref
 from collections import Counter
 from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
@@ -136,14 +147,23 @@ def _check_tensor_parallel(model: nn.Module, tp: int) -> None:
 
     for name, module in model.named_modules():
         kind = type(module).__name__
-        if isinstance(module, MultiLoRALinear) or kind in ("QuantLinear", "Int8Dense"):
+        if kind in ("QuantLinear", "Int8Dense"):
             raise NotImplementedError(
-                f"{name}: tensor parallelism takes float weights and LoRA adapters; "
-                f"{kind} modules (quantised weights, the serving engines' adapter "
-                f"stacks) stay unsharded")
+                f"{name}: tensor parallelism takes float weights and (multi-)LoRA adapters; "
+                f"{kind} modules (quantised weights) stay unsharded")
+        if isinstance(module, MultiLoRALinear) and not isinstance(module.base, nn.Linear):
+            raise NotImplementedError(
+                f"{name}: a multi-LoRA stack shards over a plain base weight, not over "
+                f"{type(module.base).__name__}")
+        attn = getattr(module, "self_attn", None)
+        heads = getattr(attn, "num_heads", None)
+        if heads is not None:
+            for what, n in (("query", heads), ("key / value", attn.num_key_value_heads)):
+                if n % tp:
+                    raise ValueError(f"{name}: {n} {what} heads do not split over {tp} "
+                                     "tensor-parallel ranks")
     for name, p in model.named_parameters():
-        if name.endswith(("q_proj.weight", "k_proj.weight", "embed_tokens.weight")) \
-                and p.shape[0] % tp:
+        if name.endswith("embed_tokens.weight") and p.shape[0] % tp:
             raise ValueError(f"{name}: {p.shape[0]} rows do not split over {tp} ranks")
 
 
@@ -177,9 +197,8 @@ def shard_params(mesh: DeviceMesh, model: nn.Module, *, shard_params_over_data: 
                  tensor_parallel: bool = True) -> nn.Module:
     """Shard ``model`` in place by :func:`param_specs` (see the module docstring)."""
     names = mesh.mesh_dim_names
-    tp = mesh["model"].size() if "model" in names else 1
-    if tensor_parallel and tp > 1:
-        _check_tensor_parallel(model, tp)
+    if tensor_parallel and "model" in names:
+        _check_tensor_parallel(model, mesh["model"].size())
         plan: Dict[str, Dict[str, Shard]] = {}
         for name, spec in param_specs(model, shard_params_over_data=False).items():
             if "model" in spec:
@@ -199,7 +218,86 @@ def shard_params(mesh: DeviceMesh, model: nn.Module, *, shard_params_over_data: 
         for unit in units:
             _fully_shard(unit, dp_mesh)
         _fully_shard(model, dp_mesh)
+        if isinstance(model, FSDPModule):
+            # Mark the root as FSDP's root now, as its first forward would:
+            # serving gathers units by hand (gathered) and may never call it.
+            model._get_fsdp_state()._lazy_init()
+        _record_units(model)
     return model
+
+
+# Each module -> a weak reference to the FSDP unit whose scope holds its own
+# parameters; each unit -> (a weak reference to a submodule, the name of one
+# of its FSDP-managed parameters), read to tell whether it is gathered.
+_UNIT_OF: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+_PROBE: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def _record_units(model: nn.Module) -> None:
+    def walk(module: nn.Module, unit: Optional[nn.Module]) -> None:
+        if isinstance(module, FSDPModule):
+            unit = module
+        if unit is not None:
+            _UNIT_OF[module] = weakref.ref(unit)
+            if unit not in _PROBE:
+                for leaf, p in module.named_parameters(recurse=False):
+                    if _fsdp_managed(p):
+                        _PROBE[unit] = (weakref.ref(module), leaf)
+                        break
+        for child in module.children():
+            walk(child, unit)
+
+    walk(model, None)
+
+
+@contextlib.contextmanager
+def gathered(module: nn.Module):
+    """Run the block with the weights of the FSDP unit that holds ``module``'s
+    own parameters all-gathered (FSDP2's ``unshard``), and free them after
+    (``reshard``), for code that uses the weights without calling the unit as
+    a module. Nothing happens for a module of no FSDP unit, or when the unit
+    is gathered already (by an outer block, or by FSDP around the unit's
+    forward), so blocks nest."""
+    ref = _UNIT_OF.get(module)
+    unit = ref() if ref is not None else None
+    probe = _PROBE.get(unit) if unit is not None else None
+    if probe is None or not _fsdp_managed(getattr(probe[0](), probe[1])):
+        yield
+        return
+    unit.unshard()
+    try:
+        yield
+    finally:
+        unit.reshard()
+
+
+def _linear_rows(module: nn.Module) -> Tuple[int, int]:
+    """(output rows, tensor-parallel ranks they split over) of a projection:
+    an ``nn.Linear`` under any adapter wrappers; quantised weights are never
+    split."""
+    while not isinstance(module, nn.Linear) and hasattr(module, "base"):
+        module = module.base
+    if not isinstance(module, nn.Linear):
+        return module.out_features, 1
+    w = module.weight
+    tp = 1
+    if isinstance(w, DTensor):
+        names = w.device_mesh.mesh_dim_names or ()
+        for i, (name, placement) in enumerate(zip(names, w.placements)):
+            if name == "model" and placement.is_shard(0):
+                tp *= w.device_mesh.size(i)
+    return w.shape[0], tp
+
+
+def local_heads(attn: nn.Module) -> Tuple[int, int]:
+    """(query heads, key / value heads) of a Llama attention module on this
+    rank: all of them, or 1 / tp of each under tensor parallelism, from the
+    widths of ``q_proj`` and ``k_proj`` on this rank (FSDP-sharded or not)."""
+    out = []
+    for proj in (attn.q_proj, attn.k_proj):
+        rows, tp = _linear_rows(proj)
+        out.append(rows // tp // attn.head_dim)
+    return out[0], out[1]
 
 
 class BatchShard(NamedTuple):
@@ -231,12 +329,15 @@ def _all_reduce_(t: torch.Tensor, groups) -> torch.Tensor:
 
 
 def make_sharded_train_step(mesh: DeviceMesh, model_cfg, tx, *, remat: bool = True,
-                            attn_impl: str = "chunked",
+                            attn_impl: str = "chunked", rmt_loss: bool = False,
                             mask: Optional[Dict[str, bool]] = None) -> Callable:
     """The train step of a model sharded by :func:`shard_params`:
     (state, this rank's batch rows, generator) -> (state, metrics), with the
-    loss, its gradients and the metrics of the global batch."""
+    loss, its gradients and the metrics of the global batch. ``rmt_loss``
+    takes the per-segment retro loss (``train/retro.py``), normalised like
+    the plain one by the global batch's supervised tokens."""
     from videollamb_torch.models.assembly import causal_lm_loss_sum, videollamb_forward
+    from videollamb_torch.train.retro import videollamb_retro_forward
     from videollamb_torch.train.step import apply_trainable_mask, global_norm
 
     groups = _dp_groups(mesh)
@@ -248,9 +349,14 @@ def make_sharded_train_step(mesh: DeviceMesh, model_cfg, tx, *, remat: bool = Tr
         fsdp = isinstance(model, FSDPModule)
         scale = dp_world if fsdp else 1  # FSDP averages gradients over the data ranks
         with torch.enable_grad():
-            logits, spliced = model(videollamb_forward, model_cfg, batch, generator,
-                                    remat=remat, attn_impl=attn_impl)
-            total, count = causal_lm_loss_sum(logits, spliced.labels)
+            if rmt_loss:
+                logits, labels = model(videollamb_retro_forward, model_cfg, batch, generator,
+                                       remat=remat, attn_impl=attn_impl)
+            else:
+                logits, spliced = model(videollamb_forward, model_cfg, batch, generator,
+                                        remat=remat, attn_impl=attn_impl)
+                labels = spliced.labels
+            total, count = causal_lm_loss_sum(logits, labels)
             n = _all_reduce_(count.clone(), groups).clamp(min=1)
             loss = total / n
             if loss.requires_grad:

@@ -33,36 +33,46 @@ def local(t: torch.Tensor) -> torch.Tensor:
     return t.to_local() if isinstance(t, DTensor) else t
 
 
-def tp_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def tp_matmul(x: torch.Tensor, w: torch.Tensor,
+              partial: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``x @ w`` for a (d_in, d_out) ``w``, the product in x's dtype.
 
     A DTensor ``w`` sharded on d_out is column parallel (x replicated; the
     output is this rank's features); sharded on d_in it is row parallel (x
-    holds this rank's input features; the output is summed over the ranks)."""
+    holds this rank's input features; the output is summed over the ranks).
+    ``partial``, a term of the output's shape on this rank, is added before
+    a row-parallel sum, so that one all-reduce sums both (a LoRA delta
+    computed from this rank's input features); otherwise after the product."""
     if not isinstance(w, DTensor):
-        return torch.matmul(x, w.to(x.dtype))
-    mesh = w.device_mesh
-    (placement,) = w.placements
-    w = w.to(x.dtype)
-    if placement == Shard(1):
-        x_d = DTensor.from_local(x, mesh, [Replicate()], run_check=False)
-        return torch.matmul(x_d, w).to_local()
-    if placement == Shard(0):
-        y = torch.matmul(x, w.to_local())
-        return DTensor.from_local(y, mesh, [Partial()], run_check=False).full_tensor()
-    return torch.matmul(x, w.to_local())
+        y = torch.matmul(x, w.to(x.dtype))
+    else:
+        mesh = w.device_mesh
+        (placement,) = w.placements
+        w = w.to(x.dtype)
+        if placement == Shard(0):
+            y = torch.matmul(x, w.to_local())
+            if partial is not None:
+                y = y + partial
+            return DTensor.from_local(y, mesh, [Partial()], run_check=False).full_tensor()
+        if placement == Shard(1):
+            x_d = DTensor.from_local(x, mesh, [Replicate()], run_check=False)
+            y = torch.matmul(x_d, w).to_local()
+        else:
+            y = torch.matmul(x, w.to_local())
+    return y if partial is None else y + partial
 
 
 def tp_linear(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
-              gather: bool = False) -> torch.Tensor:
+              gather: bool = False, partial: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``F.linear`` with an (out, in) ``weight`` and ``bias`` cast to x's dtype,
-    where ``weight`` may be tensor parallel (see :func:`tp_matmul`). A
-    column-parallel bias is sharded with the outputs; a row-parallel one is
-    replicated and added after the sum."""
+    where ``weight`` may be tensor parallel (see :func:`tp_matmul`, which
+    also takes ``partial``). A column-parallel bias is sharded with the
+    outputs; a row-parallel one is replicated and added after the sum."""
     if not isinstance(weight, DTensor):
-        return F.linear(x, weight.to(x.dtype), None if bias is None else bias.to(x.dtype))
+        y = F.linear(x, weight.to(x.dtype), None if bias is None else bias.to(x.dtype))
+        return y if partial is None else y + partial
     column = weight.placements[0] == Shard(0)
-    y = tp_matmul(x, weight.t())
+    y = tp_matmul(x, weight.t(), partial)
     if bias is not None:
         y = y + local(bias).to(x.dtype)
     if gather and column:

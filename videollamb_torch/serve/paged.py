@@ -127,7 +127,7 @@ class PagedServingEngine(ServingEngine):
                 f"{window // page_size}")
         self.cache = init_paged_cache(cfg.lm, num_slots, self.total_pages, page_size,
                                       self.pages_per_seq, self._dtype, quantize=quantize_kv,
-                                      device=self.device)
+                                      device=self.device, lm=model.lm)
         self.allocator = PageAllocator(self.total_pages)
         self.slot_pages: List[List[int]] = [[] for _ in range(num_slots)]
         # Host mirrors of the lengths and the page table. Host-side changes
@@ -170,7 +170,7 @@ class PagedServingEngine(ServingEngine):
         if pages is None:
             return None
         dense = init_kv_cache(self.cfg.lm, 1, self.cfg.max_length, dtype=self._dtype,
-                              device=self.device)
+                              device=self.device, lm=self.model.lm)
         logits, dense = chunked_prefill(self.model.lm, self.cfg.lm,
                                         spliced.embeds.to(self._dtype), spliced.attention_mask,
                                         dense, lengths=[prefix_len])

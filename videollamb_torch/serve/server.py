@@ -35,6 +35,13 @@ mask sum) spares the admission its one device-to-host readback: exact for
 text rows, through :func:`spliced_prompt_len_host` for a single image under
 an rmt-family projector, that formula checked against the device once per
 shape signature (:meth:`ServingEngine._resolve_prompt_len`).
+
+The engines run unchanged over a model sharded by
+``parallel/sharding.shard_params`` (tensor parallel on 'model', FSDP units
+on 'data'): every rank of the mesh steps its own engine in lockstep over the
+same requests, with caches at its local kv heads; the logits are gathered,
+so the decode loop, its controls, grammar tables and logprobs, and the
+seeded generator of the sampled rows give every rank the same tokens.
 """
 
 from __future__ import annotations
@@ -56,6 +63,7 @@ from videollamb_torch.models.lm.llama import (
     llama_decode_step,
 )
 from videollamb_torch.models.lm.mlora import adapter_rows
+from videollamb_torch.parallel.sharding import gathered
 
 
 @dataclasses.dataclass
@@ -486,7 +494,7 @@ class ServingEngine:
         self.spec_k = spec_k
         self.max_seq_len = cfg.max_length + 512
         self.cache = init_kv_cache(cfg.lm, num_slots, self.max_seq_len, dtype=self._dtype,
-                                   device=self.device)
+                                   device=self.device, lm=model.lm)
         if speculative == "draft":
             self.draft_lm = getattr(draft_params, "lm", draft_params)
             self.draft_cfg = draft_cfg
@@ -625,7 +633,7 @@ class ServingEngine:
         req._spliced_cache = None
         embeds = spliced.embeds.to(self._dtype)
         single = init_kv_cache(self.cfg.lm, 1, self.cfg.max_length, dtype=self._dtype,
-                               device=self.device)
+                               device=self.device, lm=self.model.lm)
         with adapter_rows(self.model.lm, aidx1):
             logits, single = chunked_prefill(self.model.lm, self.cfg.lm, embeds,
                                              spliced.attention_mask, single, lengths=[prompt_len])
@@ -997,7 +1005,13 @@ class ServingEngine:
 
     def step(self, k: int = 1) -> List[Request]:
         """Admit pending requests, advance every active slot by up to ``k``
-        tokens. Returns the requests finished (or dropped) in this step."""
+        tokens. Returns the requests finished (or dropped) in this step.
+        Over an FSDP-sharded model the root unit (embeddings, head, bridge)
+        is gathered once for the step."""
+        with gathered(self.model):
+            return self._step(k)
+
+    def _step(self, k: int) -> List[Request]:
         self._admit()
         dropped = self._drain_dropped()
         if not any(self._active_mask()):

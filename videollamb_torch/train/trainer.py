@@ -211,10 +211,9 @@ class Trainer:
             # segment routing: packed rows would attend across conversations.
             raise ValueError("pack_sequences is incompatible with rmt_loss and custom step "
                              "factories")
-        if train_cfg.rmt_loss and (mesh is not None or step_factory is not None):
-            raise NotImplementedError(
-                "rmt_loss normalises its per-segment loss on one process; it takes no "
-                "mesh or step factory")
+        if train_cfg.rmt_loss and step_factory is not None:
+            # As in the JAX package, whose step factories ignore rmt_loss.
+            raise NotImplementedError("rmt_loss takes no step factory")
         if train_cfg.rmt_loss and model_cfg.bridge.kind != RMT_R:
             raise ValueError(
                 f"rmt_loss trains on every segment of the {RMT_R} bridge; this model's "
@@ -257,7 +256,8 @@ class Trainer:
             from videollamb_torch.parallel.sharding import make_sharded_train_step
 
             self.step_fn = make_sharded_train_step(
-                mesh, model_cfg, self.tx, remat=train_cfg.gradient_checkpointing, mask=mask)
+                mesh, model_cfg, self.tx, remat=train_cfg.gradient_checkpointing,
+                rmt_loss=train_cfg.rmt_loss, mask=mask)
         else:
             self.step_fn = make_train_step(
                 model_cfg, self.tx, remat=train_cfg.gradient_checkpointing,

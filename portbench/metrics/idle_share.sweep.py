@@ -1,0 +1,7 @@
+"""Percent of the traced window with no device operation running."""
+
+from portbench.readers import idle_share
+
+
+def read(view):
+    return idle_share(view)

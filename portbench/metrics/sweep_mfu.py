@@ -1,0 +1,7 @@
+"""The window's model operations (admissions and every committed token) in percent of the window at the bf16 peak."""
+
+from portbench.readers import mfu
+
+
+def read(view):
+    return mfu(view)

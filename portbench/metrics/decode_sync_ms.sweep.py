@@ -1,0 +1,7 @@
+"""Host ms blocked in the program's ``decode.sync`` span per decode step of the untraced steps that admitted nothing."""
+
+from portbench import spans
+
+
+def read(view):
+    return spans.per_decode_step_ms(view, "decode.sync")

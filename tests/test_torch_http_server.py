@@ -500,6 +500,30 @@ def test_metrics_counters_equal_jax(servers):
     assert_same(got, want)
 
 
+def test_metrics_span_histograms(servers):
+    """The port's /metrics (the JAX server has no span recorder): each span
+    histogram counts the engine's requests and steps, its buckets cumulative
+    up to the count; the recorder's drop counter. The dense engine has no
+    paged counters (``tests/test_torch_spans.py`` renders those)."""
+    url, _ = servers["torch"]
+    series = ("request_queue_seconds", "engine_step_seconds", "engine_admit_seconds",
+              "splice_seconds", "admit_prefill_seconds", "engine_pages_seconds",
+              "engine_decode_seconds", "decode_commit_seconds", "first_token_seconds")
+    before = _metrics(url)
+    outs = [call(url, "/v1/generate", {"prompt": p, "max_new_tokens": 3})
+            for p in ("describe the scene", "hi")]
+    after = _metrics(url)
+    assert [s for s, _ in outs] == [200, 200]
+    for key in series:
+        name = f"videollamb_{key}"
+        assert after[name + "_count"] - before[name + "_count"] >= 2, key
+        assert after[name + '_bucket{le="+Inf"}'] == after[name + "_count"]
+        buckets = [v for k, v in after.items() if k.startswith(name + "_bucket")]
+        assert buckets == sorted(buckets) and len(buckets) > 10
+    assert after["videollamb_spans_dropped_total"] == 0
+    assert "videollamb_prefix_hits_total" not in after
+
+
 def test_worker_engine_error_fails_inflight_and_degrades_health(servers):
     def run(url, srv):
         real_step = srv.engine.step

@@ -140,29 +140,29 @@ def test_export_refuses_adapters(checkpoint, tmp_path):
 
 
 def test_stage_timer_profile_trace_and_logging(tmp_path, capsys):
+    """The logging helpers, and the span recorder that replaced the stage
+    timer and the trace helper: nested spans and their aggregates, and the
+    spans as host ops in a profiler's Chrome trace."""
     from videollamb_torch.utils import logging as plog
-    from videollamb_torch.utils.profiling import StageTimer, profile_trace
-    from videollamb_tpu.utils.profiling import StageTimer as JaxStageTimer
+    from videollamb_torch.utils.profiling import BUCKETS, Recorder
 
-    timer, jtimer = StageTimer(), JaxStageTimer()
-    for t in (timer, jtimer):
+    rec = Recorder()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
         for _ in range(2):
-            with t.stage("encode"):
-                pass
-        with t.stage("decode"):
-            pass
-    x = torch.ones(4)
-    with timer.stage("sync", sync=x):
-        x = x * 2
-    assert list(timer.summary())[:2] == list(jtimer.summary())
-    for name in jtimer.summary():
-        assert timer.summary()[name].keys() == jtimer.summary()[name].keys()
-        assert timer.summary()[name]["count"] == jtimer.summary()[name]["count"]
-    assert "encode:" in timer.report() and "over 2 calls" in timer.report()
-
-    with profile_trace(str(tmp_path / "trace")):
-        torch.ones(8) @ torch.ones(8)
-    assert json.loads((tmp_path / "trace" / "trace.json").read_text())["traceEvents"]
+            with rec.span("encode", uid=7):
+                with rec.span("decode"):
+                    torch.ones(8) @ torch.ones(8)
+    encode = [r for r in rec.records() if r.name == "encode"]
+    decode = [r for r in rec.records() if r.name == "decode"]
+    assert len(encode) == len(decode) == 2
+    assert all(d.parent == e.id and d.uid == 7 and e.t0 <= d.t0 <= d.t1 <= e.t1
+               for e, d in zip(encode, decode))
+    agg = rec.aggregates()
+    assert agg["encode"].count == 2 and len(agg["encode"].buckets) == len(BUCKETS) + 1
+    assert agg["encode"].total >= agg["decode"].total > 0
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+    assert {e.get("cat") for e in events if e.get("name") in ("encode", "decode")} == {"cpu_op"}
 
     plog.rank0_print("hello rank0")
     assert "hello rank0" in capsys.readouterr().out

@@ -8,7 +8,9 @@ checkout and is keyed by a hash of the sources, their shared headers
 (``csrc/*.cuh``) and the flags, so an edited source or header rebuilds and
 an unchanged tree loads the cached library. No binary is
 committed. Without ``nvcc`` a CUDA run raises: the kernels have no
-fallback on the card.
+fallback on the card. The first :func:`kernels` call is the ``kernels.load``
+span (``utils/profiling.py``), with a ``kernels.compile`` span inside it
+when the library had to be built.
 
 Each C entry point takes device pointers and the CUDA stream as
 ``c_void_p`` and returns ``cudaGetLastError()`` after its launch;
@@ -87,6 +89,14 @@ def build() -> Path:
     out = library_path()
     if out.exists():
         return out
+    from videollamb_torch.utils.profiling import span
+
+    with span("kernels.compile"):
+        _compile(out)
+    return out
+
+
+def _compile(out: Path) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc, tag = _nvcc(), f"{out.stem}.{os.getpid()}"
     jobs = []
@@ -115,7 +125,6 @@ def build() -> Path:
         raise RuntimeError(f"nvcc failed: {', '.join(failed)}; see {log_path}:\n"
                            f"{chr(10).join(log)[-4000:]}")
     os.replace(tmp, out)
-    return out
 
 
 def kernels() -> ctypes.CDLL:
@@ -123,11 +132,14 @@ def kernels() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            for name, (restype, argtypes) in SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = restype
+            from videollamb_torch.utils.profiling import span
+
+            with span("kernels.load"):
+                lib = ctypes.CDLL(str(build()))
+                for name, (restype, argtypes) in SIGNATURES.items():
+                    fn = getattr(lib, name)
+                    fn.argtypes = argtypes
+                    fn.restype = restype
             _lib = lib
         return _lib
 

@@ -48,6 +48,7 @@ from videollamb_torch.models.splice import (
 )
 from videollamb_torch.models.vision.clip_vit import vision_encode
 from videollamb_torch.parallel.sharding import gathered
+from videollamb_torch.utils.profiling import span
 
 
 class VideoLLaMB(nn.Module):
@@ -108,17 +109,19 @@ def _tower_features(model: VideoLLaMB, cfg: ModelConfig, pixels: torch.Tensor,
     """(B, T, C, H, W) -> (B, T', N, D) tower features. An image (T = 1) with
     no image tower goes through the video tower, whose temporal attention a
     single frame skips. With ``cfg.tower`` set, the research tower's
-    ``tower_encode`` runs instead of the CLIP family's ``vision_encode``."""
+    ``tower_encode`` runs instead of the CLIP family's ``vision_encode``.
+    The call is the ``encode.tower`` span."""
     tower = getattr(model, tower_key)
     if tower is None:
         tower = model.video_tower
     if tower is None:
         raise ValueError("the model was loaded without a video tower")
-    if cfg.tower is not None:
-        from videollamb_torch.models.vision.builder import tower_encode
+    with span("encode.tower"):
+        if cfg.tower is not None:
+            from videollamb_torch.models.vision.builder import tower_encode
 
-        return tower_encode(cfg.tower, tower, pixels)
-    return vision_encode(tower, pixels, cfg.vision)
+            return tower_encode(cfg.tower, tower, pixels)
+        return vision_encode(tower, pixels, cfg.vision)
 
 
 def _stack(outs) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -130,10 +133,15 @@ def encode_videos(model: VideoLLaMB, cfg: ModelConfig, videos: torch.Tensor,
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(B, T, C, H, W) -> each video's projector tokens (B, N, lm_d) and mask
     (B, N); for the RMT-R bridge the final segment's (reference
-    encode_videos, llava_arch.py:331-338)."""
+    encode_videos, llava_arch.py:331-338). Each video's bridge (SceneTilling,
+    the RMT-R recurrence, retrieval) is an ``encode.bridge`` span."""
     feats = _tower_features(model, cfg, videos)  # (B, T, N, D)
-    return _stack([bridge_apply(model.mm_projector, cfg.bridge, f, modality="video",
-                                generator=generator) for f in feats])
+    outs = []
+    for f in feats:
+        with span("encode.bridge"):
+            outs.append(bridge_apply(model.mm_projector, cfg.bridge, f, modality="video",
+                                     generator=generator))
+    return _stack(outs)
 
 
 def encode_videos_retro(model: VideoLLaMB, cfg: ModelConfig, videos: torch.Tensor,
@@ -255,8 +263,9 @@ def _prepare(model: VideoLLaMB, cfg: ModelConfig, batch: MultimodalBatch,
         x_embeds, x_mask = encode_images(model, cfg, batch.images)
     else:
         x_embeds, x_mask = _no_visual(text_embeds, batch.input_ids.shape[0])
-    return splice_multimodal(batch.input_ids, batch.attention_mask, batch.labels,
-                             text_embeds, x_embeds, x_mask, cfg.max_length)
+    with span("splice"):
+        return splice_multimodal(batch.input_ids, batch.attention_mask, batch.labels,
+                                 text_embeds, x_embeds, x_mask, cfg.max_length)
 
 
 @torch.no_grad()

@@ -31,7 +31,12 @@ different connections decode together in one slot batch.
                           "pending": P, ["last_error": ...]}
   GET  /metrics       -> Prometheus text format: request/token counters,
                           TTFT and end-to-end latency summaries, slot
-                          occupancy and queue-depth gauges.
+                          occupancy and queue-depth gauges; histograms of
+                          the engine's spans (queue wait, step, admission,
+                          splice, one prefill, pages, decode phase, commit,
+                          submit to first token);
+                          the paged engine's prefix-cache, preemption and
+                          page counters; spans dropped by the recorder.
   GET  /v1/adapters   -> {"adapters": [names...]}
   POST /v1/adapters   {"name": ..., "path": <PEFT adapter dir>} loads a
                           LoRA fine-tune at runtime: the adapter stack is
@@ -85,6 +90,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from videollamb_torch.serve.batch_cli import build_requests
+from videollamb_torch.utils.profiling import BUCKETS, RECORDER, Aggregate
 
 
 class RequestRejected(Exception):
@@ -162,11 +168,35 @@ class EngineWorker(threading.Thread):
         self._stopping.set()
 
 
+# Span histograms of /metrics: (series, span name, help). The recorder is
+# process-wide, so they count every engine of the process.
+SPAN_HISTOGRAMS = (
+    ("request_queue_seconds", "request.queue", "Engine submit to the start of admission."),
+    ("engine_step_seconds", "engine.step", "One engine step (host)."),
+    ("engine_admit_seconds", "engine.admit", "Admission phase of an engine step (host)."),
+    ("splice_seconds", "splice", "One splice of media tokens into a prompt (host)."),
+    ("admit_prefill_seconds", "admit.prefill", "One request's prefill (host enqueue)."),
+    ("engine_pages_seconds", "engine.pages", "Page allocation and table upload (host)."),
+    ("engine_decode_seconds", "engine.decode", "Decode phase of an engine step (host)."),
+    ("decode_commit_seconds", "decode.commit", "Committing a step's tokens (host)."),
+    ("first_token_seconds", "request.first_token", "Engine submit to the first token's commit."),
+)
+# The paged engine's counters: (series, attribute, help).
+ENGINE_COUNTERS = (
+    ("prefix_hits_total", "prefix_hits", "Automatic prefix cache hits."),
+    ("prefix_misses_total", "prefix_misses", "Automatic prefix cache misses."),
+    ("prefix_evictions_total", "prefix_evictions", "Cached prefixes evicted."),
+    ("preempted_total", "preempted", "Requests swapped out to host memory."),
+    ("resumed_total", "resumed", "Swapped-out requests resumed."),
+)
+
+
 class Metrics:
     """Process-wide serving counters in the Prometheus exposition format
     (text/plain 0.0.4; no client library). Counters and summaries are
     updated from handler threads and the per-token hooks, so every write
-    takes the lock; reads (scrapes) render a consistent snapshot."""
+    takes the lock; reads (scrapes) render a consistent snapshot. The span
+    histograms come from the span recorder (``utils/profiling.py``)."""
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -227,6 +257,28 @@ class Metrics:
             lines.append(f"# TYPE videollamb_{key} summary")
             lines.append(f"videollamb_{key}_sum {vals[pfx + '_sum']}")
             lines.append(f"videollamb_{key}_count {vals[pfx + '_count']}")
+        aggs = RECORDER.aggregates()
+        none = Aggregate(0, 0.0, (0,) * (len(BUCKETS) + 1))
+        for key, name, help_ in SPAN_HISTOGRAMS:
+            agg = aggs.get(name, none)
+            lines.append(f"# HELP videollamb_{key} {help_}")
+            lines.append(f"# TYPE videollamb_{key} histogram")
+            cum = 0
+            for le, n in zip(BUCKETS, agg.buckets):
+                cum += n
+                lines.append(f'videollamb_{key}_bucket{{le="{le}"}} {cum}')
+            lines.append(f'videollamb_{key}_bucket{{le="+Inf"}} {agg.count}')
+            lines.append(f"videollamb_{key}_sum {agg.total}")
+            lines.append(f"videollamb_{key}_count {agg.count}")
+        counter("spans_dropped_total", RECORDER.dropped,
+                "Span records the recorder's ring dropped to make room.")
+        if hasattr(engine, "allocator"):  # the paged engine
+            for key, attr, help_ in ENGINE_COUNTERS:
+                counter(key, getattr(engine, attr), help_)
+            gauge("pages_in_use", engine.pages_in_use,
+                  "KV pages held by slots and cached prefixes.")
+            gauge("pages_in_use_peak", engine.peak_pages_in_use,
+                  "Most KV pages held at once.")
         gauge("slots_active", sum(r is not None for r in engine.slots),
               "Decode slots currently occupied.")
         gauge("slots_total", engine.num_slots, "Configured decode slots.")

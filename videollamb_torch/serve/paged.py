@@ -19,6 +19,11 @@ context memory allocated in pages from one shared pool
   is exact) and it resumes, first in line, once a slot and its pages fit;
 - finished slots return their pages at once.
 
+Spans (``utils/profiling.py``), besides the base engine's: the convoy is
+``admit.prefetch``, its splices ``admit.splice`` and its stacked readback
+``admit.readback``; page table uploads and resumes are ``engine.pages``,
+with ``pages.swap_out`` / ``pages.swap_in`` per request moved.
+
 Prefix caching: ``register_prefix`` prefills a shared prompt prefix (system
 and video) once; its whole pages go into the pool, refcounted, and are
 mapped into the table row of every slot that consumes it
@@ -74,6 +79,7 @@ from videollamb_torch.models.lm.paged import (
     scatter_pages,
 )
 from videollamb_torch.serve.server import Request, ServingEngine, _shared_consume
+from videollamb_torch.utils.profiling import span
 
 
 def batch_signature(batch) -> bytes:
@@ -259,24 +265,25 @@ class PagedServingEngine(ServingEngine):
             return False  # pool exhausted: backpressure
         self.pending.get()
         req._spliced_cache = None
-        # Suffix-only prefill of the suffix's own tokens (not the splice
-        # buffer's padding) over a copy of the prefix's rows, in a dense cache
-        # as long as the slot's pages (the last one partly filled).
-        k = info["k"].new_zeros((info["k"].shape[0], 1, n_pages * self.page_size,
-                                 *info["k"].shape[3:]))
-        v = torch.zeros_like(k)
-        k[:, :, :info["len"]] = info["k"]
-        v[:, :, :info["len"]] = info["v"]
-        dense = KVCache(k=k, v=v, length=torch.tensor([info["len"]], device=self.device))
-        logits, dense = llama_extend(self.model.lm, self.cfg.lm,
-                                     spliced.embeds[:, :suffix_len].to(self._dtype),
-                                     spliced.attention_mask[:, :suffix_len], dense)
         self.allocator.retain(info["pages"])
         pages = list(info["pages"]) + private
         page_ids = np.full((self.pages_per_seq,), TRASH_PAGE, np.int32)
         page_ids[:len(pages)] = pages
-        paged_insert(self.cache, dense, slot, page_ids.tolist(), skip_pages=n_full)
-        self.logits[slot] = logits[0]
+        with span("admit.prefill", req.uid):
+            # Suffix-only prefill of the suffix's own tokens (not the splice
+            # buffer's padding) over a copy of the prefix's rows, in a dense
+            # cache as long as the slot's pages (the last one partly filled).
+            k = info["k"].new_zeros((info["k"].shape[0], 1, n_pages * self.page_size,
+                                     *info["k"].shape[3:]))
+            v = torch.zeros_like(k)
+            k[:, :, :info["len"]] = info["k"]
+            v[:, :, :info["len"]] = info["v"]
+            dense = KVCache(k=k, v=v, length=torch.tensor([info["len"]], device=self.device))
+            logits, dense = llama_extend(self.model.lm, self.cfg.lm,
+                                         spliced.embeds[:, :suffix_len].to(self._dtype),
+                                         spliced.attention_mask[:, :suffix_len], dense)
+            paged_insert(self.cache, dense, slot, page_ids.tolist(), skip_pages=n_full)
+            self.logits[slot] = logits[0]
         self._install_constraint(req)
         self._occupy(slot, req, pages, total_len, page_ids)
         self._slot_prefix[slot] = req.prefix_id
@@ -285,9 +292,13 @@ class PagedServingEngine(ServingEngine):
         return True
 
     # ------------------------------------------------------------------
+    @property
+    def pages_in_use(self) -> int:
+        """Pages held by slots and cached prefixes (the trash page aside)."""
+        return self.total_pages - 1 - self.allocator.free_pages
+
     def _note_pages(self) -> None:
-        self.peak_pages_in_use = max(self.peak_pages_in_use,
-                                     self.total_pages - 1 - self.allocator.free_pages)
+        self.peak_pages_in_use = max(self.peak_pages_in_use, self.pages_in_use)
 
     def _occupy(self, slot: int, req: Request, pages: List[int], length: int,
                 row: np.ndarray) -> None:
@@ -337,29 +348,34 @@ class PagedServingEngine(ServingEngine):
         free = sum(r is None for r in self.slots)
         if free <= 1 or self.pending.empty():
             return
-        todo = []
-        for req in list(self.pending.queue)[:free]:
-            if (req.cancelled or req.prefix_id is not None or req.prefix_batch is not None
-                    or req._shared_prefill is not None or req._spliced_cache is not None):
-                continue
-            spliced = prepare_multimodal_embeds(self.model, self.cfg, req.batch)
-            trusted = self._trusted_prompt_len(req)
-            if trusted is not None:
-                req._spliced_cache = (spliced, trusted)
-            else:
-                todo.append((req, spliced))
-        if not todo:
-            return
-        sums = self._readback(torch.stack([s.attention_mask.sum() for _, s in todo]))
-        for (req, spliced), val in zip(todo, sums):
-            self._check_prompt_len(req, int(val))
-            req._spliced_cache = (spliced, int(val))
+        with span("admit.prefetch"):
+            todo = []
+            for req in list(self.pending.queue)[:free]:
+                if (req.cancelled or req.prefix_id is not None or req.prefix_batch is not None
+                        or req._shared_prefill is not None or req._spliced_cache is not None):
+                    continue
+                self._admission_starts(req)
+                with span("admit.splice", req.uid):
+                    spliced = prepare_multimodal_embeds(self.model, self.cfg, req.batch)
+                trusted = self._trusted_prompt_len(req)
+                if trusted is not None:
+                    req._spliced_cache = (spliced, trusted)
+                else:
+                    todo.append((req, spliced))
+            if not todo:
+                return
+            with span("admit.readback"):
+                sums = self._readback(torch.stack([s.attention_mask.sum() for _, s in todo]))
+            for (req, spliced), val in zip(todo, sums):
+                self._check_prompt_len(req, int(val))
+                req._spliced_cache = (spliced, int(val))
 
     def _admit(self) -> None:
         # Releases of the previous commit reach the card first: admission may
         # reuse their pages. Swapped requests resume before anything pending.
-        self._sync_table()
-        self._readmit_swapped()
+        with span("engine.pages"):
+            self._sync_table()
+            self._readmit_swapped()
         self._prefetch_admissions()
         while not self.pending.empty():
             slot = self._free_slot()
@@ -403,13 +419,14 @@ class PagedServingEngine(ServingEngine):
             if pages is None:
                 return  # pool exhausted: backpressure until slots free
             self.pending.get()
+            self._admission_starts(req)
             aidx1 = self._set_adapter(slot, req)
             page_ids = np.full((self.pages_per_seq,), TRASH_PAGE, np.int32)
             page_ids[:len(pages)] = pages
             if shared is None:
                 spliced, _ = self._splice(req)
                 req._spliced_cache = None
-                with adapter_rows(self.model.lm, aidx1):
+                with span("admit.prefill", req.uid), adapter_rows(self.model.lm, aidx1):
                     fused_admit(self.model.lm, self.cfg.lm, spliced.embeds.to(self._dtype),
                                 spliced.attention_mask, prompt_len, self.cache, self.logits,
                                 slot, page_ids.tolist())
@@ -450,18 +467,19 @@ class PagedServingEngine(ServingEngine):
         memory and release its references. Growth pages allocated ahead hold
         no token and are not saved. The request keeps its host state (tokens,
         constraint cursor) and its adapter index rides along."""
-        length = int(self._host_len[slot])
-        n_data = min(self.allocator.pages_needed(length, self.page_size),
-                     len(self.slot_pages[slot]))
-        k, v, ks, vs = gather_slot_pages(self.cache, self.slot_pages[slot][:n_data])
-        self._swapped.append({
-            "req": self.slots[slot], "len": length, "n": n_data,
-            "k": k.cpu(), "v": v.cpu(),
-            "ks": None if ks is None else ks.cpu(), "vs": None if vs is None else vs.cpu(),
-            "logits": self.logits[slot].clone(), "adapter": int(self._adapter_host[slot]),
-        })
-        self.preempted += 1
-        self._release(slot)
+        with span("pages.swap_out", self.slots[slot].uid):
+            length = int(self._host_len[slot])
+            n_data = min(self.allocator.pages_needed(length, self.page_size),
+                         len(self.slot_pages[slot]))
+            k, v, ks, vs = gather_slot_pages(self.cache, self.slot_pages[slot][:n_data])
+            self._swapped.append({
+                "req": self.slots[slot], "len": length, "n": n_data,
+                "k": k.cpu(), "v": v.cpu(),
+                "ks": None if ks is None else ks.cpu(), "vs": None if vs is None else vs.cpu(),
+                "logits": self.logits[slot].clone(), "adapter": int(self._adapter_host[slot]),
+            })
+            self.preempted += 1
+            self._release(slot)
 
     def _readmit_swapped(self) -> None:
         """Resume swapped requests in order once a slot and their pages, plus
@@ -481,17 +499,18 @@ class PagedServingEngine(ServingEngine):
             if pages is None:
                 return  # still tight: retry next step
             self._swapped.pop(0)
-            insert_raw_pages(self.cache, ent["k"], ent["v"], pages[:ent["n"]],
-                             ent["ks"], ent["vs"])
-            row = np.full((self.pages_per_seq,), TRASH_PAGE, np.int32)
-            row[:len(pages)] = pages
-            self.cache.page_table[slot] = torch.from_numpy(row).to(self.device)
-            self.cache.lengths[slot] = ent["len"]
-            self.logits[slot] = ent["logits"]
-            if ent["adapter"] >= 0:
-                self._adapter_host[slot] = ent["adapter"]
-                self.adapter_idx[slot] = ent["adapter"]
-            self._occupy(slot, ent["req"], pages, ent["len"], row)
+            with span("pages.swap_in", ent["req"].uid):
+                insert_raw_pages(self.cache, ent["k"], ent["v"], pages[:ent["n"]],
+                                 ent["ks"], ent["vs"])
+                row = np.full((self.pages_per_seq,), TRASH_PAGE, np.int32)
+                row[:len(pages)] = pages
+                self.cache.page_table[slot] = torch.from_numpy(row).to(self.device)
+                self.cache.lengths[slot] = ent["len"]
+                self.logits[slot] = ent["logits"]
+                if ent["adapter"] >= 0:
+                    self._adapter_host[slot] = ent["adapter"]
+                    self.adapter_idx[slot] = ent["adapter"]
+                self._occupy(slot, ent["req"], pages, ent["len"], row)
             self.resumed += 1
 
     def _ensure_pages(self, k: int) -> None:

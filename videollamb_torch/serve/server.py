@@ -26,6 +26,13 @@ and take free slots.
   (``models/speculative.py``): each slot's proposals are verified in one
   ragged cache-extend, and the tokens are the target's greedy chain.
 
+Each step records spans (``utils/profiling.py``) at its phase boundaries:
+``engine.step`` over the call; ``engine.admit`` (each request's
+``request.queue`` wait from ``submit``, ``admit.splice`` and ``admit.prefill``
+under its uid); ``engine.pages``; ``engine.decode`` with ``decode.enqueue``
+(the host queuing the k forwards), ``decode.sync`` (the readbacks) and
+``decode.commit``; and a ``request.first_token`` mark per request.
+
 :class:`ServingEngine` is also the base class of the paged engine
 (``serve/paged.py``), which adds prefix caching. Sampling draws from a
 ``torch.Generator``, so sampled tokens differ from the JAX package's
@@ -48,6 +55,7 @@ from __future__ import annotations
 
 import dataclasses
 import queue
+import time
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -64,6 +72,7 @@ from videollamb_torch.models.lm.llama import (
 )
 from videollamb_torch.models.lm.mlora import adapter_rows
 from videollamb_torch.parallel.sharding import gathered
+from videollamb_torch.utils.profiling import RECORDER, mark, span
 
 
 @dataclasses.dataclass
@@ -131,6 +140,10 @@ class Request:
     _constraint: Any = None
     # Engine-internal: the share_prefill group of this request.
     _shared_prefill: Any = None
+    # Engine-internal: when submit() queued the request (time.perf_counter),
+    # and whether its wait in the queue is still to be recorded.
+    _submitted: Optional[float] = None
+    _queued: bool = False
 
     def __post_init__(self):
         if self.grammar is not None and self.choices:
@@ -535,7 +548,22 @@ class ServingEngine:
 
     # ------------------------------------------------------------------
     def submit(self, request: Request) -> None:
+        request._submitted = time.perf_counter()
+        request._queued = True
         self.pending.put(request)
+
+    @staticmethod
+    def _admission_starts(req: Request) -> None:
+        """Record the request's wait in the queue, from submit to the first
+        work of its admission, once."""
+        if req._queued:
+            req._queued = False
+            RECORDER.add("request.queue", req.uid, req._submitted, time.perf_counter())
+
+    @staticmethod
+    def _first_token(req: Request) -> None:
+        if len(req.tokens) == 1:
+            mark("request.first_token", req.uid, since=req._submitted)
 
     def _free_slot(self) -> Optional[int]:
         for i, r in enumerate(self.slots):
@@ -590,8 +618,10 @@ class ServingEngine:
     def _splice(self, req: Request):
         """(spliced batch, prompt length) of a request, kept on it until admitted."""
         if req._spliced_cache is None:
-            spliced = prepare_multimodal_embeds(self.model, self.cfg, req.batch)
-            req._spliced_cache = (spliced, self._resolve_prompt_len(req, spliced))
+            self._admission_starts(req)
+            with span("admit.splice", req.uid):
+                spliced = prepare_multimodal_embeds(self.model, self.cfg, req.batch)
+                req._spliced_cache = (spliced, self._resolve_prompt_len(req, spliced))
         return req._spliced_cache
 
     def _drop(self, req: Request, error: Optional[str] = None) -> None:
@@ -631,19 +661,22 @@ class ServingEngine:
             return shared["data"]
         spliced, prompt_len = self._splice(req)
         req._spliced_cache = None
-        embeds = spliced.embeds.to(self._dtype)
-        single = init_kv_cache(self.cfg.lm, 1, self.cfg.max_length, dtype=self._dtype,
-                               device=self.device, lm=self.model.lm)
-        with adapter_rows(self.model.lm, aidx1):
-            logits, single = chunked_prefill(self.model.lm, self.cfg.lm, embeds,
-                                             spliced.attention_mask, single, lengths=[prompt_len])
-        dsingle = None
-        if self.speculative == "draft":
-            # The draft tracks the same context from the same spliced embeds.
-            dsingle = init_kv_cache(self.draft_cfg, 1, self.cfg.max_length,
-                                    dtype=self._dtype, device=self.device)
-            _, dsingle = chunked_prefill(self.draft_lm, self.draft_cfg, embeds,
-                                         spliced.attention_mask, dsingle, lengths=[prompt_len])
+        with span("admit.prefill", req.uid):
+            embeds = spliced.embeds.to(self._dtype)
+            single = init_kv_cache(self.cfg.lm, 1, self.cfg.max_length, dtype=self._dtype,
+                                   device=self.device, lm=self.model.lm)
+            with adapter_rows(self.model.lm, aidx1):
+                logits, single = chunked_prefill(self.model.lm, self.cfg.lm, embeds,
+                                                 spliced.attention_mask, single,
+                                                 lengths=[prompt_len])
+            dsingle = None
+            if self.speculative == "draft":
+                # The draft tracks the same context from the same spliced embeds.
+                dsingle = init_kv_cache(self.draft_cfg, 1, self.cfg.max_length,
+                                        dtype=self._dtype, device=self.device)
+                _, dsingle = chunked_prefill(self.draft_lm, self.draft_cfg, embeds,
+                                             spliced.attention_mask, dsingle,
+                                             lengths=[prompt_len])
         data = (logits, single, dsingle)
         if shared is not None:
             shared["data"] = data
@@ -662,6 +695,7 @@ class ServingEngine:
             if refusal is not None:
                 self._drop(req, refusal)
                 continue
+            self._admission_starts(req)
             logits, single, dsingle = self._prefill(req, self._set_adapter(slot, req))
             _shared_consume(req)
             insert_into_cache(self.cache, single, slot)
@@ -756,6 +790,7 @@ class ServingEngine:
             for t in range(valid):
                 tok = int(toks_host[i, t])
                 req.tokens.append(tok)
+                self._first_token(req)
                 if lp_host is not None and req.logprobs:
                     self._commit_logprob(req, lp_host[0][i, t], lp_host[1][i, t],
                                          lp_host[2][i, t])
@@ -841,24 +876,29 @@ class ServingEngine:
         if self.speculative == "draft":
             # Chunk column 0 is each row's committed-next token: the draft
             # loop embeds it first and emits it back.
-            chunks_dev, self.draft_cache = draft_propose_batched(
-                self.draft_lm, self.draft_cfg, torch.argmax(self.logits, dim=-1),
-                self.draft_cache, kk)
-            for i, r in enumerate(self.slots):
-                if r is not None:
-                    mask[i, :max(1, min(kk, r.max_new_tokens - len(r.tokens)))] = 1
-            accepted, self.logits, _, self.cache = verify_chunks_batched(
-                self.model, self.cfg, chunks_dev, torch.from_numpy(mask).to(self.device),
-                self.cache)
-            self.draft_cache = roll_draft_cache(self.draft_cache, accepted, kk)
+            with span("decode.enqueue"):
+                chunks_dev, self.draft_cache = draft_propose_batched(
+                    self.draft_lm, self.draft_cfg, torch.argmax(self.logits, dim=-1),
+                    self.draft_cache, kk)
+                for i, r in enumerate(self.slots):
+                    if r is not None:
+                        mask[i, :max(1, min(kk, r.max_new_tokens - len(r.tokens)))] = 1
+                accepted, self.logits, _, self.cache = verify_chunks_batched(
+                    self.model, self.cfg, chunks_dev, torch.from_numpy(mask).to(self.device),
+                    self.cache)
+                self.draft_cache = roll_draft_cache(self.draft_cache, accepted, kk)
             self.spec_rounds += 1
-            return self._spec_commit(chunks_dev.cpu().numpy(), accepted.cpu().numpy(), dropped)
+            with span("decode.sync"):
+                chunks_host, acc_host = chunks_dev.cpu().numpy(), accepted.cpu().numpy()
+            with span("decode.commit"):
+                return self._spec_commit(chunks_host, acc_host, dropped)
 
         # One host sync per round: nxt0 rides the PREVIOUS verify's readback,
         # unless an admission or a plain step rewrote the logits rows.
         nxt0 = self._spec_nxt0
         if nxt0 is None:
-            nxt0 = torch.argmax(self.logits, dim=-1).cpu().numpy()
+            with span("decode.sync"):
+                nxt0 = torch.argmax(self.logits, dim=-1).cpu().numpy()
         chunks = np.zeros((b, kk), np.int64)
         for i, r in enumerate(self.slots):
             if r is None:
@@ -870,13 +910,16 @@ class ServingEngine:
                 prop = propose_lookup(self._spec_context(r) + [int(nxt0[i])], k=room)
                 chunks[i, 1:1 + len(prop)] = prop
                 mask[i, 1:1 + len(prop)] = 1
-        accepted, self.logits, next_argmax, self.cache = verify_chunks_batched(
-            self.model, self.cfg, torch.from_numpy(chunks).to(self.device),
-            torch.from_numpy(mask).to(self.device), self.cache)
-        acc_host = accepted.cpu().numpy()
-        self._spec_nxt0 = next_argmax.cpu().numpy()
+        with span("decode.enqueue"):
+            accepted, self.logits, next_argmax, self.cache = verify_chunks_batched(
+                self.model, self.cfg, torch.from_numpy(chunks).to(self.device),
+                torch.from_numpy(mask).to(self.device), self.cache)
+        with span("decode.sync"):
+            acc_host = accepted.cpu().numpy()
+            self._spec_nxt0 = next_argmax.cpu().numpy()
         self.spec_rounds += 1
-        return self._spec_commit(chunks, acc_host, dropped)
+        with span("decode.commit"):
+            return self._spec_commit(chunks, acc_host, dropped)
 
     def _spec_commit(self, chunks: np.ndarray, acc_host: np.ndarray,
                      finished: List[Request]) -> List[Request]:
@@ -891,6 +934,7 @@ class ServingEngine:
             for t in range(int(acc_host[i])):
                 tok = int(chunks[i, t])
                 req.tokens.append(tok)
+                self._first_token(req)
                 # Count only the tokens DELIVERED: acceptance past an EOS or
                 # the budget would overstate the statistics.
                 self.spec_committed += 1
@@ -961,17 +1005,19 @@ class ServingEngine:
         controls = None
         if any(r is not None and r.has_sampling_controls for r in self.slots):
             controls = build_control_tensors(self.slots, self.cfg.lm.vocab_size)
-        with adapter_rows(self.model.lm, self._live_adapter_idx()):
+        with span("decode.enqueue"), adapter_rows(self.model.lm, self._live_adapter_idx()):
             out = decode_steps(self._forward, self.logits, k, generator=self.generator,
                                sampling=sampling, controls=controls,
                                eos=self.eos if self.eos is not None else -1, grammar=grammar,
                                top_k=TOP_LOGPROBS_K if self._wants_logprobs() else 0)
         self.logits = out.logits
         self._advanced(k)
-        lp_host = tuple(a.cpu().numpy() for a in out.logprobs) if out.logprobs else None
-        invalid_host = out.invalid_at.cpu().numpy() if grammar is not None else None
-        frozen = self._commit_k_tokens(out.tokens.cpu().numpy(), lp_host, k, dropped,
-                                       invalid_host)
+        with span("decode.sync"):
+            lp_host = tuple(a.cpu().numpy() for a in out.logprobs) if out.logprobs else None
+            invalid_host = out.invalid_at.cpu().numpy() if grammar is not None else None
+            toks_host = out.tokens.cpu().numpy()
+        with span("decode.commit"):
+            frozen = self._commit_k_tokens(toks_host, lp_host, k, dropped, invalid_host)
         if frozen.any():
             garbage = np.where(frozen, k - 1 - invalid_host, 0)
             rows = torch.as_tensor(frozen, device=self.device)[:, None]
@@ -996,11 +1042,14 @@ class ServingEngine:
         # Logprobs of the RAW logits (the base distribution), before the step
         # overwrites them.
         lp = logprobs_of(self.logits, nxt) if self._wants_logprobs() else None
-        with adapter_rows(self.model.lm, self._live_adapter_idx()):
+        with span("decode.enqueue"), adapter_rows(self.model.lm, self._live_adapter_idx()):
             self.logits = self._forward(nxt)
         self._advanced(1)
-        lp_host = tuple(a.cpu().numpy()[:, None] for a in lp) if lp is not None else None
-        self._commit_k_tokens(nxt.cpu().numpy()[:, None], lp_host, 1, dropped)
+        with span("decode.sync"):
+            lp_host = tuple(a.cpu().numpy()[:, None] for a in lp) if lp is not None else None
+            toks_host = nxt.cpu().numpy()[:, None]
+        with span("decode.commit"):
+            self._commit_k_tokens(toks_host, lp_host, 1, dropped)
         return dropped
 
     def step(self, k: int = 1) -> List[Request]:
@@ -1008,11 +1057,12 @@ class ServingEngine:
         tokens. Returns the requests finished (or dropped) in this step.
         Over an FSDP-sharded model the root unit (embeddings, head, bridge)
         is gathered once for the step."""
-        with gathered(self.model):
+        with span("engine.step"), gathered(self.model):
             return self._step(k)
 
     def _step(self, k: int) -> List[Request]:
-        self._admit()
+        with span("engine.admit"):
+            self._admit()
         dropped = self._drain_dropped()
         if not any(self._active_mask()):
             return dropped
@@ -1021,20 +1071,22 @@ class ServingEngine:
         no_controls = all(r is None or not r.has_sampling_controls for r in self.slots)
         if (self.speculative in ("lookup", "draft") and all_greedy and unconstrained
                 and no_controls and not self._wants_logprobs()):
-            with adapter_rows(self.model.lm, self._live_adapter_idx()):
+            with span("engine.decode"), adapter_rows(self.model.lm, self._live_adapter_idx()):
                 return self._step_speculative(dropped)
         # Any other step rewrites the logits rows: the carried next-argmax is stale.
         self._spec_nxt0 = None
-        self._prepare_decode(max(k, 1))
-        if k > 1 and unconstrained:
-            return self._step_device(k, dropped)
-        if k > 1:
-            # Constrained rows stay in the device loop while their tables are
-            # on the device; otherwise, and at k = 1, host masks.
-            grammar = self._grammar_device_setup()
-            if grammar is not None:
-                return self._step_device(k, dropped, grammar)
-        return self._step_host(dropped)
+        with span("engine.pages"):
+            self._prepare_decode(max(k, 1))
+        with span("engine.decode"):
+            if k > 1 and unconstrained:
+                return self._step_device(k, dropped)
+            if k > 1:
+                # Constrained rows stay in the device loop while their tables are
+                # on the device; otherwise, and at k = 1, host masks.
+                grammar = self._grammar_device_setup()
+                if grammar is not None:
+                    return self._step_device(k, dropped, grammar)
+            return self._step_host(dropped)
 
     def cancel(self, uid) -> bool:
         """Cancel a pending or running request by uid; it is dropped at

@@ -1,78 +1,177 @@
-"""Profiling: ``torch.profiler`` traces and per-stage wall-clock timers.
+"""Spans: where the program's host time goes, recorded as it runs.
 
-Port of ``videollamb_tpu/utils/profiling.py``:
+``span(name, uid=None)`` times a block on ``time.perf_counter`` and records
+``(id, parent id, name, uid, t0, t1)``. The parent is the innermost span
+open in the same thread (each thread keeps its own stack, so the HTTP
+worker's spans and a handler thread's never nest into each other). ``uid``
+is the request's ``Request.uid``; a span given none takes its parent's, so
+every span below a request's span carries the request's identifier.
+``mark(name, uid)`` records a zero-length event.
 
-- ``profile_trace`` records the host and, on a card, the device activity of
-  its block with ``torch.profiler`` and writes a Chrome trace
-  (``trace.json`` under ``log_dir``; open it in chrome://tracing or
-  Perfetto);
-- ``StageTimer`` sums named host-side stage times. A stage's ``sync`` (a
-  tensor, or a CUDA stream) is synchronised on before its clock stops, so
-  device work queued in the stage counts to it, as JAX's
-  ``block_until_ready`` does.
+Recording is always on. A span takes no tensor and never waits for the
+device: its times are host times, and the device may still be running the
+work a span queued when the span closes. Spans sit at the serving engine's
+and the model's layer boundaries, never inside a per-layer or per-kernel
+loop; the device trace covers those.
+
+Records go into a ring of ``CAPACITY`` entries in memory, the oldest dropped
+first and counted (:attr:`Recorder.dropped`). :meth:`Recorder.records`
+returns the records between two times; :meth:`Recorder.aggregates` the count,
+sum and histogram buckets of every name's seconds, for ``/metrics``.
+
+While a ``torch.profiler`` is recording, each span is also a host event in
+its record (``_RecordFunctionFast``, a plain CPU op with no device-side
+copy), so the trace's idle gaps can be put under the program's innermost
+span.
 """
 
 from __future__ import annotations
 
-import contextlib
-import os
+import bisect
+import functools
+import itertools
+import threading
 import time
-from collections import defaultdict
-from typing import Dict, Iterator, Optional, Union
+from collections import deque
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
+CAPACITY = 1 << 16
+# Upper bounds (seconds) of the histogram buckets, as Prometheus' ``le``.
+BUCKETS = (0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0,
+           10.0, 30.0)
 
-@contextlib.contextmanager
-def profile_trace(log_dir: str) -> Iterator[torch.profiler.profile]:
-    activities = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(torch.profiler.ProfilerActivity.CUDA)
-    os.makedirs(log_dir, exist_ok=True)
-    prof = torch.profiler.profile(activities=activities)
-    prof.start()
-    try:
-        yield prof
-    finally:
-        prof.stop()
-        prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+_now = time.perf_counter
+_profiler_enabled = torch._C._autograd._profiler_enabled
+_Annotation = torch._C._profiler._RecordFunctionFast
 
 
-def _synchronize(sync: Union[torch.Tensor, "torch.cuda.Stream"]) -> None:
-    if isinstance(sync, torch.Tensor):
-        if sync.device.type == "cuda":
-            torch.cuda.current_stream(sync.device).synchronize()
-    else:
-        sync.synchronize()
+class Record(NamedTuple):
+    id: int
+    parent: int  # 0: no parent
+    name: str
+    uid: Any
+    t0: float
+    t1: float
 
 
-class StageTimer:
-    def __init__(self) -> None:
-        self.totals: Dict[str, float] = defaultdict(float)
-        self.counts: Dict[str, int] = defaultdict(int)
+class Aggregate(NamedTuple):
+    count: int
+    total: float
+    buckets: Tuple[int, ...]  # per bucket of BUCKETS, then the overflow; not cumulative
 
-    @contextlib.contextmanager
-    def stage(self, name: str, sync: Optional[Union[torch.Tensor, "torch.cuda.Stream"]] = None
-              ) -> Iterator[None]:
-        start = time.perf_counter()
+
+class Span:
+    """One open span; a context manager. Use :func:`span` or :meth:`Recorder.span`."""
+
+    __slots__ = ("_recorder", "_stack", "name", "uid", "id", "parent", "t0", "_annotation")
+
+    def __init__(self, recorder: "Recorder", name: str, uid: Any = None):
+        self._recorder = recorder
+        self.name = name
+        self.uid = uid
+
+    def __enter__(self) -> "Span":
+        rec = self._recorder
         try:
-            yield
-        finally:
-            if sync is not None:
-                _synchronize(sync)
-            self.totals[name] += time.perf_counter() - start
-            self.counts[name] += 1
+            stack = rec._local.stack
+        except AttributeError:
+            stack = rec._stack()
+        self._stack = stack
+        if stack:
+            top = stack[-1]
+            self.parent = top.id
+            if self.uid is None:
+                self.uid = top.uid
+        else:
+            self.parent = 0
+        self.id = next(rec._ids)
+        stack.append(self)
+        self._annotation = None
+        if _profiler_enabled():
+            self._annotation = _Annotation(self.name)
+            self._annotation.__enter__()
+        self.t0 = _now()
+        return self
 
-    def summary(self) -> Dict[str, Dict[str, float]]:
-        return {
-            name: {
-                "total_s": round(self.totals[name], 4),
-                "count": self.counts[name],
-                "mean_ms": round(1e3 * self.totals[name] / max(self.counts[name], 1), 2),
-            }
-            for name in self.totals
-        }
+    def __exit__(self, *exc) -> None:
+        t1 = _now()
+        if self._annotation is not None:
+            self._annotation.__exit__(None, None, None)
+        self._stack.pop()
+        self._recorder._add((self.id, self.parent, self.name, self.uid, self.t0, t1),
+                            t1 - self.t0)
 
-    def report(self) -> str:
-        return "\n".join(f"{k}: {v['total_s']}s over {v['count']} calls "
-                         f"({v['mean_ms']} ms/call)" for k, v in self.summary().items())
+
+class Recorder:
+    """The ring of records and the per-name aggregates; thread-safe."""
+
+    def __init__(self):
+        self._ring: deque = deque(maxlen=CAPACITY)  # Record fields as plain tuples
+        self._lock = threading.Lock()
+        self._ids = itertools.count(1)
+        self._local = threading.local()
+        self._written = 0
+        self._aggregates: Dict[str, list] = {}  # name -> [seconds, *bucket counts]
+
+    def _stack(self) -> List[Span]:
+        try:
+            return self._local.stack
+        except AttributeError:
+            self._local.stack = []
+            return self._local.stack
+
+    def _add(self, rec: tuple, seconds: Optional[float]) -> None:
+        with self._lock:
+            self._ring.append(rec)
+            self._written += 1
+            if seconds is not None:
+                agg = self._aggregates.get(rec[2])
+                if agg is None:
+                    agg = self._aggregates[rec[2]] = [0.0] + [0] * (len(BUCKETS) + 1)
+                agg[0] += seconds
+                agg[1 + bisect.bisect_left(BUCKETS, seconds)] += 1
+
+    def span(self, name: str, uid: Any = None) -> Span:
+        return Span(self, name, uid)
+
+    def mark(self, name: str, uid: Any = None, since: Optional[float] = None) -> None:
+        """A zero-length record now, under the innermost open span; with
+        ``since`` (a ``perf_counter`` time) the name's aggregate takes the
+        seconds from then to now, else the mark is in no aggregate."""
+        t = _now()
+        stack = self._stack()
+        parent = stack[-1] if stack else None
+        if uid is None and parent is not None:
+            uid = parent.uid
+        self._add((next(self._ids), parent.id if parent is not None else 0, name, uid, t, t),
+                  None if since is None else t - since)
+
+    def add(self, name: str, uid: Any, t0: float, t1: float) -> None:
+        """A span that began before anything could open it (a request's wait
+        in the queue), recorded when it ends; it has no parent."""
+        self._add((next(self._ids), 0, name, uid, t0, t1), t1 - t0)
+
+    @property
+    def dropped(self) -> int:
+        """Records the ring has dropped to make room."""
+        with self._lock:
+            return self._written - len(self._ring)
+
+    def records(self, t0: float = float("-inf"), t1: float = float("inf")) -> List[Record]:
+        """The records that lie wholly between ``t0`` and ``t1``, oldest first."""
+        with self._lock:
+            ring = list(self._ring)
+        return [Record(*r) for r in ring if t0 <= r[4] and r[5] <= t1]
+
+    def aggregates(self) -> Dict[str, Aggregate]:
+        """Every name's count, sum of seconds and histogram buckets so far."""
+        with self._lock:
+            return {k: Aggregate(sum(a[1:]), a[0], tuple(a[1:]))
+                    for k, a in self._aggregates.items()}
+
+
+RECORDER = Recorder()
+span = functools.partial(Span, RECORDER)  # span(name, uid=None), into RECORDER
+mark = RECORDER.mark

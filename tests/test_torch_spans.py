@@ -31,7 +31,7 @@ K = 4
 ENGINE_SPANS = {"engine.step", "engine.admit", "engine.pages", "admit.prefetch", "admit.splice",
                 "encode.tower", "encode.bridge", "splice", "admit.readback", "admit.prefill",
                 "engine.decode", "decode.enqueue", "decode.sync", "decode.commit",
-                "request.queue", "request.first_token"}
+                "decode.eager", "request.queue", "request.first_token"}
 REQUEST_SPANS = {"request.queue", "admit.splice", "encode.tower", "encode.bridge", "splice",
                  "admit.prefill", "request.first_token"}
 
@@ -159,7 +159,7 @@ def test_spans_are_host_ops_in_a_profile_not_user_annotations(profiled):
     for e in events:
         if e.get("name") in ENGINE_SPANS:
             cats.setdefault(e["name"], set()).add(e.get("cat"))
-    marks = {"request.queue", "request.first_token"}  # recorded after the fact: no event
+    marks = {"request.queue", "request.first_token", "decode.eager"}  # zero length: no event
     assert set(cats) == ENGINE_SPANS - marks
     assert all(c == {"cpu_op"} for c in cats.values()), cats
 

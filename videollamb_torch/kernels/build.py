@@ -15,7 +15,10 @@ when the library had to be built.
 Each C entry point takes device pointers and the CUDA stream as
 ``c_void_p`` and returns ``cudaGetLastError()`` after its launch;
 :func:`check` turns a non-zero code into an exception. The wrappers of
-forward-only kernels call :func:`refuse_grad` before they launch.
+forward-only kernels call :func:`refuse_grad` before they launch. Every
+wrapper is :func:`counted`: its ``launches`` attribute counts the launches
+that ran, and :data:`COUNTED` lists the wrappers, so a caller that captures
+launches in a CUDA graph can count each replay's (``serve/paged.py``).
 """
 
 from __future__ import annotations
@@ -158,6 +161,30 @@ def refuse_grad(name: str, *tensors, route: str = "it has no VJP in the JAX pack
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
         raise RuntimeError(f"{name} is a forward-only CUDA kernel and its output has no "
                            f"gradient; {route}")
+
+
+# The counted kernel wrappers, in the order their modules were imported.
+COUNTED: list = []
+
+
+def counted(fn):
+    """Give a kernel wrapper a ``launches`` counter, which the wrapper adds to
+    after each launch, and enter it in :data:`COUNTED`."""
+    fn.launches = 0
+    COUNTED.append(fn)
+    return fn
+
+
+def launch_counts() -> dict:
+    """Each counted wrapper's launches so far."""
+    return {fn: fn.launches for fn in COUNTED}
+
+
+def launches_since(before: dict) -> dict:
+    """The launches of each wrapper that launched since ``before`` (a
+    :func:`launch_counts`)."""
+    return {fn: n - before.get(fn, 0) for fn, n in launch_counts().items()
+            if n != before.get(fn, 0)}
 
 
 def current_stream(device) -> ctypes.c_void_p:

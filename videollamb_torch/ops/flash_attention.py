@@ -133,6 +133,7 @@ def _scaled(q: torch.Tensor, scale: float):
     return q, scale
 
 
+@kb.counted
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     k_mask: Optional[torch.Tensor] = None, *, causal: bool = False,
                     scale: Optional[float] = None,
@@ -178,9 +179,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
-flash_attention.launches = 0
-
-
 def block_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                               causal: bool = False,
                               scale: Optional[float] = None) -> torch.Tensor:
@@ -198,6 +196,7 @@ def block_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (p.to(v.dtype).float() @ v.float()).to(q.dtype)
 
 
+@kb.counted
 def block_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = False, scale: Optional[float] = None) -> torch.Tensor:
     """K11: whole-row attention for short sequences, (B, H, Sq, Dh) -> (B, H, Sq, Dh)."""
@@ -221,6 +220,3 @@ def block_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         int(causal), kb.current_stream(q.device)), "block_attention_bf16")
     block_attention.launches += 1
     return out
-
-
-block_attention.launches = 0

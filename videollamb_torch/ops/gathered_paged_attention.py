@@ -102,6 +102,7 @@ def gathered_paged_attention_int8_reference(
     return out, m, l
 
 
+@kb.counted
 def gathered_paged_attention_int8(
         q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
         page_table: torch.Tensor, lengths: torch.Tensor, k_scales: torch.Tensor,
@@ -162,9 +163,6 @@ def gathered_paged_attention_int8(
         "gathered_paged_attention_int8")
     gathered_paged_attention_int8.launches += 1
     return out.to(q.dtype), m, l
-
-
-gathered_paged_attention_int8.launches = 0
 
 
 def attend_token_major_int8_stats(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,

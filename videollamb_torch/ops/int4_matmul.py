@@ -110,6 +110,7 @@ def _ksplit(m: int, k: int, n: int, g: int, bf16: bool) -> int:
     return kb.kernels().int4_matmul_ksplit(m, k, n, g, int(bf16))
 
 
+@kb.counted
 def int4_matmul(x: torch.Tensor, q4: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """x (M <= 64, K) @ dequant(q4 (K//2, N) uint8, scale (K//g, N) bf16) -> (M, N)."""
     if x.device.type == "cpu":
@@ -144,6 +145,3 @@ def int4_matmul(x: torch.Tensor, q4: torch.Tensor, scale: torch.Tensor) -> torch
         int(x.dtype == torch.bfloat16), kb.current_stream(x.device)), "int4_matmul")
     int4_matmul.launches += 1
     return out
-
-
-int4_matmul.launches = 0

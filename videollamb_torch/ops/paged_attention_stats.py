@@ -43,6 +43,7 @@ def _split_tokens(page: int) -> int:
     return max(1, SPLIT_TOKENS // page) * page
 
 
+@kb.counted
 def paged_attention_with_stats(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
                                lengths: torch.Tensor, page_indices: torch.Tensor) -> Stats:
     """q (B, H, Dh) pre-scaled; pages (H_kv, P, page, Dh); lengths (B,);
@@ -80,9 +81,6 @@ def paged_attention_with_stats(q: torch.Tensor, k_pages: torch.Tensor, v_pages: 
         kb.current_stream(q.device)), "paged_attention_stats")
     paged_attention_with_stats.launches += 1
     return out, m, l
-
-
-paged_attention_with_stats.launches = 0
 
 
 def attend_paged_with_stats_xla(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,

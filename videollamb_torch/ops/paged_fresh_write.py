@@ -36,6 +36,7 @@ def paged_fresh_write_xla(k_pool: torch.Tensor, v_pool: torch.Tensor, fresh_k: t
     return k_pool, v_pool
 
 
+@kb.counted
 def paged_fresh_write(k_pool: torch.Tensor, v_pool: torch.Tensor, fresh_k: torch.Tensor,
                       fresh_v: torch.Tensor, write_page: torch.Tensor,
                       write_off: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -64,6 +65,3 @@ def paged_fresh_write(k_pool: torch.Tensor, v_pool: torch.Tensor, fresh_k: torch
         "paged_fresh_write_int8")
     paged_fresh_write.launches += 1
     return k_pool, v_pool
-
-
-paged_fresh_write.launches = 0

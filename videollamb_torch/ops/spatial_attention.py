@@ -61,6 +61,7 @@ def spatial_core_packed_reference(q: torch.Tensor, k: torch.Tensor,
     return _merge(spatial_core_reference(*(_split(t, heads) for t in (q, k, v))))
 
 
+@kb.counted
 def fused_spatial_core_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                               *, heads: int) -> torch.Tensor:
     """Spatial attention core over packed heads (K1): (B, N, D) -> (B, N, D)."""
@@ -84,9 +85,7 @@ def fused_spatial_core_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
-fused_spatial_core_packed.launches = 0
-
-
+@kb.counted
 def fused_spatial_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Spatial attention core on the split layout (K8): (B, H, N, 64) -> (B, H, N, 64)."""
     if q.device.type == "cpu":
@@ -106,9 +105,6 @@ def fused_spatial_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tor
         kb.current_stream(q.device)), "spatial_core_bf16")
     fused_spatial_core.launches += 1
     return out
-
-
-fused_spatial_core.launches = 0
 
 
 def spatial_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

@@ -85,6 +85,7 @@ def _check_core(name: str, tensors, t: int, d: int, num_heads: int) -> None:
             f"{[(x.dtype, tuple(x.shape)) for x in tensors]} on {q.device}, heads={num_heads}")
 
 
+@kb.counted
 def fused_temporal_core_fm3(qkv: torch.Tensor, *, num_heads: int) -> torch.Tensor:
     """K2: per-(b, n, head) softmax attention over t frames, (b, t, n, 3d) -> (b, t, n, d)."""
     if qkv.device.type == "cpu":
@@ -104,9 +105,6 @@ def fused_temporal_core_fm3(qkv: torch.Tensor, *, num_heads: int) -> torch.Tenso
     return out
 
 
-fused_temporal_core_fm3.launches = 0
-
-
 def _launch_three(entry: str, q, k, v, dims, d: int, num_heads: int) -> torch.Tensor:
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     out = torch.empty_like(q)
@@ -116,6 +114,7 @@ def _launch_three(entry: str, q, k, v, dims, d: int, num_heads: int) -> torch.Te
     return out
 
 
+@kb.counted
 def fused_temporal_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         num_heads: int) -> torch.Tensor:
     """K9: the same attention on three (b, n, t, d) operands -> (b, n, t, d)."""
@@ -131,9 +130,7 @@ def fused_temporal_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out
 
 
-fused_temporal_core.launches = 0
-
-
+@kb.counted
 def fused_temporal_core_fm(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                            num_heads: int) -> torch.Tensor:
     """K10: the same attention on three frame-major (b, t, n, d) operands -> (b, t, n, d).
@@ -150,9 +147,6 @@ def fused_temporal_core_fm(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = _launch_three("temporal_core_fm_bf16", q, k, v, (b, t, n), d, num_heads)
     fused_temporal_core_fm.launches += 1
     return out
-
-
-fused_temporal_core_fm.launches = 0
 
 
 def temporal_core_fm3(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:

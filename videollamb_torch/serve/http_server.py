@@ -188,6 +188,9 @@ ENGINE_COUNTERS = (
     ("prefix_evictions_total", "prefix_evictions", "Cached prefixes evicted."),
     ("preempted_total", "preempted", "Requests swapped out to host memory."),
     ("resumed_total", "resumed", "Swapped-out requests resumed."),
+    ("decode_graph_replays_total", "decode_replays", "Decode forwards replayed as a CUDA graph."),
+    ("decode_eager_total", "decode_eager", "Decode forwards run eagerly."),
+    ("decode_graph_captures_total", "decode_captures", "Decode forward graphs captured."),
 )
 
 

@@ -19,10 +19,25 @@ context memory allocated in pages from one shared pool
   is exact) and it resumes, first in line, once a slot and its pages fit;
 - finished slots return their pages at once.
 
+On the card the decode forward (``embed_tokens``, then
+``paged_decode_step``) replays as one CUDA graph where
+:func:`decode_graph_route` allows: the engine's first forward runs eagerly
+(it loads cuBLAS and the kernel library), the second is captured and
+replayed, and every later one is a copy of the tokens into the graph's input
+and a replay. The pools, the page table and the lengths are allocated once
+and only updated in place, and B is always ``num_slots``, so one graph
+serves the engine's life; it is captured again if any of those tensors is
+ever reallocated, and the route is decided again when ``set_adapters``
+loads or drops a multi-LoRA stack. Each replay's logits are cloned out of the graph's output,
+so no caller holds memory the next replay overwrites. Sampling, controls,
+grammar and the commit around the forward stay eager.
+
 Spans (``utils/profiling.py``), besides the base engine's: the convoy is
 ``admit.prefetch``, its splices ``admit.splice`` and its stacked readback
 ``admit.readback``; page table uploads and resumes are ``engine.pages``,
-with ``pages.swap_out`` / ``pages.swap_in`` per request moved.
+with ``pages.swap_out`` / ``pages.swap_in`` per request moved. Every decode
+forward leaves a ``decode.graph`` mark (a replay) or a ``decode.eager`` one;
+a capture is a ``decode.capture`` span.
 
 Prefix caching: ``register_prefix`` prefills a shared prompt prefix (system
 and video) once; its whole pages go into the pool, refcounted, and are
@@ -52,12 +67,16 @@ from __future__ import annotations
 
 import hashlib
 from collections import OrderedDict
-from typing import List, Optional
+from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch import nn
+from torch.distributed.fsdp import FSDPModule
+from torch.distributed.tensor import DTensor
 
 from videollamb_torch.config import ModelConfig
+from videollamb_torch.kernels import build as kb
 from videollamb_torch.models.assembly import VideoLLaMB, prepare_multimodal_embeds
 from videollamb_torch.models.lm.llama import (
     KVCache,
@@ -79,7 +98,41 @@ from videollamb_torch.models.lm.paged import (
     scatter_pages,
 )
 from videollamb_torch.serve.server import Request, ServingEngine, _shared_consume
-from videollamb_torch.utils.profiling import span
+from videollamb_torch.utils.profiling import mark, span
+
+
+def decode_graph_route(lm: nn.Module, device: torch.device) -> bool:
+    """Whether the paged decode forward replays as one CUDA graph: on a CUDA
+    device, over an LM whose weights are whole on this rank (no DTensor, no
+    FSDP unit: gathers and collectives stay eager), with no multi-LoRA stack
+    (its row index changes from call to call) and every projection a plain
+    ``nn.Linear`` (quantised and adapter projections stay eager)."""
+    if device.type != "cuda" or getattr(lm, "mlora_rows", None) is not None:
+        return False
+    if any(isinstance(m, FSDPModule) for m in lm.modules()):
+        return False
+    if any(isinstance(p, DTensor) for p in lm.parameters()):
+        return False
+    projections = [lm.lm_head]
+    for layer in lm.model.layers:
+        attn, mlp = layer.self_attn, layer.mlp
+        projections += [attn.q_proj, attn.k_proj, attn.v_proj, attn.o_proj,
+                        mlp.gate_proj, mlp.up_proj, mlp.down_proj]
+    return all(type(m) is nn.Linear for m in projections)
+
+
+class DecodeGraph(NamedTuple):
+    graph: "torch.cuda.CUDAGraph"
+    tokens: torch.Tensor  # (B,) int64, copied in before each replay
+    logits: torch.Tensor  # (B, V) f32, overwritten by each replay
+    ptrs: tuple           # the pools', table's and lengths' storage at capture
+    launches: dict        # kernel wrapper -> its launches in one replay (kb.counted)
+
+
+def _cache_ptrs(cache) -> tuple:
+    return tuple(0 if t is None else t.data_ptr() for t in (
+        cache.k_pages, cache.v_pages, cache.k_scales, cache.v_scales, cache.page_table,
+        cache.lengths))
 
 
 def batch_signature(batch) -> bytes:
@@ -161,6 +214,11 @@ class PagedServingEngine(ServingEngine):
         self.prefix_misses = 0
         self.prefix_evictions = 0
         self.peak_pages_in_use = 0
+        self._graph_route = decode_graph_route(model.lm, self.device)
+        self._graph: Optional[DecodeGraph] = None
+        self.decode_replays = 0
+        self.decode_eager = 0
+        self.decode_captures = 0
 
     # ------------------------------------------------------------------
     # Prefix caching.
@@ -543,11 +601,54 @@ class PagedServingEngine(ServingEngine):
 
     # ------------------------------------------------------------------
     # Decode hooks.
+    def set_adapters(self, model: VideoLLaMB, registry) -> None:
+        """As the base engine's; a stack loaded or dropped at run time changes
+        the LM's projections, so the decode route is decided again and a
+        captured graph (over the projections it had) is dropped."""
+        super().set_adapters(model, registry)
+        self._graph_route = decode_graph_route(model.lm, self.device)
+        self._graph = None
+
     def _forward(self, nxt: torch.Tensor) -> torch.Tensor:
+        g = self._graph
+        if g is not None and g.ptrs != _cache_ptrs(self.cache):
+            g = self._graph = None  # the pool or the table was reallocated
+        # On the graph route the first forward runs eagerly: it loads cuBLAS and the kernels.
+        if g is None and not (self._graph_route and self.decode_eager):
+            mark("decode.eager")
+            self.decode_eager += 1
+            return self._decode(nxt)
+        if g is None:
+            g = self._graph = self._capture()
+        mark("decode.graph")
+        g.tokens.copy_(nxt)
+        g.graph.replay()
+        self.decode_replays += 1
+        for fn, n in g.launches.items():  # the wrappers count launches that ran
+            fn.launches += n
+        return g.logits.clone()
+
+    def _decode(self, nxt: torch.Tensor) -> torch.Tensor:
         # The embedding table keeps the compute dtype: no cast (an int8 pool
         # dtype would round the embeddings to integers).
         return paged_decode_step(self.model.lm, self.cfg.lm,
                                  embed_tokens(self.model.lm, nxt[:, None]), self.cache)
+
+    def _capture(self) -> DecodeGraph:
+        """Capture one decode forward; capture runs nothing, so the cache
+        advances only at the replay that follows."""
+        before = kb.launch_counts()
+        with span("decode.capture"):
+            tokens = torch.zeros((self.num_slots,), dtype=torch.long, device=self.device)
+            graph = torch.cuda.CUDAGraph()
+            # Thread-local: the HTTP server's handler threads may use the device meanwhile.
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                logits = self._decode(tokens)
+        launches = kb.launches_since(before)
+        for fn, n in launches.items():  # captured, not run: each replay counts them
+            fn.launches -= n
+        self.decode_captures += 1
+        return DecodeGraph(graph, tokens, logits, _cache_ptrs(self.cache), launches)
 
     def _advanced(self, k: int) -> None:
         self._host_len += k  # finished rows are zeroed by _release at commit

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import re
 from dataclasses import dataclass, field
-from typing import Any, Optional, Tuple
+from typing import Any, Optional, Tuple, Union
 
 
 @dataclass(frozen=True)
@@ -258,6 +258,95 @@ class LlamaConfig:
         return LlamaConfig(**base)
 
 
+@dataclass(frozen=True)
+class MLAConfig:
+    """DeepSeek-V3-family LM backbone (HF ``model_type: deepseek_v3``):
+    multi-head latent attention and sigmoid-routed experts with shared
+    experts (``models/lm/mla.py``). Defaults are Moonlight-16B-A3B's
+    published config.json. Only the settings that model uses are supported:
+    no q compression (``q_lora_rank`` None), one routing group, unscaled
+    RoPE."""
+
+    vocab_size: int = 163840
+    hidden_size: int = 2048
+    intermediate_size: int = 11264       # the leading dense layers' MLP
+    moe_intermediate_size: int = 1408    # each routed expert; shared: x n_shared_experts
+    num_hidden_layers: int = 27
+    num_attention_heads: int = 16
+    kv_lora_rank: int = 512
+    q_lora_rank: Optional[int] = None
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    n_routed_experts: int = 64
+    n_shared_experts: int = 2
+    num_experts_per_tok: int = 6
+    first_k_dense_replace: int = 1
+    moe_layer_freq: int = 1
+    routed_scaling_factor: float = 2.446
+    norm_topk_prob: bool = True
+    scoring_func: str = "sigmoid"
+    topk_method: str = "noaux_tc"
+    n_group: int = 1
+    topk_group: int = 1
+    max_position_embeddings: int = 8192
+    rms_norm_eps: float = 1e-5
+    rope_theta: float = 50000.0
+    tie_word_embeddings: bool = False
+    rope_scaling: Optional[RopeScaling] = None
+
+    def __post_init__(self):
+        unsupported = []
+        if self.q_lora_rank is not None:
+            unsupported.append(f"q_lora_rank={self.q_lora_rank} (q compression)")
+        if self.scoring_func != "sigmoid" or self.topk_method != "noaux_tc":
+            unsupported.append(f"routing {self.scoring_func}/{self.topk_method}")
+        if self.n_group != 1 or self.topk_group != 1:
+            unsupported.append(f"{self.n_group} routing groups")
+        if self.rope_scaling is not None or self.moe_layer_freq != 1:
+            unsupported.append("rope_scaling / moe_layer_freq != 1")
+        if unsupported:
+            raise ValueError("MLAConfig supports Moonlight-style DeepSeek-V3 settings only; "
+                             "got " + ", ".join(unsupported))
+
+    @property
+    def qk_head_dim(self) -> int:
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
+
+    @property
+    def latent_dim(self) -> int:
+        """Width of one cached row a token and layer: the kv latent and the roped key."""
+        return self.kv_lora_rank + self.qk_rope_head_dim
+
+    @property
+    def softmax_scale(self) -> float:
+        return self.qk_head_dim ** -0.5
+
+    @property
+    def head_dim(self) -> int:  # the RoPE tables' width (models/lm/rope.rope_cos_sin_cfg)
+        return self.qk_rope_head_dim
+
+    def is_moe_layer(self, i: int) -> bool:
+        return i >= self.first_k_dense_replace
+
+    @property
+    def num_moe_layers(self) -> int:
+        return self.num_hidden_layers - self.first_k_dense_replace
+
+    @staticmethod
+    def tiny(**overrides: Any) -> "MLAConfig":
+        base = dict(vocab_size=256, hidden_size=64, intermediate_size=128,
+                    moe_intermediate_size=32, num_hidden_layers=3, num_attention_heads=4,
+                    kv_lora_rank=32, qk_nope_head_dim=16, qk_rope_head_dim=16, v_head_dim=16,
+                    n_routed_experts=8, n_shared_experts=1, num_experts_per_tok=2,
+                    max_position_embeddings=1024)
+        base.update(overrides)
+        return MLAConfig(**base)
+
+
+def is_mla(lm_cfg) -> bool:
+    """Whether an LM config is the latent-attention / routed-expert family."""
+    return isinstance(lm_cfg, MLAConfig)
 
 
 @dataclass(frozen=True)
@@ -266,7 +355,8 @@ class ModelConfig:
 
     vision: VisionConfig = field(default_factory=VisionConfig)
     bridge: BridgeConfig = field(default_factory=BridgeConfig)
-    lm: LlamaConfig = field(default_factory=LlamaConfig)
+    # LlamaConfig (Llama, Vicuna, Mistral) or MLAConfig (DeepSeek-V3 family).
+    lm: Union[LlamaConfig, MLAConfig] = field(default_factory=LlamaConfig)
     # Optional non-CLIP tower routing: a models.vision.builder.TowerSpec.
     # When set, assembly encodes pixels via tower_encode(tower, ...) instead
     # of the default CLIP-family vision_encode — this is how the research

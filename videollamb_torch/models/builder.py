@@ -16,6 +16,12 @@ quantises the LM to weight-only int8 after the cast
 ``DeviceVideoProcessor`` (``data/device_preprocess.py``: resize, crop and
 normalise on the model's device) in place of the host ``VideoProcessor``.
 
+The LM family comes from config.json's ``model_type``: ``deepseek_v3``
+builds the DeepSeek-V3 family (``models/lm/mla.py``: latent attention,
+routed and shared experts; Moonlight-16B-A3B's settings), whose experts'
+weights are allocated stacked and loaded into place; anything else the
+Llama decoder (Llama, Vicuna, Mistral). ``load_8bit`` is Llama-only.
+
 ``image_tower_path`` loads a LanguageBind image tower dir as
 ``VideoLLaMB.image_tower`` (with temporal layers only where its weights
 have them); the ViT dims come from the video tower's config.json, else the
@@ -33,11 +39,20 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from videollamb_torch.config import BridgeConfig, LlamaConfig, ModelConfig, RopeScaling, VisionConfig
+from videollamb_torch.config import (
+    BridgeConfig,
+    LlamaConfig,
+    MLAConfig,
+    ModelConfig,
+    RopeScaling,
+    VisionConfig,
+    is_mla,
+)
 from videollamb_torch.models.assembly import VideoLLaMB
 from videollamb_torch.models.bridge.builder import RMT_R, bridge_module, init_bridge_params
 from videollamb_torch.models.convert import split_reference_state, tower_state
 from videollamb_torch.models.lm.llama import LlamaForCausalLM
+from videollamb_torch.models.lm.mla import empty_mla_lm
 from videollamb_torch.models.seeded import empty_module
 from videollamb_torch.models.vision.clip_vit import CLIPVisionTower
 from videollamb_torch.data.processing import ImageProcessor, VideoProcessor
@@ -71,7 +86,7 @@ def config_from_json(model_dir: str) -> ModelConfig:
     """The typed ModelConfig from a reference-format config.json."""
     with open(os.path.join(model_dir, "config.json")) as f:
         raw = json.load(f)
-    lm = LlamaConfig(
+    lm = mla_config_from_json(raw) if raw.get("model_type") == "deepseek_v3" else LlamaConfig(
         vocab_size=raw.get("vocab_size", 32000),
         hidden_size=raw.get("hidden_size", 4096),
         intermediate_size=raw.get("intermediate_size", 11008),
@@ -100,6 +115,14 @@ def config_from_json(model_dir: str) -> ModelConfig:
         num_frames=raw.get("num_frames", 8),
         use_video_tower=bool(raw.get("mm_video_tower")),
         use_image_tower=bool(raw.get("mm_image_tower")))
+
+
+def mla_config_from_json(raw: Dict[str, Any]) -> MLAConfig:
+    """The DeepSeek-V3 family's settings of an HF config.json (defaults:
+    Moonlight-16B-A3B's)."""
+    keys = [f.name for f in dataclasses.fields(MLAConfig) if f.name != "rope_scaling"]
+    return MLAConfig(rope_scaling=RopeScaling.from_hf(raw.get("rope_scaling")),
+                     **{k: raw[k] for k in keys if k in raw})
 
 
 def vision_config_from_tower_json(tower_dir: str) -> Optional[VisionConfig]:
@@ -240,7 +263,14 @@ def load_pretrained_model(
         icfg = dataclasses.replace(
             cfg.vision, add_time_attn=any(".temporal_attn." in k for k in state))
         image_tower = _load(lambda: CLIPVisionTower(icfg), state, device, wanted)
-    lm = _load(lambda: LlamaForCausalLM(cfg.lm), lm_sd, device, wanted)
+    if is_mla(cfg.lm):
+        if load_8bit:
+            raise ValueError("int8 weights (load_8bit) are for the Llama family; the "
+                             "DeepSeek-V3 family loads in bf16 or f32")
+        lm = empty_mla_lm(cfg.lm, device, wanted)
+        lm.load_state_dict(lm_sd, strict=True)
+    else:
+        lm = _load(lambda: LlamaForCausalLM(cfg.lm), lm_sd, device, wanted)
     if bridge_sd and cfg.bridge.kind != RMT_R:
         # The JAX package converts projector keys as RMT-R's only (and fails
         # with a KeyError on another kind's).

@@ -29,6 +29,12 @@ k-th prompt tag binds block k (reference multi-X request assembly,
 llava/eval/model_videoqa_act.py:117-120); an audio row's WAV becomes a
 log-mel image that rides the image path.
 
+The LM family comes from the checkpoint's config.json: the Llama decoder
+(Llama, Vicuna, Mistral) runs on either engine; ``model_type:
+deepseek_v3`` (Moonlight-16B-A3B's latent attention and routed experts,
+``models/lm/mla.py``) runs with ``--paged`` only, over bf16 (or ``--fp32``)
+latent pages, and is refused with ``--quantize-kv`` and ``--load-8bit``.
+
 Each output line: {"id": ..., "text": ..., "tokens": N}, with
 "token_logprobs" (and "top_logprobs": [[[id, logprob], ...], ...]) on rows
 that asked for logprobs, and "error" on rows the engine dropped. It runs on
@@ -200,7 +206,12 @@ def serve_requests(engine, requests, tokenizer, k: int = 8):
 
 
 def main(argv=None):
-    parser = argparse.ArgumentParser()
+    parser = argparse.ArgumentParser(
+        description="Serve JSONL requests with the continuous-batching engines.",
+        epilog="LM families (config.json's model_type): llama / mistral on either engine; "
+               "deepseek_v3 (latent attention, routed experts: Moonlight-16B-A3B) with "
+               "--paged only, bf16 or --fp32 latent pages, not with --quantize-kv or "
+               "--load-8bit.")
     parser.add_argument("--model-path", required=True)
     parser.add_argument("--model-base", default=None)
     parser.add_argument("--video-tower", default=None,
@@ -209,10 +220,11 @@ def main(argv=None):
     parser.add_argument("--output", required=True, help="output JSONL")
     parser.add_argument("--num-slots", type=int, default=4)
     parser.add_argument("--paged", action="store_true",
-                        help="paged KV pool (serve/paged.py) instead of dense per-slot rows")
+                        help="paged KV pool (serve/paged.py) instead of dense per-slot rows; "
+                             "the only engine of the deepseek_v3 family (latent pages)")
     parser.add_argument("--page-size", type=int, default=64)
     parser.add_argument("--quantize-kv", action="store_true",
-                        help="int8 KV pages (paged engine only)")
+                        help="int8 KV pages (paged engine, Llama family only)")
     parser.add_argument("--prefix-cache-size", type=int, default=8,
                         help="max automatically cached prompt prefixes (paged engine; "
                              "'shared_prefix' rows)")
@@ -223,7 +235,7 @@ def main(argv=None):
                         help="torch device (default cuda; cpu runs the plain versions "
                              "of the kernels)")
     parser.add_argument("--load-8bit", action="store_true",
-                        help="weight-only int8 LM (models/lm/quant.py)")
+                        help="weight-only int8 LM (models/lm/quant.py; Llama family only)")
     parser.add_argument("--device-preprocess", action="store_true",
                         help="resize / crop / normalise the frames on the device "
                              "(data/device_preprocess.py)")

@@ -36,7 +36,10 @@ different connections decode together in one slot batch.
                           splice, one prefill, pages, decode phase, commit,
                           submit to first token);
                           the paged engine's prefix-cache, preemption and
-                          page counters; spans dropped by the recorder.
+                          page counters and its pool's bytes a token; over
+                          a DeepSeek-V3-family LM the tokens routed to the
+                          experts and each MoE layer's busiest expert's
+                          load over the mean; spans dropped by the recorder.
   GET  /v1/adapters   -> {"adapters": [names...]}
   POST /v1/adapters   {"name": ..., "path": <PEFT adapter dir>} loads a
                           LoRA fine-tune at runtime: the adapter stack is
@@ -90,7 +93,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from videollamb_torch.serve.batch_cli import build_requests
-from videollamb_torch.utils.profiling import BUCKETS, RECORDER, Aggregate
+from videollamb_torch.utils.profiling import BUCKETS, RECORDER, Aggregate, expert_load_summary
 
 
 class RequestRejected(Exception):
@@ -282,6 +285,19 @@ class Metrics:
                   "KV pages held by slots and cached prefixes.")
             gauge("pages_in_use_peak", engine.peak_pages_in_use,
                   "Most KV pages held at once.")
+            gauge("kv_bytes_per_token", engine.kv_bytes_per_token,
+                  "Bytes one token takes in the page pool, over every layer.")
+            load = engine.expert_load()
+            if load is not None:
+                total, ratios = expert_load_summary(load)
+                counter("experts_routed_tokens_total", total,
+                        "Tokens routed to the experts, summed over the MoE layers.")
+                lines.append("# HELP videollamb_expert_load_imbalance Busiest expert's "
+                             "routed tokens over the mean expert's, per MoE layer.")
+                lines.append("# TYPE videollamb_expert_load_imbalance gauge")
+                first = engine.cfg.lm.first_k_dense_replace  # the model's layer index
+                lines += [f'videollamb_expert_load_imbalance{{layer="{first + i}"}} {r}'
+                          for i, r in enumerate(ratios)]
         gauge("slots_active", sum(r is not None for r in engine.slots),
               "Decode slots currently occupied.")
         gauge("slots_total", engine.num_slots, "Configured decode slots.")
@@ -1081,9 +1097,12 @@ def main(argv=None):
     parser.add_argument("--host", default="0.0.0.0")
     parser.add_argument("--port", type=int, default=8000)
     parser.add_argument("--num-slots", type=int, default=8)
-    parser.add_argument("--paged", action="store_true")
+    parser.add_argument("--paged", action="store_true",
+                        help="paged KV pool (serve/paged.py); the only engine of a "
+                             "deepseek_v3 checkpoint (latent pages)")
     parser.add_argument("--page-size", type=int, default=64)
-    parser.add_argument("--quantize-kv", action="store_true")
+    parser.add_argument("--quantize-kv", action="store_true",
+                        help="int8 KV pages (paged engine, Llama family only)")
     parser.add_argument("--prefix-cache-size", type=int, default=8,
                         help="max automatically cached prompt prefixes "
                              "(paged engine; 'shared_prefix' requests)")

@@ -56,6 +56,16 @@ card), otherwise the model's dtype in head-major pages (kernel K6). The
 paged engine does not speculate (``speculative`` stays None), as in the JAX
 package.
 
+Two LM families are served: the Llama decoder (``models/lm/llama.py``) and
+the DeepSeek-V3 family (``models/lm/mla.py``: latent attention, routed
+experts), whose pool holds one latent row per token and layer
+(``paged.PagedLatentCache``) and whose decode runs attention absorbed. The
+second family is served over whole bf16 (or f32) weights only: int8 pages,
+multi-LoRA stacks, int8 / int4 weights and tensor- or FSDP-sharded weights
+are refused with an error. Its MoE blocks count, on the device, the tokens
+routed to each expert (:meth:`PagedServingEngine.expert_load`), which
+``http_server``'s ``/metrics`` exports.
+
 A sliding-window LM (Mistral) is served when a slot's context limit
 (``pages_per_seq * page_size``) is at most the window, where the window
 cannot bite; otherwise the engine refuses it. Its decode (K4 / K6) has no
@@ -65,6 +75,7 @@ past the window that its admission and its dense decode mask.
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 from collections import OrderedDict
 from typing import List, NamedTuple, Optional
@@ -75,16 +86,12 @@ from torch import nn
 from torch.distributed.fsdp import FSDPModule
 from torch.distributed.tensor import DTensor
 
-from videollamb_torch.config import ModelConfig
+from videollamb_torch.config import ModelConfig, is_mla
 from videollamb_torch.kernels import build as kb
 from videollamb_torch.models.assembly import VideoLLaMB, prepare_multimodal_embeds
-from videollamb_torch.models.lm.llama import (
-    KVCache,
-    chunked_prefill,
-    embed_tokens,
-    init_kv_cache,
-    llama_extend,
-)
+from videollamb_torch.models.lm import mla
+from videollamb_torch.models.lm.family import dense_ops
+from videollamb_torch.models.lm.llama import embed_tokens
 from videollamb_torch.models.lm.mlora import adapter_rows
 from videollamb_torch.models.lm.paged import (
     TRASH_PAGE,
@@ -95,30 +102,55 @@ from videollamb_torch.models.lm.paged import (
     insert_raw_pages,
     paged_decode_step,
     paged_insert,
+    pool_bytes_per_token,
     scatter_pages,
 )
 from videollamb_torch.serve.server import Request, ServingEngine, _shared_consume
 from videollamb_torch.utils.profiling import mark, span
 
 
+def _projections(lm: nn.Module) -> list:
+    """Every projection of either LM family: the head and each ``*_proj``
+    (``kv_a_proj_with_mqa`` too; the routed experts' and shared experts')."""
+    return [m for name, m in lm.named_modules()
+            if name == "lm_head" or name.endswith("_proj") or name.endswith("_proj_with_mqa")]
+
+
+def _sharded(lm: nn.Module) -> bool:
+    return (any(isinstance(m, FSDPModule) for m in lm.modules())
+            or any(isinstance(p, DTensor) for p in lm.parameters()))
+
+
 def decode_graph_route(lm: nn.Module, device: torch.device) -> bool:
     """Whether the paged decode forward replays as one CUDA graph: on a CUDA
-    device, over an LM whose weights are whole on this rank (no DTensor, no
-    FSDP unit: gathers and collectives stay eager), with no multi-LoRA stack
-    (its row index changes from call to call) and every projection a plain
-    ``nn.Linear`` (quantised and adapter projections stay eager)."""
+    device, over an LM of either family whose weights are whole on this rank
+    (no DTensor, no FSDP unit: gathers and collectives stay eager), with no
+    multi-LoRA stack (its row index changes from call to call) and every
+    projection a plain ``nn.Linear`` (quantised and adapter projections stay
+    eager). The DeepSeek-V3 family's routed experts run in bf16 as grouped
+    products over their stacked weights with every count on the device, so
+    they replay too; in f32 they loop on the host and stay eager."""
     if device.type != "cuda" or getattr(lm, "mlora_rows", None) is not None:
         return False
-    if any(isinstance(m, FSDPModule) for m in lm.modules()):
+    if _sharded(lm):
         return False
-    if any(isinstance(p, DTensor) for p in lm.parameters()):
-        return False
-    projections = [lm.lm_head]
-    for layer in lm.model.layers:
-        attn, mlp = layer.self_attn, layer.mlp
-        projections += [attn.q_proj, attn.k_proj, attn.v_proj, attn.o_proj,
-                        mlp.gate_proj, mlp.up_proj, mlp.down_proj]
-    return all(type(m) is nn.Linear for m in projections)
+    if isinstance(lm, mla.MLAForCausalLM) and lm.lm_head.weight.dtype != torch.bfloat16:
+        return False  # the experts' loop (f32) reads row counts on the host
+    return all(type(m) is nn.Linear for m in _projections(lm))
+
+
+def mla_refusal(lm: nn.Module, quantize_kv: bool, adapter_registry) -> Optional[str]:
+    """Why the paged engine cannot serve this DeepSeek-V3-family LM (None: it can)."""
+    if quantize_kv:
+        return "int8 KV pages (--quantize-kv)"
+    if adapter_registry is not None or getattr(lm, "mlora_rows", None) is not None:
+        return "multi-LoRA adapter stacks"
+    if _sharded(lm):
+        return "tensor- or FSDP-sharded weights"
+    odd = sorted({type(m).__name__ for m in _projections(lm) if type(m) is not nn.Linear})
+    if odd:
+        return f"quantised or adapter projections ({', '.join(odd)}: int8 / int4 weights, LoRA)"
+    return None
 
 
 class DecodeGraph(NamedTuple):
@@ -130,9 +162,9 @@ class DecodeGraph(NamedTuple):
 
 
 def _cache_ptrs(cache) -> tuple:
-    return tuple(0 if t is None else t.data_ptr() for t in (
-        cache.k_pages, cache.v_pages, cache.k_scales, cache.v_scales, cache.page_table,
-        cache.lengths))
+    """The storage of every tensor of the pool (either layout), its table and lengths."""
+    return tuple(0 if t is None else t.data_ptr()
+                 for t in (getattr(cache, f.name) for f in dataclasses.fields(cache)))
 
 
 def batch_signature(batch) -> bytes:
@@ -167,7 +199,14 @@ class PagedServingEngine(ServingEngine):
                  page_size: int = 64, total_pages: Optional[int] = None,
                  pages_per_seq: Optional[int] = None, eos_token_id: int = 2, seed: int = 0,
                  quantize_kv: bool = False, adapter_registry=None, prefix_cache_size: int = 8):
+        if is_mla(cfg.lm):
+            why = mla_refusal(model.lm, quantize_kv, adapter_registry)
+            if why is not None:
+                raise ValueError(f"the DeepSeek-V3 family (latent attention, routed experts) "
+                                 f"is served over whole bf16 / f32 weights with latent pages; "
+                                 f"{why} are for the Llama family")
         self._init_slots(model, cfg, num_slots, eos_token_id, seed, adapter_registry)
+        self._dense = dense_ops(cfg.lm)
         self.page_size = page_size
         # Default pool: every slot can hold max_length + 512 tokens, rounded
         # up to a multiple of 8 pages (VideoLLaMB-7B: 40 pages of 64 per
@@ -177,7 +216,7 @@ class PagedServingEngine(ServingEngine):
         self.total_pages = total_pages or (1 + num_slots * per_slot)
         self.pages_per_seq = pages_per_seq or per_slot
         self.max_seq_len = self.pages_per_seq * page_size
-        window = cfg.lm.sliding_window
+        window = getattr(cfg.lm, "sliding_window", None)  # the DeepSeek-V3 family has none
         if window is not None and self.max_seq_len > window:
             raise ValueError(
                 f"the paged decode has no sliding-window term: a slot's context limit "
@@ -214,6 +253,7 @@ class PagedServingEngine(ServingEngine):
         self.prefix_misses = 0
         self.prefix_evictions = 0
         self.peak_pages_in_use = 0
+        self.kv_bytes_per_token = pool_bytes_per_token(self.cache)
         self._graph_route = decode_graph_route(model.lm, self.device)
         self._graph: Optional[DecodeGraph] = None
         self.decode_replays = 0
@@ -233,19 +273,20 @@ class PagedServingEngine(ServingEngine):
         pages = self.allocator.alloc(n_full) if n_full else []
         if pages is None:
             return None
-        dense = init_kv_cache(self.cfg.lm, 1, self.cfg.max_length, dtype=self._dtype,
-                              device=self.device, lm=self.model.lm)
-        logits, dense = chunked_prefill(self.model.lm, self.cfg.lm,
-                                        spliced.embeds.to(self._dtype), spliced.attention_mask,
-                                        dense, lengths=[prefix_len])
+        dense = self._dense.init_cache(self.cfg.lm, 1, self.cfg.max_length, dtype=self._dtype,
+                                       device=self.device, lm=self.model.lm)
+        logits, dense = self._dense.chunked_prefill(self.model.lm, self.cfg.lm,
+                                                    spliced.embeds.to(self._dtype),
+                                                    spliced.attention_mask, dense,
+                                                    lengths=[prefix_len])
         if pages:
             scatter_pages(self.cache, dense, pages)
         pid = self._next_prefix_id
         self._next_prefix_id += 1
-        # Keep only the prefix's rows of the dense cache.
+        # Keep only the prefix's rows of the dense cache (k and v, or the latent rows).
         self._prefixes[pid] = {
-            "pages": pages, "len": prefix_len, "logits": logits,
-            "k": dense.k[:, :, :prefix_len].clone(), "v": dense.v[:, :, :prefix_len].clone()}
+            "pages": pages, "len": prefix_len, "logits": logits, "kind": type(dense),
+            "rows": tuple(t[:, :, :prefix_len].clone() for t in dense[:-1])}
         self._prefix_refs[pid] = 0
         self._note_pages()
         return pid
@@ -331,15 +372,16 @@ class PagedServingEngine(ServingEngine):
             # Suffix-only prefill of the suffix's own tokens (not the splice
             # buffer's padding) over a copy of the prefix's rows, in a dense
             # cache as long as the slot's pages (the last one partly filled).
-            k = info["k"].new_zeros((info["k"].shape[0], 1, n_pages * self.page_size,
-                                     *info["k"].shape[3:]))
-            v = torch.zeros_like(k)
-            k[:, :, :info["len"]] = info["k"]
-            v[:, :, :info["len"]] = info["v"]
-            dense = KVCache(k=k, v=v, length=torch.tensor([info["len"]], device=self.device))
-            logits, dense = llama_extend(self.model.lm, self.cfg.lm,
-                                         spliced.embeds[:, :suffix_len].to(self._dtype),
-                                         spliced.attention_mask[:, :suffix_len], dense)
+            parts = []
+            for rows in info["rows"]:
+                part = rows.new_zeros((rows.shape[0], 1, n_pages * self.page_size,
+                                       *rows.shape[3:]))
+                part[:, :, :info["len"]] = rows
+                parts.append(part)
+            dense = info["kind"](*parts, torch.tensor([info["len"]], device=self.device))
+            logits, dense = self._dense.extend(self.model.lm, self.cfg.lm,
+                                               spliced.embeds[:, :suffix_len].to(self._dtype),
+                                               spliced.attention_mask[:, :suffix_len], dense)
             paged_insert(self.cache, dense, slot, page_ids.tolist(), skip_pages=n_full)
             self.logits[slot] = logits[0]
         self._install_constraint(req)
@@ -532,7 +574,7 @@ class PagedServingEngine(ServingEngine):
             k, v, ks, vs = gather_slot_pages(self.cache, self.slot_pages[slot][:n_data])
             self._swapped.append({
                 "req": self.slots[slot], "len": length, "n": n_data,
-                "k": k.cpu(), "v": v.cpu(),
+                "k": k.cpu(), "v": None if v is None else v.cpu(),
                 "ks": None if ks is None else ks.cpu(), "vs": None if vs is None else vs.cpu(),
                 "logits": self.logits[slot].clone(), "adapter": int(self._adapter_host[slot]),
             })
@@ -601,10 +643,23 @@ class PagedServingEngine(ServingEngine):
 
     # ------------------------------------------------------------------
     # Decode hooks.
+    def expert_load(self) -> Optional[np.ndarray]:
+        """(2, MoE layers, experts) int64 of a DeepSeek-V3-family LM, read from
+        the device between steps: the tokens of requests routed to each
+        expert (admissions and decode forwards), and the forwards in which
+        the expert had any. None for the Llama family."""
+        if not is_mla(self.cfg.lm):
+            return None
+        return mla.expert_load(self.model.lm).cpu().numpy()
+
     def set_adapters(self, model: VideoLLaMB, registry) -> None:
         """As the base engine's; a stack loaded or dropped at run time changes
         the LM's projections, so the decode route is decided again and a
         captured graph (over the projections it had) is dropped."""
+        if is_mla(self.cfg.lm) and (registry is not None
+                                    or getattr(model.lm, "mlora_rows", None) is not None):
+            raise ValueError("multi-LoRA adapter stacks are for the Llama family; the "
+                             "DeepSeek-V3 family is served without them")
         super().set_adapters(model, registry)
         self._graph_route = decode_graph_route(model.lm, self.device)
         self._graph = None

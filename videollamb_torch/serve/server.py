@@ -61,7 +61,7 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from videollamb_torch.config import ModelConfig
+from videollamb_torch.config import ModelConfig, is_mla
 from videollamb_torch.models.assembly import MultimodalBatch, VideoLLaMB, prepare_multimodal_embeds
 from videollamb_torch.models.lm.llama import (
     KVCache,
@@ -70,6 +70,7 @@ from videollamb_torch.models.lm.llama import (
     init_kv_cache,
     llama_decode_step,
 )
+from videollamb_torch.models.lm.family import dense_ops
 from videollamb_torch.models.lm.mlora import adapter_rows
 from videollamb_torch.parallel.sharding import gathered
 from videollamb_torch.utils.profiling import RECORDER, mark, span
@@ -492,6 +493,10 @@ class ServingEngine:
         # - 'draft': a draft LM (a module; same tokenizer AND hidden size, as
         #   the spliced prompt embeds feed its prefill too; for instance an
         #   int8 copy of the target) proposes on the device.
+        if is_mla(cfg.lm):
+            raise ValueError("the dense ServingEngine serves the Llama family; serve the "
+                             "DeepSeek-V3 family (latent attention, routed experts) with "
+                             "serve/paged.PagedServingEngine (batch_cli --paged)")
         if speculative not in (None, "lookup", "draft"):
             raise ValueError(f"speculative={speculative!r}: 'lookup' or 'draft'")
         if speculative == "draft":
@@ -663,12 +668,13 @@ class ServingEngine:
         req._spliced_cache = None
         with span("admit.prefill", req.uid):
             embeds = spliced.embeds.to(self._dtype)
-            single = init_kv_cache(self.cfg.lm, 1, self.cfg.max_length, dtype=self._dtype,
-                                   device=self.device, lm=self.model.lm)
+            ops = dense_ops(self.cfg.lm)
+            single = ops.init_cache(self.cfg.lm, 1, self.cfg.max_length, dtype=self._dtype,
+                                    device=self.device, lm=self.model.lm)
             with adapter_rows(self.model.lm, aidx1):
-                logits, single = chunked_prefill(self.model.lm, self.cfg.lm, embeds,
-                                                 spliced.attention_mask, single,
-                                                 lengths=[prompt_len])
+                logits, single = ops.chunked_prefill(self.model.lm, self.cfg.lm, embeds,
+                                                     spliced.attention_mask, single,
+                                                     lengths=[prompt_len])
             dsingle = None
             if self.speculative == "draft":
                 # The draft tracks the same context from the same spliced embeds.

@@ -19,6 +19,14 @@ first and counted (:attr:`Recorder.dropped`). :meth:`Recorder.records`
 returns the records between two times; :meth:`Recorder.aggregates` the count,
 sum and histogram buckets of every name's seconds, for ``/metrics``.
 
+Device counters. What a replayed CUDA graph does on the device cannot be
+spanned from the host, so the DeepSeek-V3 family's MoE blocks count in
+place on the device (``models/lm/mla.py``: tokens routed to each expert, and
+the forwards in which each had any); the paged engine reads them between
+steps (``PagedServingEngine.expert_load``) and :func:`expert_load_summary`
+reduces them for ``/metrics``. The engine's pool reports its bytes a token
+(``kv_bytes_per_token``) beside the pages in use.
+
 While a ``torch.profiler`` is recording, each span is also a host event in
 its record (``_RecordFunctionFast``, a plain CPU op with no device-side
 copy), so the trace's idle gaps can be put under the program's innermost
@@ -175,3 +183,15 @@ class Recorder:
 RECORDER = Recorder()
 span = functools.partial(Span, RECORDER)  # span(name, uid=None), into RECORDER
 mark = RECORDER.mark
+
+
+def expert_load_summary(load) -> Tuple[int, List[float]]:
+    """(tokens routed over every MoE layer and expert, each layer's busiest
+    expert's tokens over the mean expert's, 0 before any token) from the
+    (2, layers, experts) counters of ``PagedServingEngine.expert_load``."""
+    tokens = load[0]
+    ratios = []
+    for row in tokens:
+        mean = float(row.sum()) / len(row)
+        ratios.append(float(row.max()) / mean if mean > 0 else 0.0)
+    return int(tokens.sum()), ratios
